@@ -211,6 +211,74 @@ def generate_output_files(data_dir, model_name, dimensions, base_vectors_parquet
             indices_ivec_file, distances_fvec_file)
 
 
+def export_maxsim_doc_maps(data_dir, model_name, dimensions,
+                           query_vectors_parquet, base_vectors_parquet,
+                           base_count, query_count, k,
+                           output_hdf5=True, output_dtype=None):
+    """MaxSim-mode artifact completion: the `ck --maxsim` hdf5/fvec exports
+    hold flat token rows in `test`/`train` while `neighbors`/`distances`
+    are per query *passage*; without the token->passage map a consumer
+    could not reconstruct passages from the artifacts alone. This writes
+    the maps as first-class artifacts:
+
+    - `<stem>_{query,base}_doc_ids_<n>.ivec`: one 1-d int vector per token
+      row (row-aligned with the token fvec files);
+    - hdf5 datasets `test_doc_ids`/`train_doc_ids` of shape
+      (n_tokens, 1) int32, row-aligned with the `test`/`train` groups, plus
+      semantics attrs on `neighbors`/`distances` (`maxsim=1`, neighbors =
+      base passage ids, distances = negated MaxSim scores).
+
+    Returns (n_query_docs, n_base_docs) and asserts artifact coherence:
+    `neighbors` has one row per query passage and every neighbor id is a
+    valid base passage id."""
+    import numpy as np
+    import pyarrow.parquet as pq
+
+    from neighborhoodwatch_tpu_torch.utils.naming import (
+        get_doc_id_map_filenames,
+    )
+
+    q_map_file, b_map_file = get_doc_id_map_filenames(
+        data_dir, model_name, dimensions, base_count, query_count)
+    hdf5_filename = get_hdf5_filename(data_dir, model_name, dimensions,
+                                      base_count, query_count, k,
+                                      output_dtype)
+    n_docs = {}
+    for parquet, out, group in (
+            (query_vectors_parquet, q_map_file, "test_doc_ids"),
+            (base_vectors_parquet, b_map_file, "train_doc_ids")):
+        table = pq.read_table(get_full_filename(data_dir, parquet),
+                              columns=["doc_id"])
+        ids = table.column("doc_id").to_numpy().astype(np.int32)
+        n_docs[group] = int(ids.max()) + 1 if len(ids) else 0
+        if is_empty_file(out):
+            fvec.write_vectors(out, ids[:, None], "i")
+        else:
+            print(f"File {out} already exists")
+        if output_hdf5:
+            write_hdf5(data_dir, model_name, ids[:, None], hdf5_filename,
+                       group)
+        _report(data_dir, out, f"{group.split('_')[0]} doc-id map")
+
+    n_q_docs = n_docs["test_doc_ids"]
+    n_b_docs = n_docs["train_doc_ids"]
+    if output_hdf5:
+        import h5py
+        with h5py.File(get_full_filename(data_dir, hdf5_filename), "a") as f:
+            f.attrs["maxsim"] = 1
+            if "neighbors" in f:
+                f["neighbors"].attrs["semantics"] = "base_passage_ids"
+                assert f["neighbors"].shape[0] == n_q_docs, \
+                    (f"neighbors rows {f['neighbors'].shape[0]} != query "
+                     f"passage count {n_q_docs}")
+                assert int(np.max(f["neighbors"])) < n_b_docs, \
+                    "neighbor id exceeds base passage count"
+            if "distances" in f:
+                f["distances"].attrs["semantics"] = "negated_maxsim_scores"
+                assert f["distances"].shape[0] == n_q_docs
+    return n_q_docs, n_b_docs
+
+
 def _report(data_dir, filename, label):
     full = get_full_filename(data_dir, filename)
     count = fvec.count_vectors(data_dir, filename)

@@ -51,7 +51,31 @@ class ParquetStreamer:
             columns_list.append(
                 pd.DataFrame(embedding_array[:, i], columns=[f"embedding_{i}"]))
         df = pd.concat(columns_list, axis=1)
-        table = pa.Table.from_pandas(df)
+        self._write(pa.Table.from_pandas(df))
+
+    def stream_to_parquet_without_src_metadata(self, embedding_array) -> None:
+        """ColBERT token-embedding rows: columns are exactly self.columns
+        (reference: generate_dataset.py:245-256)."""
+        embedding_array = np.asarray(embedding_array)
+        assert len(self.columns) == embedding_array.shape[1], \
+            f"column count mismatch: {len(self.columns)} != {embedding_array.shape[1]}"
+        df = pd.DataFrame(embedding_array.astype("float32"), columns=self.columns)
+        self._write(pa.Table.from_pandas(df))
+
+    def stream_tokens_with_doc_ids(self, embedding_array, doc_ids) -> None:
+        """Token-embedding rows + an int32 `doc_id` column marking which
+        document (passage) each token belongs to: the bookkeeping the
+        doc-level MaxSim pipeline needs."""
+        embedding_array = np.asarray(embedding_array)
+        doc_ids = np.asarray(doc_ids, dtype=np.int32)
+        assert len(self.columns) == embedding_array.shape[1]
+        assert len(doc_ids) == embedding_array.shape[0]
+        df = pd.DataFrame(embedding_array.astype("float32"),
+                          columns=self.columns)
+        df.insert(0, "doc_id", doc_ids)
+        self._write(pa.Table.from_pandas(df))
+
+    def _write(self, table) -> None:
         if self.writer is None:
             self.writer = pq.ParquetWriter(self._tmp, table.schema,
                                            use_dictionary=False)
@@ -337,3 +361,13 @@ def count_partial_files(partial_dir: str) -> int:
     pattern = re.compile(rf"{re.escape(partial_dir)}/indices(\d+)\.parquet")
     files = sorted(glob.glob(f"{partial_dir}/indices*.parquet"))
     return sum(1 for f in files if pattern.match(f))
+
+
+def cleanup_partial_parquet(partial_dir: str) -> None:
+    """Delete stale partial/final files before a kNN rerun
+    (reference: neighborhoodwatch.py:20-23)."""
+    if not os.path.isdir(partial_dir):
+        return
+    for filename in os.listdir(partial_dir):
+        if filename.startswith(("distances", "indices", "final")):
+            os.remove(f"{partial_dir}/{filename}")

@@ -18,6 +18,14 @@ benchmark consumers find files at identical paths:
 
 import os
 
+# source datasets of the text pipelines
+BASE_DATASET = "wikipedia"
+BASE_DATASET_LANG = "en"
+BASE_DATASET_VERSION = "20220301"
+BASE_CONFIG = f"{BASE_DATASET_VERSION}.{BASE_DATASET_LANG}"
+
+QUERY_DATASET = "squad"
+
 
 def get_full_filename(data_dir: str, filename: str) -> str:
     """Prefix `filename` with `data_dir` unless already prefixed
@@ -100,6 +108,21 @@ def get_ivec_fvec_filenames(homedir, model_name, dimensions, base_count,
             get_full_filename(homedir, base_vector_fvec),
             get_full_filename(homedir, indices_ivec),
             get_full_filename(homedir, distances_fvec))
+
+
+def get_doc_id_map_filenames(homedir, model_name, dimensions, base_count,
+                             query_count):
+    """MaxSim-mode extras: ivec files holding one 1-d vector per token
+    row, aligned row-for-row with the token fvec exports, mapping each
+    token to the passage (doc) id it belongs to. Together with the
+    neighbors/distances files (which are per query passage, holding base
+    passage ids / negated MaxSim scores) the artifact set is
+    self-contained: no parquet needed to line neighbors up with passages."""
+    safe = model_name.replace("/", "_")
+    stem = f"{safe}_{dimensions}"
+    q = f"{stem}_query_doc_ids_{query_count}.ivec"
+    b = f"{stem}_base_doc_ids_{base_count}.ivec"
+    return (get_full_filename(homedir, q), get_full_filename(homedir, b))
 
 
 def get_hdf5_filename(homedir, model_name, dimensions, base_count,

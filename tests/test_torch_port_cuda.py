@@ -96,3 +96,60 @@ def test_auto_engine_launches_the_kernel(cuda):
     de, ie = tknn.knn(q, b, 20, engine="exact")
     assert torch.equal(i, ie)
     assert float((d - de).abs().max()) <= 1e-4
+
+
+def _maxsim_case(rng, Q, Tq, D, Td, dim, cuda):
+    """Ragged masks, one empty doc, one NaN doc, one query with a single
+    valid token."""
+    q = rng.standard_normal((Q, Tq, dim)).astype(np.float32)
+    d = rng.standard_normal((D, Td, dim)).astype(np.float32)
+    qm = rng.random((Q, Tq)) < 0.8
+    qm[:, 0] = True
+    qm[0, 1:] = False
+    dm = rng.random((D, Td)) < 0.7
+    dm[:, 0] = True
+    dm[5] = False
+    d[9, min(2, Td - 1)] = np.nan
+    dm[9, min(2, Td - 1)] = True
+    return [torch.from_numpy(x).to(cuda) for x in (q, qm, d, dm)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Tq,Td,dim,D", [
+    (7, 12, 128, 3 * 8192 + 77), (32, 24, 128, 8192 + 5),
+    (32, 64, 32, 700), (20, 180, 128, 300), (5, 16, 256, 8192),
+    (1, 1, 16, 130)])
+def test_maxsim_kernel_matches_plain(cuda, Tq, Td, dim, D):
+    """maxsim_keys against maxsim_keys_plain at passes 1/2/3: empty slots
+    equal, decoded scores within (PACK_EPS_REL + 4 maxsim_acc_rel(dim)) x
+    (sum_t ||q_t|| x max ||d_s||) (fp32 sums in another order plus one key
+    quantum), doc ids different only between docs that close."""
+    from neighborhoodwatch_tpu_torch.ops import maxsim_kernel as tmk
+    rng = np.random.default_rng(31)
+    q, qm, d, dm = _maxsim_case(rng, 37, Tq, D, Td, dim, cuda)
+    before = tmk.maxsim_keys.launches
+    for passes in (1, 2, 3):
+        ops = tmk.prepare_operands(q, qm, d, dm, passes)[:5]
+        keys = tmk.maxsim_keys(*ops, passes)
+        torch.cuda.synchronize()
+        plain = tmk.maxsim_keys_plain(*ops, passes)
+        assert keys.shape == plain.shape
+        tmk.candidates_agree(tmk.decode_keys(keys), tmk.decode_keys(plain),
+                             q, qm, d, dm)
+    assert tmk.maxsim_keys.launches == before + 3
+
+
+@pytest.mark.cuda
+def test_maxsim_wrapper_checks_its_inputs(cuda):
+    from neighborhoodwatch_tpu_torch.ops import maxsim_kernel as tmk
+    q = torch.zeros((4, 8, 32), dtype=torch.bfloat16, device=cuda)
+    d = torch.zeros((64, 4, 32), dtype=torch.bfloat16, device=cuda)
+    b = torch.zeros(64, device=cuda)
+    with pytest.raises(TypeError):
+        tmk.maxsim_keys(q.float(), None, d, None, b, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        tmk.maxsim_keys(q, None, d.transpose(0, 1).contiguous()
+                        .transpose(0, 1), None, b, 1)
+    with pytest.raises(ValueError, match="query tokens"):
+        tmk.maxsim_keys(torch.zeros((4, 33, 32), dtype=torch.bfloat16,
+                                    device=cuda), None, d, None, b, 1)

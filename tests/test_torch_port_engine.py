@@ -19,6 +19,8 @@ from neighborhoodwatch_tpu.ops import screen_kernel as jsk
 
 from neighborhoodwatch_tpu_torch.ops import knn as tknn
 
+from tests.torch_port_util import assert_ids_tie_tolerant
+
 MEGA = jsk.MEGA
 
 
@@ -46,6 +48,24 @@ def _oracle(q, b, k, metric):
     return np.argsort(dm, axis=1, kind="stable")[:, :k]
 
 
+def _oracle_sorted(q, b, k, metric):
+    """The oracle's k best distances, ascending, in float64 and on the
+    metric's own scale (the scale the distance tolerance is stated on)."""
+    q64, b64 = q.astype(np.float64), b.astype(np.float64)
+    if metric in ("sqeuclidean", "euclidean"):
+        dm = np.maximum((q64 ** 2).sum(1)[:, None]
+                        + (b64 ** 2).sum(1)[None, :] - 2 * q64 @ b64.T, 0.0)
+        if metric == "euclidean":
+            dm = np.sqrt(dm)
+    elif metric == "cosine":
+        qn = q64 / np.linalg.norm(q64, axis=1, keepdims=True)
+        bn = b64 / np.linalg.norm(b64, axis=1, keepdims=True)
+        dm = 1.0 - qn @ bn.T
+    else:
+        dm = 1.0 - q64 @ b64.T
+    return np.sort(dm, axis=1)[:, :k]
+
+
 def _same_sets(idx, oracle):
     for r in range(len(oracle)):
         assert set(np.asarray(idx)[r].tolist()) == set(oracle[r]), r
@@ -65,17 +85,25 @@ def test_exact_engine_matches_jax_on_conftest_workload(normalized_vectors,
     q, b = normalized_vectors
     k = 10
     jd, ji = jknn.knn(q, b, k, metric=metric, engine="exact")
+    # both engines take sqrt before the selection, which folds squared
+    # distances one ulp apart into fp32 ties: which of two tied neighbours
+    # comes first then depends on the matmul's rounding on this machine.
+    # Ids are compared exactly wherever the oracle's distances are more
+    # than the distance tolerance (1e-5) apart, as sets where they tie.
+    tol = 1e-5
+    osort = _oracle_sorted(q, b, k, metric)
     for tile in (None, 384):
         td, ti = _port_knn(q, b, k, metric=metric, engine="exact",
                            tile_size=tile, base_offset=7)
         assert ti.dtype == np.int32
-        np.testing.assert_array_equal(ti - 7, np.asarray(ji))
-        np.testing.assert_allclose(td, np.asarray(jd), atol=1e-5, rtol=0)
+        assert_ids_tie_tolerant(ti - 7, np.asarray(ji), osort, tol)
+        np.testing.assert_allclose(td, np.asarray(jd), atol=tol, rtol=0)
     _same_sets(ti - 7, _oracle(q, b, k, metric))
     # "verified" and "auto" on the CPU are the exact engine
     for engine in ("verified", "auto", "screened"):
-        _, ti2 = _port_knn(q, b, k, metric=metric, engine=engine)
-        np.testing.assert_array_equal(ti2, np.asarray(ji))
+        td2, ti2 = _port_knn(q, b, k, metric=metric, engine=engine)
+        assert_ids_tie_tolerant(ti2, np.asarray(ji), osort, tol)
+        np.testing.assert_allclose(td2, np.asarray(jd), atol=tol, rtol=0)
 
 
 @pytest.mark.parametrize("metric", ["sqeuclidean", "cosine", "dot"])
