@@ -21,7 +21,7 @@ Phases, each printing its own lines and seconds:
      where h5py is installed) -> validate_files_v0, and the ivec against
      the exact engine;
   5. MaxSim kernel against plain: maxsim_keys and its plain PyTorch
-     version on the same prepared operands, passes 1/2/3 x Tq 7/32 x Td
+     version on the same prepared operands, passes 1/2/3 x Tq 7/24/32 x Td
      12/24/64/180 x dim 128/32/256 with masked tokens, empty docs and a NaN
      doc, plus one case of 3+ mega-tiles on a ragged doc count;
   6. MaxSim engine at ColBERT's width: 1,000 query passages x 32 tokens x
@@ -29,13 +29,15 @@ Phases, each printing its own lines and seconds:
      tokens: maxsim_topk(engine="auto") must pick the screened engine and
      launch the kernel; result held against the exact engine on 64
      queries; the kernel alone at 1/2/3 passes beside its bound, the plain
-     version, a product-only torch.mm yardstick, the call's stages; then
+     version, a product-only torch.mm yardstick (the whole tile loop,
+     measured), the call's stages; then
      StreamingMaxSim over the first corpus in 8192-doc tiles;
   7. ck: the port's ck_main --maxsim --synthetic --post-validation at
      BERT-base width with seeded random weights (bf16 activations) over
-     25,600 base passages (3 full 8192-doc tiles + a tail), then
-     validate_maxsim_files and the exported neighbours against the exact
-     MaxSim engine on the same parquet.
+     25,600 base passages (3 full 8192-doc tiles + a padded tail), then
+     validate_maxsim_files, the exported neighbours against the exact
+     MaxSim engine on the same parquet, and the kernel against its plain
+     version on the run's own queries and first tile at 3/2/1 passes.
 The line before the last is one JSON object with the kernels' numbers;
 the last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 without that line; without a CUDA card it exits 2.
@@ -457,7 +459,7 @@ def phase_maxsim_kernel_vs_plain():
         return q, qm, d, dm
 
     worst, n_cases, swapped_all = 0.0, 0, 0
-    shapes = [(19, tq, 1500, td, dim) for tq in (7, 32)
+    shapes = [(19, tq, 1500, td, dim) for tq in (7, 24, 32)
               for td in (12, 24, 64, 180) for dim in (128, 32, 256)]
     shapes.append((37, 32, 3 * mk.MEGA_DOCS + 77, 12, 128))
     for Q, Tq, D, Td, dim in shapes:
@@ -494,6 +496,51 @@ def check_against_exact(s_a, i_a, s_e, i_e, k, what):
         f"max |score - exact| {float(dd.max()):.3g}")
     if recall != 1.0 or not ties_ok or float(dd.max()) > 1e-3:
         raise AssertionError(f"{what} differs from the exact engine")
+
+
+def maxsim_stages(q, qm, d, dm, k, diagnostics=False):
+    """The stages of one 3-pass maxsim_topk_screened call, run one by one
+    (medians of 3; the kernel by CUDA events). Returns (prep_ms, kernel_ms,
+    select_ms, operands, keys); `diagnostics` runs prep and select as the
+    adaptive stream does (residual statistic, tier probe)."""
+    from neighborhoodwatch_tpu_torch.ops import maxsim as M
+    from neighborhoodwatch_tpu_torch.ops import maxsim_kernel as mk
+    prep_ms = median_ms(lambda: mk.prepare_operands(q, qm, d, dm, 3,
+                                                    diagnostics))
+    ops = mk.prepare_operands(q, qm, d, dm, 3, diagnostics)
+    kernel_ms = event_ms(lambda: mk.maxsim_keys(*ops[:5], 3))
+    keys = mk.maxsim_keys(*ops[:5], 3)
+    cn, cd = mk.decode_keys(keys)
+    m, block, _ = M.maxsim_screen_plan(d.shape[0], k, d.shape[1], d.shape[2],
+                                       passes=3)
+    select_ms = median_ms(lambda: M._maxsim_select(
+        q, qm, d, dm, cn, cd, k, m, block=block, passes=3, doc_stats=ops[5],
+        with_diagnostics=diagnostics))
+    return prep_ms, kernel_ms, select_ms, ops, keys
+
+
+def product_loop_ms(ops3, passes):
+    """Product-only yardstick, measured whole (CUDA events, median of 3):
+    torch.mm of the kernel's own bf16 operands, one 8192-doc tile at a
+    time with the ragged last tile, the 1, 2 or 3 products of the tier
+    (qhi.dhi [+ qlo.dhi [+ qhi.dlo]]). No max, sum or selection."""
+    import torch
+    from neighborhoodwatch_tpu_torch.ops import maxsim_kernel as mk
+    qhi, qlo, dhi, dlo = ops3[:4]
+    dimp = qhi.shape[2]
+    qh2, ql2 = qhi.reshape(-1, dimp), qlo.reshape(-1, dimp)
+
+    def run():
+        for s in range(0, dhi.shape[0], mk.MEGA_DOCS):
+            th = dhi[s:s + mk.MEGA_DOCS].reshape(-1, dimp).T
+            torch.mm(qh2, th)
+            if passes >= 2:
+                torch.mm(ql2, th)
+            if passes >= 3:
+                torch.mm(qh2, dlo[s:s + mk.MEGA_DOCS].reshape(-1, dimp).T)
+    ms = event_ms(run)
+    torch.cuda.empty_cache()
+    return ms
 
 
 def phase_maxsim_engine(rec):
@@ -545,15 +592,7 @@ def phase_maxsim_engine(rec):
                             f"[{label}] screened vs exact")
 
         # ---- stages of the call (3-pass tier), run one by one ----
-        prep_ms = median_ms(lambda: mk.prepare_operands(q, qm, d, dm, 3))
-        ops3 = mk.prepare_operands(q, qm, d, dm, 3)
-        keys = mk.maxsim_keys(*ops3[:5], 3)
-        cn, cd = mk.decode_keys(keys)
-        m, block, _ = M.maxsim_screen_plan(D, k, Td, dim, passes=3)
-        select_ms = median_ms(lambda: M._maxsim_select(
-            q, qm, d, dm, cn, cd, k, m, block=block, passes=3,
-            doc_stats=ops3[5]))
-        del cn, cd
+        prep_ms, _, select_ms, ops3, keys = maxsim_stages(q, qm, d, dm, k)
 
         # ---- the kernel at the main path's shapes ----
         kernel = {}
@@ -584,14 +623,13 @@ def phase_maxsim_engine(rec):
             f"tolerance) {swapped}")
         del plain, keys
         # product-only yardstick: no single PyTorch call computes MaxSim
-        qhi2 = ops3[0].reshape(Q * Tq, dim)
-        tile = ops3[2][:mk.MEGA_DOCS].reshape(-1, dim)
-        n_tiles = -(-D // mk.MEGA_DOCS)
-        mm_ms = event_ms(lambda: torch.mm(qhi2, tile.T)) * n_tiles
-        log(f"  [{label}] product-only yardstick, torch.mm(bf16 q tokens, "
-            f"bf16 tokens of one 8192-doc tile^T) x {n_tiles} tiles: "
-            f"{mm_ms:.1f} ms per pass (no max, sum or selection)")
-        del ops3, qhi2, tile
+        mm_ms = {p: product_loop_ms(ops3, p) for p in (1, 2, 3)}
+        log(f"  [{label}] product-only yardstick, measured whole: torch.mm "
+            f"of the bf16 operands over {-(-D // mk.MEGA_DOCS)} 8192-doc "
+            f"tiles (ragged last tile), the tier's 1 / 2 / 3 products: "
+            f"{mm_ms[1]:.1f} / {mm_ms[2]:.1f} / {mm_ms[3]:.1f} ms (no max, "
+            f"sum or selection)")
+        del ops3
         torch.cuda.empty_cache()
 
         n_mega = -(-D // mk.MEGA_DOCS)
@@ -605,9 +643,12 @@ def phase_maxsim_engine(rec):
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "operations" if flops / PEAK_BF16_FLOPS
             >= bytes_ / PEAK_BYTES else "bytes",
-            "product_yardstick_ms": mm_ms * 3, "call_ms": call_ms}
+            "product_yardstick_ms": mm_ms[3],
+            "product_yardstick_ms_by_passes": {str(p): mm_ms[p]
+                                               for p in mm_ms},
+            "call_ms": call_ms}
         if label == "200k x 16":
-            stream_launches = stream_maxsim(q, qm, d, dm, k, s_s, i_s)
+            stream = stream_maxsim(q, qm, d, dm, k, s_s, i_s)
         del d, dm, s_s, i_s, s_e, i_e
         torch.cuda.empty_cache()
 
@@ -617,14 +658,17 @@ def phase_maxsim_engine(rec):
                  "product_yardstick_ms")})
     rec["library_ms"] = None
     rec["passes"] = 3
-    rec["launches"] = (main["launches"] + shapes["50k x 64"]["launches"]
-                       + stream_launches)
+    # launches are kept per path, never summed: the one-shot calls' stand
+    # in `shapes`, the stream's here, ck's (the record's `launches`) in
+    # phase 7
+    rec.update(stream)
     rec["shapes"] = shapes
 
 
 def stream_maxsim(q, qm, d, dm, k, s_one, i_one):
-    """StreamingMaxSim("auto") over `d` in 8192-doc tiles; returns the
-    kernel launches it made."""
+    """StreamingMaxSim("auto") over `d` in 8192-doc tiles; returns its
+    kernel launches and the share of (query, screened tile) pairs that the
+    exact engine recomputed after a failed certificate."""
     import torch
     from neighborhoodwatch_tpu_torch.ops import maxsim as M
     from neighborhoodwatch_tpu_torch.ops import maxsim_kernel as mk
@@ -646,15 +690,17 @@ def stream_maxsim(q, qm, d, dm, k, s_one, i_one):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches = mk.maxsim_keys.launches
+    share = M.counts.exact_fallbacks / (q.shape[0] * max(n_full, 1))
     log(f"  [stream] {n_tiles} tiles of {tile} docs ({n_full} screened, "
         f"{n_tiles - n_full} exact tail): {wall * 1e3:.1f} ms, "
         f"{wall * 1e3 / n_tiles:.1f} ms per tile; kernel launches "
         f"{launches}, queries escalated {M.counts.escalated}, "
         f"repaired from their bins {M.counts.repaired}, sent to "
-        f"the exact engine {M.counts.exact_fallbacks} (of "
-        f"{q.shape[0]} x {n_full}), final tier '{M.MAXSIM_TIER_LADDER[acc._tier_idx]}', host copies "
-        f"per screened tile "
-        f"{M.counts.host_copies / max(n_full, 1):.2f}")
+        f"the exact engine {M.counts.exact_fallbacks} of "
+        f"{q.shape[0]} x {n_full} (share {share:.4f}: the kernel's keys "
+        f"decide the rest), final tier "
+        f"'{M.MAXSIM_TIER_LADDER[acc._tier_idx]}', host copies per screened "
+        f"tile {M.counts.host_copies / max(n_full, 1):.2f}")
     if launches < n_full:
         raise AssertionError("a full tile did not launch the kernel")
     check_against_exact(acc.state[0], acc.state[1], s_one, i_one, k,
@@ -666,14 +712,8 @@ def stream_maxsim(q, qm, d, dm, k, s_one, i_one):
     call_ms = median_ms(lambda: M.maxsim_topk_screened(
         q, qm, tq, tm, k, screen_precision="high", with_diagnostics=True))
     n_exact = M.counts.exact_fallbacks // 3
-    prep_ms = median_ms(lambda: mk.prepare_operands(q, qm, tq, tm, 3, True))
-    ops = mk.prepare_operands(q, qm, tq, tm, 3, True)
-    kern_ms = event_ms(lambda: mk.maxsim_keys(*ops[:5], 3))
-    cn, cd = mk.decode_keys(mk.maxsim_keys(*ops[:5], 3))
-    m, block, _ = M.maxsim_screen_plan(tile, k, d.shape[1], d.shape[2], 3)
-    sel_ms = median_ms(lambda: M._maxsim_select(
-        q, qm, tq, tm, cn, cd, k, m, block=block, passes=3,
-        doc_stats=ops[5], with_diagnostics=True))
+    prep_ms, kern_ms, sel_ms, _, _ = maxsim_stages(q, qm, tq, tm, k,
+                                                   diagnostics=True)
     merge_ms = median_ms(lambda: acc.update(tq, tm, offset=acc.docs_seen)) \
         - call_ms
     log(f"  [stream] one 8192-doc tile: call {call_ms:.1f} ms = prep "
@@ -683,7 +723,8 @@ def stream_maxsim(q, qm, d, dm, k, s_one, i_one):
         f"{n_exact} queries whose "
         f"certificate failed); update() adds "
         f"{merge_ms:.1f} ms (running top-k merge)")
-    return launches
+    return {"stream_launches": launches,
+            "stream_exact_fallback_share": share}
 
 
 def phase_ck(rec, workdir):
@@ -698,7 +739,8 @@ def phase_ck(rec, workdir):
     from neighborhoodwatch_tpu_torch.utils import naming
     from neighborhoodwatch_tpu_torch.validate import validate_maxsim_files
     # a synthetic source row is one 17-token passage: 512 query passages,
-    # 25,600 base passages = 3 full 8192-doc tiles + a 1,024-doc tail
+    # 25,600 base passages = 3 full 8192-doc tiles + a 1,024-doc tail,
+    # which the pipeline pads to 8192 masked rows and screens too
     per_doc, n_q, n_b, k = 17, 512, 25_600, 100
     q_tok, b_tok = per_doc * n_q, per_doc * n_b
     argv = [str(q_tok), str(b_tok), "-k", str(k), "-es", "small",
@@ -709,17 +751,28 @@ def phase_ck(rec, workdir):
         argv.append("--no-gen-hdf5")
         log("  hdf5 export skipped: h5py is not installed on this machine")
     mk.maxsim_keys.launches = 0
+    M.counts.repaired = M.counts.escalated = M.counts.exact_fallbacks = 0
     t = time.perf_counter()
     ck_main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches = mk.maxsim_keys.launches
+    # the pipeline pads its last tile's doc axis to 8192 masked rows, so
+    # the tail is screened like the full tiles
     full_tiles = n_b // mk.MEGA_DOCS
+    tiles = -(-n_b // mk.MEGA_DOCS)
+    share = M.counts.exact_fallbacks / (n_q * tiles)
     log(f"  ck_main {' '.join(argv[:2])} --maxsim: {wall:.1f} s, kernel "
-        f"launches {launches} ({full_tiles} full tiles)")
-    if launches < full_tiles:
+        f"launches {launches} ({tiles} tiles: {full_tiles} full + a "
+        f"{n_b - full_tiles * mk.MEGA_DOCS}-doc tail padded to "
+        f"{mk.MEGA_DOCS} rows); queries repaired from their bins "
+        f"{M.counts.repaired}, escalated to the 3-pass screen "
+        f"{M.counts.escalated}, sent to the exact engine "
+        f"{M.counts.exact_fallbacks} of {n_q} x {tiles} (share "
+        f"{share:.4f}: the kernel's keys decide the rest)")
+    if launches < tiles:
         raise AssertionError("ck --maxsim launched the kernel fewer times "
-                             "than it had full tiles")
+                             "than it had tiles")
 
     model = "colbertv2.0"
     data_dir = naming.get_model_data_homedir(
@@ -734,11 +787,12 @@ def phase_ck(rec, workdir):
         raise AssertionError(f"validate_maxsim_files found {mismatches}")
     idx = fvec.read_vectors(files[2])
     dist = fvec.read_vectors(files[3])
-    sides = []
+    sides, lists = [], []
     for kind, count in (("query", q_tok), ("base", b_tok)):
         mat, ids = _read_doc_tokens(
             f"{data_dir}/{model}_128_{kind}_token{count}_docs_src.parquet")
-        sides.append(M.pad_token_lists(_split_by_doc(mat, ids), 128))
+        lists.append(_split_by_doc(mat, ids))
+        sides.append(M.pad_token_lists(lists[-1], 128))
     (qq, qqm), (dd, ddm) = sides
     if idx.shape != (n_q, k) or dd.shape[0] != n_b:
         raise AssertionError(f"unexpected artifact shapes {idx.shape}, "
@@ -763,8 +817,47 @@ def phase_ck(rec, workdir):
         f"{below:.3g}")
     if worst > 1e-3 or below > 1e-3:
         raise AssertionError("exported neighbours differ from exact MaxSim")
-    rec["launches"] += launches
-    rec["ck_launches"] = launches
+    rec["launches"] = rec["ck_launches"] = launches
+    rec["ck_exact_fallback_share"] = share
+    rec["ck_shape"] = ck_kernel_vs_plain(dev_t[0], dev_t[1], lists[1])
+
+
+def ck_kernel_vs_plain(q, qm, base_docs):
+    """The kernel against its plain version at the shapes ck gives it: the
+    run's own query passages and its first full 8192-doc tile, padded as
+    compute_maxsim_knn pads it (to a multiple of 16 tokens), at the 3-pass
+    tier and the two tiers the stream's controller may downshift to. The
+    certified engine would hide wrong keys behind its exact fallback, so
+    this comparison, not the run's result, is what holds the kernel."""
+    import torch
+    from neighborhoodwatch_tpu_torch.ops import maxsim as M
+    from neighborhoodwatch_tpu_torch.ops import maxsim_kernel as mk
+    from neighborhoodwatch_tpu_torch.utils.misc import round_up
+    chunk = base_docs[:mk.MEGA_DOCS]
+    td = round_up(max(len(c) for c in chunk), 16)
+    tile, tmask = M.pad_token_lists(chunk, q.shape[2], max_tokens=td)
+    d = torch.as_tensor(tile, device="cuda")
+    dm = torch.as_tensor(tmask, device="cuda")
+    out = {"Q": q.shape[0], "Tq": q.shape[1], "D": d.shape[0], "Td": td,
+           "valid_query_tokens": int(qm.sum(1).max()), "by_passes": {}}
+    for passes in (3, 2, 1):
+        ops = mk.prepare_operands(q, qm, d, dm, passes, True)[:5]
+        keys = mk.maxsim_keys(*ops, passes)
+        ms = event_ms(lambda o=ops, p=passes: mk.maxsim_keys(*o, p))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        plain = mk.maxsim_keys_plain(*ops, passes)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t) * 1e3
+        err, swapped = mk.candidates_agree(
+            mk.decode_keys(keys), mk.decode_keys(plain), q, qm, d, dm)
+        out["by_passes"][str(passes)] = {"ms": ms, "plain_ms": plain_ms,
+                                         "max_abs_err": err}
+        log(f"  kernel vs plain at ck's shapes (Q={out['Q']} Tq={out['Tq']} "
+            f"D={out['D']} Td={td}, {passes} passes): kernel {ms:.2f} ms, "
+            f"plain {plain_ms:.1f} ms, max |score| {err:.3g}, swapped ids "
+            f"(within tolerance) {swapped}")
+    return out
 
 
 def main():

@@ -153,8 +153,8 @@ def compute_maxsim_knn(data_dir, query_filename, base_filename, k,
     Base token rows are streamed, grouped into passages on the doc_id
     column, padded per tile to a multiple of 16 tokens and merged on the
     device through StreamingMaxSim (tiles of 8192 docs: one mega-tile of
-    the screen kernel, which every full tile launches on a card; a last
-    tile under 4096 docs takes the exact engine).
+    the screen kernel; the last tile's doc axis is padded to the same
+    8192 rows with masked docs, so on a card every tile launches it).
 
     Every `checkpoint_every` parquet batches the running (score, idx,
     docs_seen) state checkpoints to partial/stream_state.npz (the same

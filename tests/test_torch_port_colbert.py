@@ -52,7 +52,9 @@ from neighborhoodwatch_tpu_torch.models import tokenizer as ttok
 from neighborhoodwatch_tpu_torch.ops import maxsim as tm
 from neighborhoodwatch_tpu_torch.utils import naming
 
-from tests.torch_port_util import assert_ids_tie_tolerant
+from tests.torch_port_util import (
+    assert_ids_tie_tolerant, maxsim_oracle_wide,
+)
 
 HAVE_H5PY = importlib.util.find_spec("h5py") is not None
 DIM = 16
@@ -172,9 +174,9 @@ def test_compute_maxsim_knn_matches_jax(tmp_path, case):
         assert not os.path.exists(f"{root}/partial/stream_state.npz")
     q, qm = jm.pad_token_lists(q_docs, DIM)
     d, dm = jm.pad_token_lists(b_docs, DIM)
-    os_, oi = jm.maxsim_oracle(q, qm, d, dm, k)
-    assert_ids_tie_tolerant(out["torch"][0], out["jax"][0], os_, 1e-4)
-    assert_ids_tie_tolerant(out["torch"][0], oi, os_, 1e-4)
+    os_, oi, ow = maxsim_oracle_wide(q, qm, d, dm, k)
+    assert_ids_tie_tolerant(out["torch"][0], out["jax"][0], ow, 1e-4)
+    assert_ids_tie_tolerant(out["torch"][0], oi, ow, 1e-4)
     np.testing.assert_allclose(out["torch"][1], out["jax"][1], atol=1e-4)
     np.testing.assert_allclose(out["torch"][1], -os_, atol=1e-4)
     assert (np.diff(out["torch"][1], axis=1) >= -1e-6).all()
@@ -241,8 +243,8 @@ def test_maxsim_checkpoint_resumes_across_packages(tmp_path, capsys, writer,
     assert (n_q, n_b) == (5, 23)
     idx, dist = _finals(root)
     d, dm = jm.pad_token_lists(b_docs, DIM)
-    os_, oi = jm.maxsim_oracle(q, qm, d, dm, k)
-    assert_ids_tie_tolerant(idx, oi, os_, 1e-4)
+    os_, oi, ow = maxsim_oracle_wide(q, qm, d, dm, k)
+    assert_ids_tie_tolerant(idx, oi, ow, 1e-4)
     np.testing.assert_allclose(dist, -os_, atol=1e-4)
 
 

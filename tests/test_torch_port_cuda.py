@@ -118,7 +118,9 @@ def _maxsim_case(rng, Q, Tq, D, Td, dim, cuda):
 @pytest.mark.parametrize("Tq,Td,dim,D", [
     (7, 12, 128, 3 * 8192 + 77), (32, 24, 128, 8192 + 5),
     (32, 64, 32, 700), (20, 180, 128, 300), (5, 16, 256, 8192),
-    (1, 1, 16, 130)])
+    # Tq=24: two queries per block, 48 of its 64 rows live (the shape of
+    # 17-token passages padded to a multiple of 8)
+    (24, 32, 128, 8192), (24, 12, 128, 1500), (1, 1, 16, 130)])
 def test_maxsim_kernel_matches_plain(cuda, Tq, Td, dim, D):
     """maxsim_keys against maxsim_keys_plain at passes 1/2/3: empty slots
     equal, decoded scores within (PACK_EPS_REL + 4 maxsim_acc_rel(dim)) x

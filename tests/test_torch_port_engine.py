@@ -91,7 +91,9 @@ def test_exact_engine_matches_jax_on_conftest_workload(normalized_vectors,
     # Ids are compared exactly wherever the oracle's distances are more
     # than the distance tolerance (1e-5) apart, as sets where they tie.
     tol = 1e-5
-    osort = _oracle_sorted(q, b, k, metric)
+    # k + 1 oracle values: a tie across the k-th boundary lets the two
+    # sides hold different members of it
+    osort = _oracle_sorted(q, b, k + 1, metric)
     for tile in (None, 384):
         td, ti = _port_knn(q, b, k, metric=metric, engine="exact",
                            tile_size=tile, base_offset=7)

@@ -25,7 +25,9 @@ from neighborhoodwatch_tpu.ops import maxsim_kernel as jmk
 from neighborhoodwatch_tpu_torch.ops import maxsim as tm
 from neighborhoodwatch_tpu_torch.ops import maxsim_kernel as tmk
 
-from tests.torch_port_util import assert_ids_tie_tolerant
+from tests.torch_port_util import (
+    assert_ids_tie_tolerant, maxsim_oracle_wide,
+)
 
 SCORE_TOL = 1e-3
 
@@ -55,7 +57,7 @@ def _corpus(seed, Q, Tq, D, Td, dim, garbage=False):
 
 
 def _oracle_sorted(q, qm, d, dm, k):
-    return jm.maxsim_oracle(q, qm, d, dm, k)[0]
+    return maxsim_oracle_wide(q, qm, d, dm, k)[2]
 
 
 # (Tq, Td, dim, D, passes-tier, garbage, pipelined)
@@ -227,9 +229,9 @@ def test_exact_engine_matches_jax_and_oracle(tile_docs):
                             device="cpu")
     assert ti.dtype == torch.int32
     finite = [i for i in range(150) if i not in (9, 11)]
-    os_, oi = jm.maxsim_oracle(q, qm, d[finite], dm[finite], k)
-    assert_ids_tie_tolerant(ti.numpy(), np.asarray(ji), os_, SCORE_TOL)
-    assert_ids_tie_tolerant(ti.numpy(), np.asarray(finite)[oi], os_,
+    os_, oi, ow = maxsim_oracle_wide(q, qm, d[finite], dm[finite], k)
+    assert_ids_tie_tolerant(ti.numpy(), np.asarray(ji), ow, SCORE_TOL)
+    assert_ids_tie_tolerant(ti.numpy(), np.asarray(finite)[oi], ow,
                             SCORE_TOL)
     np.testing.assert_allclose(ts.numpy(), np.asarray(js), atol=SCORE_TOL)
     np.testing.assert_allclose(ts.numpy(), os_, atol=SCORE_TOL)
@@ -251,9 +253,9 @@ def test_screened_engine_matches_jax_and_oracle(tier, shape):
                                             with_diagnostics=True,
                                             device="cpu")
     np.testing.assert_array_equal(tdiag, np.asarray(jdiag))
-    os_, oi = jm.maxsim_oracle(q, qm, d, dm, k)
-    assert_ids_tie_tolerant(ti.numpy(), np.asarray(ji), os_, SCORE_TOL)
-    assert_ids_tie_tolerant(ti.numpy(), oi, os_, SCORE_TOL)
+    os_, oi, ow = maxsim_oracle_wide(q, qm, d, dm, k)
+    assert_ids_tie_tolerant(ti.numpy(), np.asarray(ji), ow, SCORE_TOL)
+    assert_ids_tie_tolerant(ti.numpy(), oi, ow, SCORE_TOL)
     np.testing.assert_allclose(ts.numpy(), np.asarray(js), atol=SCORE_TOL)
     np.testing.assert_allclose(ts.numpy(), os_, atol=SCORE_TOL)
     # engine="screened" through maxsim_topk on CPU tensors: the plain
@@ -416,9 +418,9 @@ def test_subhigh_failures_escalate_to_the_3_pass_screen(monkeypatch):
                                      device="cpu")
     assert routes["torch"] == routes["jax"] == [1, 3]
     assert tm.counts.escalated == before + 9
-    os_, oi = jm.maxsim_oracle(q, qm, d, dm, k)
-    assert_ids_tie_tolerant(ti.numpy(), oi, os_, SCORE_TOL)
-    assert_ids_tie_tolerant(ti.numpy(), np.asarray(ji), os_, SCORE_TOL)
+    os_, oi, ow = maxsim_oracle_wide(q, qm, d, dm, k)
+    assert_ids_tie_tolerant(ti.numpy(), oi, ow, SCORE_TOL)
+    assert_ids_tie_tolerant(ti.numpy(), np.asarray(ji), ow, SCORE_TOL)
     np.testing.assert_allclose(ts.numpy(), os_, atol=SCORE_TOL)
 
 
@@ -445,9 +447,9 @@ def test_streaming_matches_jax(tier):
     assert ta._tier_idx == ja._tier_idx
     js, ji = ja.finalize()
     ts, ti = ta.finalize()
-    os_, oi = jm.maxsim_oracle(q, qm, d, dm, k)
-    assert_ids_tie_tolerant(ti, ji, os_, SCORE_TOL)
-    assert_ids_tie_tolerant(ti, oi, os_, SCORE_TOL)
+    os_, oi, ow = maxsim_oracle_wide(q, qm, d, dm, k)
+    assert_ids_tie_tolerant(ti, ji, ow, SCORE_TOL)
+    assert_ids_tie_tolerant(ti, oi, ow, SCORE_TOL)
     np.testing.assert_allclose(ts, js, atol=SCORE_TOL)
 
 
@@ -473,11 +475,11 @@ def test_streaming_exact_path_and_checkpoint_cross_packages():
     for acc in (ja2, ta2):
         acc.update(d[40:], dm[40:], 40)
     finite = [i for i in range(90) if i not in (9, 11)]
-    os_, oi = jm.maxsim_oracle(q, qm, d[finite], dm[finite], k)
+    os_, oi, ow = maxsim_oracle_wide(q, qm, d[finite], dm[finite], k)
     want = np.asarray(finite)[oi]
     for acc in (ja2, ta2):
         s, i = acc.finalize()
-        assert_ids_tie_tolerant(i, want, os_, SCORE_TOL)
+        assert_ids_tie_tolerant(i, want, ow, SCORE_TOL)
         np.testing.assert_allclose(s, os_, atol=SCORE_TOL)
     with pytest.raises(AssertionError, match="saw only 3"):
         short = tm.StreamingMaxSim(q, qm, k, device="cpu")
