@@ -5,39 +5,47 @@
 Phases, each printing its own lines and seconds:
   1. setup: the card's name and power limit, torch/CUDA versions, and the
      build of the hand-written kernels (csrc/screen_keys.cu and
-     csrc/maxsim_keys.cu, one nvcc each, started together, into
-     neighborhoodwatch_tpu_torch/_build/);
+     csrc/maxsim_keys.cu, both on csrc/wgmma_mainloop.cuh, one nvcc each,
+     started together, into neighborhoodwatch_tpu_torch/_build/) with
+     ptxas' registers and spills per kernel variant (a spill fails the run);
   2. kernel against plain: the screen kernel and its plain PyTorch version
      on the same bf16 operands, passes 1/2/3 x l2/dot/rdot, on ragged
-     shapes (D=200 and D=45, padded nowhere) and one sub=112 wide-tier
-     base;
+     shapes (D=200 and D=45, padded nowhere; a query count that leaves a
+     surplus cluster block) and one sub=112 wide-tier base; every case on
+     the variant its shape takes ("wgmma", or "mma" for D=45) and, where
+     that is "wgmma", on "mma" too;
   3. engine at full size: 10,000 queries x 1,000,000 base rows x 1536
      dims, k=100, sqeuclidean, unit Gaussian rows: knn(engine="auto") must
-     pick the screened engine and launch the kernel; its result is held
-     against the exact engine and its kernel against the plain version at
-     these shapes; times are medians of 3 runs;
+     pick the screened engine and launch the "wgmma" kernel; its result is
+     held against the exact engine and its kernel against the plain version
+     at these shapes; the two variants are timed in turns (mma, wgmma,
+     wgmma, mma) at 1/2/3 passes, here and at the streamed batch's shape
+     (1,000 x 100,000, sub=28); times are medians of 3 runs;
   4. pipeline: 1,000 x 320,000 x 1536 embeddings parquet -> compute_knn_ds
-     (3 streamed screened batches) -> fvec/ivec/hdf5 export (hdf5 only
-     where h5py is installed) -> validate_files_v0, and the ivec against
-     the exact engine;
+     (3 streamed screened batches, each launch timed by CUDA events) ->
+     fvec/ivec/hdf5 export (hdf5 only where h5py is installed) ->
+     validate_files_v0, and the ivec against the exact engine;
   5. MaxSim kernel against plain: maxsim_keys and its plain PyTorch
      version on the same prepared operands, passes 1/2/3 x Tq 7/24/32 x Td
-     12/24/64/180 x dim 128/32/256 with masked tokens, empty docs and a NaN
-     doc, plus one case of 3+ mega-tiles on a ragged doc count;
+     12/24/64/180 x dim 128/32/256/64 with masked tokens, empty docs and a
+     NaN doc, plus one case of 3+ mega-tiles on a ragged doc count; every
+     case on the variant its shape takes ("wgmma" at dim 128 and 64, "mma"
+     at 32 and 256) and, where that is "wgmma", on "mma" too;
   6. MaxSim engine at ColBERT's width: 1,000 query passages x 32 tokens x
      128 dims, k=100, against 200,000 docs x 16 tokens and 50,000 docs x 64
      tokens: maxsim_topk(engine="auto") must pick the screened engine and
-     launch the kernel; result held against the exact engine on 64
-     queries; the kernel alone at 1/2/3 passes beside its bound, the plain
-     version, a product-only torch.mm yardstick (the whole tile loop,
-     measured), the call's stages; then
+     launch the "wgmma" kernel; result held against the exact engine on 64
+     queries; the two variants timed in turns at 1/2/3 passes beside the
+     bound, the plain version, a product-only torch.mm yardstick (the
+     whole tile loop, measured), the call's stages; then
      StreamingMaxSim over the first corpus in 8192-doc tiles;
   7. ck: the port's ck_main --maxsim --synthetic --post-validation at
      BERT-base width with seeded random weights (bf16 activations) over
      25,600 base passages (3 full 8192-doc tiles + a padded tail), then
      validate_maxsim_files, the exported neighbours against the exact
-     MaxSim engine on the same parquet, and the kernel against its plain
-     version on the run's own queries and first tile at 3/2/1 passes.
+     MaxSim engine on the same parquet, and both kernel variants against
+     the plain version on the run's own queries and first tile at 3/2/1
+     passes.
 The line before the last is one JSON object with the kernels' numbers;
 the last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 without that line; without a CUDA card it exits 2.
@@ -95,6 +103,52 @@ def event_ms(fn, runs=3):
         torch.cuda.synchronize()
         times.append(e0.elapsed_time(e1))
     return float(np.median(times))
+
+
+def turns_ms(mod, fn):
+    """`fn` under the module's two kernel variants in turns (mma, wgmma,
+    wgmma, mma), each a median of 3 by CUDA events; returns the mean of
+    each variant's two medians as (mma_ms, wgmma_ms)."""
+    got = {"mma": [], "wgmma": []}
+    for name in ("mma", "wgmma", "wgmma", "mma"):
+        with mod.forced_variant(name):
+            fn()                                    # warm-up
+            got[name].append(event_ms(fn))
+    return float(np.mean(got["mma"])), float(np.mean(got["wgmma"]))
+
+
+def ptxas_report(name, report):
+    """ptxas -v per kernel of one source: variant, pass count, registers,
+    spills. Raises on any spill."""
+    entry, spills = None, ""
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            sym = line.split("'")[1]
+            variant = "wgmma" if "wgmma" in sym else "mma"
+            passes = sym.split("ILi")[1][0] if "ILi" in sym else "?"
+            entry = f"{variant}<{passes}>"
+        elif "spill" in line and entry:
+            spills = line.strip()
+            if "0 bytes spill stores, 0 bytes spill loads" not in spills:
+                raise AssertionError(f"{name} {entry} spills: {spills}")
+        elif "registers" in line and entry:
+            log(f"  ptxas {name} {entry}: "
+                f"{line.split(':', 1)[1].strip()}; {spills}")
+            entry = None
+        elif "arning" in line or "(C7" in line:
+            log(f"  ptxas {name}: {line.strip()}")
+
+
+def reset_screen_counts():
+    from neighborhoodwatch_tpu_torch.ops import screen_kernel as sk
+    sk.screen_keys.launches = 0
+    sk.screen_keys.launches_by_variant = {v: 0 for v in sk.VARIANTS}
+
+
+def reset_maxsim_counts():
+    from neighborhoodwatch_tpu_torch.ops import maxsim_kernel as mk
+    mk.maxsim_keys.launches = 0
+    mk.maxsim_keys.launches_by_variant = {v: 0 for v in mk.VARIANTS}
 
 
 def screen_operands(q, b):
@@ -161,9 +215,7 @@ def phase_setup():
         f"{time.perf_counter() - t:.2f} s "
         f"(nvcc {' '.join(cuda_build.NVCC_FLAGS)})")
     for name, report in zip(names, reports):
-        for line in report.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+        ptxas_report(name, report)
     return card
 
 
@@ -171,27 +223,34 @@ def phase_kernel_vs_plain():
     import torch
     from neighborhoodwatch_tpu_torch.ops import screen_kernel as sk
     g = torch.Generator(device="cuda").manual_seed(1)
-    # D=200: the 16-byte cp.async loads; D=45: the scalar loads
+    # D=200 (not a multiple of 64; B ends inside a 256-row step): TMA's
+    # zero fill; D=45: "mma" with scalar loads; 1,078 queries: 17 query
+    # blocks, so the cluster of 2 leaves one surplus block per mega
     cases = [(70, 2 * sk.MEGA + 555, 200, sk.TB * sk.SUB_PER_MEGA),
              (50, sk.MEGA + 77, 45, sk.TB * sk.SUB_PER_MEGA),
+             (1078, sk.MEGA + 300, 72, sk.TB * sk.SUB_PER_MEGA),
              (33, sk._BIG_BASE + 4099, 200, sk.TB * 112)]
     worst = 0.0
     for qn_, bn_, d, mega in cases:
         q = torch.randn(qn_, d, device="cuda", generator=g)
         b = torch.randn(bn_, d, device="cuda", generator=g)
         ops = screen_operands(q, b)
+        chosen = sk.pick_variant(d, True, 1)
         for passes in (1, 2, 3):
             for epi in sk.EPILOGUES:
-                k = sk.screen_keys(**ops, mega_rows=mega, passes=passes,
-                                   epilogue=epi)
-                torch.cuda.synchronize()
                 kp = sk.screen_keys_plain(**ops, mega_rows=mega,
                                           passes=passes, epilogue=epi)
-                err, swapped = compare_keys(k, kp, epi, mega, q, b)
-                worst = max(worst, err)
-                log(f"  Q={qn_} B={bn_} D={d} mega={mega} passes={passes} "
-                    f"{epi}: max |d_kernel - d_plain| {err:.3g}, swapped "
-                    f"ids (within tolerance) {swapped}")
+                for variant in dict.fromkeys((chosen, "mma")):
+                    with sk.forced_variant(variant):
+                        k = sk.screen_keys(**ops, mega_rows=mega,
+                                           passes=passes, epilogue=epi)
+                    torch.cuda.synchronize()
+                    err, swapped = compare_keys(k, kp, epi, mega, q, b)
+                    worst = max(worst, err)
+                    log(f"  Q={qn_} B={bn_} D={d} mega={mega} "
+                        f"passes={passes} {epi} [{variant}]: max |d_kernel "
+                        f"- d_plain| {err:.3g}, swapped ids (within "
+                        f"tolerance) {swapped}")
         del q, b, ops
     torch.cuda.empty_cache()
     return worst
@@ -215,17 +274,21 @@ def phase_engine(rec):
         raise AssertionError(f"auto picked {engine!r}, not 'screened'")
 
     # ---- the main-path call, counted ----
-    sk.screen_keys.launches = 0
+    reset_screen_counts()
     torch.cuda.synchronize()
     t = time.perf_counter()
     d_s, i_s = K.knn(q, base, k, engine="auto")
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t
     launches = sk.screen_keys.launches
+    by_variant = dict(sk.screen_keys.launches_by_variant)
     if launches < 1:
         raise AssertionError("knn(engine='auto') never launched the kernel")
-    log(f"  knn(auto) -> engine {engine}, kernel launches {launches}, "
-        f"first call {first_s:.3f} s")
+    if by_variant["mma"] or by_variant["wgmma"] != launches:
+        raise AssertionError(f"knn(auto) launched {by_variant}: every launch "
+                             f"at these shapes must take 'wgmma'")
+    log(f"  knn(auto) -> engine {engine}, kernel launches {launches} "
+        f"{by_variant}, first call {first_s:.3f} s")
 
     screened_ms = median_ms(lambda: K.knn(q, base, k, engine="auto"))
     _, _, diag = K.screened_knn_traced(q, base, B, 0, k, "sqeuclidean",
@@ -275,21 +338,51 @@ def phase_engine(rec):
     qlo = (q - qh).to(torch.bfloat16)
     qn = (q * q).sum(1)
     bn = prep.bn_row
-    kernel = {}
+    kernel, before = {}, {}
+    blo = (base - prep.bhi.float()).to(torch.bfloat16)
     for passes in (1, 2, 3):
-        blo = ((base - prep.bhi.float()).to(torch.bfloat16)
-               if passes == 3 else None)
-
-        def run(p=passes, bl=blo):
-            return sk.screen_keys(qhi, qlo, prep.bhi, bl, qn, bn, mega, p,
-                                  "l2")
-        keys = run()
-        kernel[passes] = event_ms(run)
+        def run(p=passes):
+            return sk.screen_keys(qhi, qlo, prep.bhi, blo if p == 3 else None,
+                                  qn, bn, mega, p, "l2")
+        before[passes], kernel[passes] = turns_ms(sk, run)
         flops = 2.0 * Q * B * D * passes
-        log(f"  screen kernel {passes}-pass (l2, sub={sub}): "
-            f"{kernel[passes]:.1f} ms, {flops / kernel[passes] / 1e9:.1f} "
-            f"TFLOP/s, bound {flops / PEAK_BF16_FLOPS * 1e3:.1f} ms")
-        del blo
+        bound = flops / PEAK_BF16_FLOPS * 1e3
+        log(f"  screen kernel {passes}-pass (l2, sub={sub}), variants in "
+            f"turns: mma {before[passes]:.1f} ms "
+            f"({flops / before[passes] / 1e9:.1f} TFLOP/s, "
+            f"{before[passes] / bound:.2f}x bound), wgmma "
+            f"{kernel[passes]:.1f} ms ({flops / kernel[passes] / 1e9:.1f} "
+            f"TFLOP/s, {kernel[passes] / bound:.2f}x bound); bound "
+            f"{bound:.1f} ms; default "
+            f"'{sk.pick_variant(D, True, passes)}'")
+    # the streamed batch's shape (phase 4): 1,000 queries, one 100,000-row
+    # batch, sub=28: 16 query blocks x 4 megas = 64 blocks on 132 SMs
+    sQ, sB, smega = 1000, 100_000, sk.TB * sk.SUB_PER_MEGA
+    s_ops = [t[:sQ].contiguous() for t in (qhi, qlo, qn)]
+    streamed = {}
+    for passes in (1, 2, 3):
+        def run_s(p=passes):
+            return sk.screen_keys(s_ops[0], s_ops[1], prep.bhi[:sB],
+                                  blo[:sB] if p == 3 else None, s_ops[2],
+                                  bn[:sB], smega, p, "l2")
+        o_ms, n_ms = turns_ms(sk, run_s)
+
+        def products_s(p=passes):
+            torch.mm(s_ops[0], prep.bhi[:sB].T)
+            if p >= 2:
+                torch.mm(s_ops[1], prep.bhi[:sB].T)
+            if p == 3:
+                torch.mm(s_ops[0], blo[:sB].T)
+        l_ms = event_ms(products_s)
+        bound = 2.0 * sQ * sB * D * passes / PEAK_BF16_FLOPS * 1e3
+        streamed[str(passes)] = {"ms": n_ms, "ms_before": o_ms,
+                                 "bound_ms": bound, "library_ms": l_ms}
+        log(f"  streamed-batch shape {sQ} x {sB} x {D}, sub=28, {passes}-pass:"
+            f" mma {o_ms:.2f} ms, wgmma {n_ms:.2f} ms, bound {bound:.2f} ms,"
+            f" torch.mm of the {passes} products {l_ms:.2f} ms")
+    rec["streamed_batch_shape"] = streamed
+    del blo, s_ops
+    torch.cuda.empty_cache()
     keys = sk.screen_keys(qhi, qlo, prep.bhi, None, qn, bn, mega, 1, "l2")
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -298,8 +391,14 @@ def phase_engine(rec):
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t) * 1e3
     err, swapped = compare_keys(keys, keys_plain, "l2", mega, q, base)
-    log(f"  plain version at the same shapes: {plain_ms:.1f} ms; kernel vs "
-        f"plain max |d| {err:.3g}, swapped ids (within tolerance) {swapped}")
+    log(f"  plain version at the same shapes: {plain_ms:.1f} ms; kernel "
+        f"[{sk.pick_variant(D, True, 1)}] vs plain max |d| {err:.3g}, "
+        f"swapped ids (within tolerance) {swapped}")
+    with sk.forced_variant("mma"):
+        keys = sk.screen_keys(qhi, qlo, prep.bhi, None, qn, bn, mega, 1, "l2")
+    e_m, sw_m = compare_keys(keys, keys_plain, "l2", mega, q, base)
+    log(f"  kernel [mma] vs plain max |d| {e_m:.3g}, swapped ids (within "
+        f"tolerance) {sw_m}")
     del keys, keys_plain
     torch.cuda.empty_cache()
     library_ms = event_ms(lambda: torch.mm(qhi, prep.bhi.T), runs=3)
@@ -322,6 +421,10 @@ def phase_engine(rec):
         kk = sk.screen_keys(qhi, qlo, prep.bhi, bl, qn, bn, mega, passes,
                             "l2")
         e, sw = compare_keys(kk, kp, "l2", mega, q, base)
+        with sk.forced_variant("mma"):
+            kk = sk.screen_keys(qhi, qlo, prep.bhi, bl, qn, bn, mega, passes,
+                                "l2")
+        e_m, sw_m = compare_keys(kk, kp, "l2", mega, q, base)
         del kk, kp
         torch.cuda.empty_cache()
 
@@ -333,12 +436,15 @@ def phase_engine(rec):
         l_ms = event_ms(products)
         torch.cuda.empty_cache()
         by_passes[str(passes)] = {
-            "ms": kernel[passes], "plain_ms": p_ms, "library_ms": l_ms,
+            "ms": kernel[passes], "ms_before": before[passes],
+            "variant": sk.pick_variant(D, True, passes),
+            "plain_ms": p_ms, "library_ms": l_ms,
             "bound_ms": 2.0 * Q * B * D * passes / PEAK_BF16_FLOPS * 1e3,
             "max_abs_err": e}
         log(f"  {passes}-pass: plain {p_ms:.1f} ms, torch.mm of the "
-            f"{passes} bf16 products {l_ms:.1f} ms; kernel vs plain max "
-            f"|d| {e:.3g}, swapped ids (within tolerance) {sw}")
+            f"{passes} bf16 products {l_ms:.1f} ms; kernel "
+            f"[{sk.pick_variant(D, True, passes)}] vs plain max |d| {e:.3g},"
+            f" swapped ids (within tolerance) {sw}; [mma] {e_m:.3g}, {sw_m}")
     del blo
     rec["by_passes"] = by_passes
 
@@ -346,7 +452,9 @@ def phase_engine(rec):
     bytes_ = Q * D * 2 + B * D * 2 + Q * 4 + B * 4 + Q * n_mega * 512 * 4
     flops = 2.0 * Q * B * D
     bound_ms = max(bytes_ / PEAK_BYTES, flops / PEAK_BF16_FLOPS) * 1e3
-    rec.update(launches=launches, max_abs_err=err, ms=kernel[1],
+    rec.update(launches=launches, launches_by_variant=by_variant,
+               variant=sk.pick_variant(D, True, 1), max_abs_err=err,
+               ms=kernel[1], ms_before=before[1],
                plain_ms=plain_ms, bound_ms=bound_ms,
                bound_by="operations" if flops / PEAK_BF16_FLOPS
                >= bytes_ / PEAK_BYTES else "bytes", library_ms=library_ms)
@@ -394,10 +502,28 @@ def phase_pipeline(rec, workdir):
     output_hdf5 = importlib.util.find_spec("h5py") is not None
     if not output_hdf5:
         log("  hdf5 export skipped: h5py is not installed on this machine")
-    sk.screen_keys.launches = 0
+    reset_screen_counts()
+    # CUDA events around each kernel launch of the pipeline
+    lib = sk.load_library()
+    real_launch, events = lib.screen_keys_launch, []
+
+    def timed_launch(*args):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        err = real_launch(*args)
+        e1.record()
+        events.append((e0, e1))
+        return err
+    lib.screen_keys_launch = timed_launch
     t = time.perf_counter()
-    timer = compute_knn_ds(data_dir, D, qfile, Q, bfile, B, k=k,
-                           initial_batch_size=100_000)
+    try:
+        timer = compute_knn_ds(data_dir, D, qfile, Q, bfile, B, k=k,
+                               initial_batch_size=100_000)
+    finally:
+        lib.screen_keys_launch = real_launch
+    torch.cuda.synchronize()
+    launch_ms = [e0.elapsed_time(e1) for e0, e1 in events]
     files = generate_output_files(
         data_dir, model, D, bfile, qfile, B, Q,
         naming.get_partial_indices_filename(data_dir, -1),
@@ -406,11 +532,17 @@ def phase_pipeline(rec, workdir):
     mismatches = validate_files_v0(data_dir, *files)
     wall = time.perf_counter() - t
     launches = sk.screen_keys.launches
+    by_variant = dict(sk.screen_keys.launches_by_variant)
     log(f"  compute_knn_ds + export + validate: {wall:.1f} s "
-        f"(stages {timer.to_json()}), kernel launches {launches}, "
+        f"(stages {timer.to_json()}), kernel launches {launches} "
+        f"{by_variant}, kernel ms per launch (CUDA events) "
+        f"{[round(x, 2) for x in launch_ms]}, "
         f"validate_files_v0 mismatches {mismatches}")
     if launches < 1:
         raise AssertionError("the streamed pipeline never launched the kernel")
+    if by_variant["mma"] or by_variant["wgmma"] != launches:
+        raise AssertionError(f"the pipeline launched {by_variant}: every "
+                             f"launch at these shapes must take 'wgmma'")
     if mismatches != 0:
         raise AssertionError(f"validate_files_v0 found {mismatches}")
 
@@ -425,7 +557,9 @@ def phase_pipeline(rec, workdir):
         f"{same:.5f}")
     if idx.shape != (Q, k) or recall != 1.0:
         raise AssertionError("exported neighbors differ from the exact engine")
-    rec["launches"] += launches
+    rec["pipeline_launches"] = launches
+    rec["pipeline_launches_by_variant"] = by_variant
+    rec["pipeline_kernel_ms"] = launch_ms
 
 
 def unit_tokens(n, t, dim, gen, chunk=20_000):
@@ -462,19 +596,28 @@ def phase_maxsim_kernel_vs_plain():
     shapes = [(19, tq, 1500, td, dim) for tq in (7, 24, 32)
               for td in (12, 24, 64, 180) for dim in (128, 32, 256)]
     shapes.append((37, 32, 3 * mk.MEGA_DOCS + 77, 12, 128))
+    # dim 64: one 64-column chunk; 37 queries of 24 tokens: 10 blocks of 4
+    # queries, the last one ragged; 19 of 7: 2 blocks, a whole cluster
+    shapes.append((37, 24, mk.MEGA_DOCS + 300, 16, 64))
     for Q, Tq, D, Td, dim in shapes:
         q, qm, d, dm = case(Q, Tq, D, Td, dim)
+        chosen = mk.pick_variant(-(-dim // 16) * 16, 1)
+        variants = tuple(dict.fromkeys((chosen, "mma")))
         for passes in (1, 2, 3):
             ops = mk.prepare_operands(q, qm, d, dm, passes)[:5]
-            keys = mk.maxsim_keys(*ops, passes)
-            torch.cuda.synchronize()
             plain = mk.maxsim_keys_plain(*ops, passes)
-            err, swapped = mk.candidates_agree(
-                mk.decode_keys(keys), mk.decode_keys(plain), q, qm, d, dm)
-            worst = max(worst, err)
-            swapped_all += swapped
-            n_cases += 1
-        log(f"  Q={Q} Tq={Tq} D={D} Td={Td} dim={dim} passes 1/2/3: ok")
+            for variant in variants:
+                with mk.forced_variant(variant):
+                    keys = mk.maxsim_keys(*ops, passes)
+                torch.cuda.synchronize()
+                err, swapped = mk.candidates_agree(
+                    mk.decode_keys(keys), mk.decode_keys(plain), q, qm, d,
+                    dm)
+                worst = max(worst, err)
+                swapped_all += swapped
+                n_cases += 1
+        log(f"  Q={Q} Tq={Tq} D={D} Td={Td} dim={dim} passes 1/2/3 on "
+            f"{' and '.join(variants)}: ok")
         del q, qm, d, dm, ops, keys, plain
     torch.cuda.empty_cache()
     log(f"  {n_cases} cases: max |score_kernel - score_plain| {worst:.3g}, "
@@ -561,18 +704,22 @@ def phase_maxsim_engine(rec):
             raise AssertionError(f"auto picked {engine!r}, not 'screened'")
 
         # ---- the main-path call, counted ----
-        mk.maxsim_keys.launches = 0
+        reset_maxsim_counts()
         torch.cuda.synchronize()
         t = time.perf_counter()
         s_s, i_s = M.maxsim_topk(q, qm, d, dm, k, engine="auto")
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t
         launches = mk.maxsim_keys.launches
+        by_variant = dict(mk.maxsim_keys.launches_by_variant)
         if launches < 1:
             raise AssertionError("maxsim_topk(auto) never launched the "
                                  "kernel")
+        if by_variant["mma"] or by_variant["wgmma"] != launches:
+            raise AssertionError(f"maxsim_topk(auto) launched {by_variant}: "
+                                 f"dim 128 must take 'wgmma'")
         log(f"  [{label}] maxsim_topk(auto) -> engine {engine}, kernel "
-            f"launches {launches}, first call {first_s:.3f} s")
+            f"launches {launches} {by_variant}, first call {first_s:.3f} s")
         M.counts.repaired = 0
         M.counts.exact_fallbacks = 0
         call_ms = median_ms(lambda: M.maxsim_topk(q, qm, d, dm, k,
@@ -595,17 +742,22 @@ def phase_maxsim_engine(rec):
         prep_ms, _, select_ms, ops3, keys = maxsim_stages(q, qm, d, dm, k)
 
         # ---- the kernel at the main path's shapes ----
-        kernel = {}
+        kernel, before = {}, {}
         for passes in (1, 2, 3):
             ops = ops3[:5] if passes == 3 else \
                 mk.prepare_operands(q, qm, d, dm, passes)[:5]
-            kernel[passes] = event_ms(
-                lambda o=ops, p=passes: mk.maxsim_keys(*o, p))
+            before[passes], kernel[passes] = turns_ms(
+                mk, lambda o=ops, p=passes: mk.maxsim_keys(*o, p))
             flops = 2.0 * Q * Tq * D * Td * dim * passes
-            log(f"  [{label}] maxsim kernel {passes}-pass: "
-                f"{kernel[passes]:.1f} ms, "
-                f"{flops / kernel[passes] / 1e9:.1f} TFLOP/s, bound "
-                f"{flops / PEAK_BF16_FLOPS * 1e3:.1f} ms")
+            bound = flops / PEAK_BF16_FLOPS * 1e3
+            log(f"  [{label}] maxsim kernel {passes}-pass, variants in "
+                f"turns: mma {before[passes]:.1f} ms "
+                f"({flops / before[passes] / 1e9:.1f} TFLOP/s, "
+                f"{before[passes] / bound:.2f}x bound), wgmma "
+                f"{kernel[passes]:.1f} ms "
+                f"({flops / kernel[passes] / 1e9:.1f} TFLOP/s, "
+                f"{kernel[passes] / bound:.2f}x bound); bound {bound:.1f} ms;"
+                f" default '{mk.pick_variant(dim, passes)}'")
             del ops
         log(f"  [{label}] stages of a 3-pass call: prep {prep_ms:.1f} ms, "
             f"kernel {kernel[3]:.1f} ms, decode + select (merge, re-rank, "
@@ -619,8 +771,14 @@ def phase_maxsim_engine(rec):
         err, swapped = mk.candidates_agree(
             mk.decode_keys(keys), mk.decode_keys(plain), q, qm, d, dm)
         log(f"  [{label}] plain version (3 passes): {plain_ms:.1f} ms; "
-            f"kernel vs plain max |score| {err:.3g}, swapped ids (within "
-            f"tolerance) {swapped}")
+            f"kernel [{mk.pick_variant(dim, 3)}] vs plain max |score| "
+            f"{err:.3g}, swapped ids (within tolerance) {swapped}")
+        with mk.forced_variant("mma"):
+            keys = mk.maxsim_keys(*ops3[:5], 3)
+        e_m, sw_m = mk.candidates_agree(
+            mk.decode_keys(keys), mk.decode_keys(plain), q, qm, d, dm)
+        log(f"  [{label}] kernel [mma] vs plain max |score| {e_m:.3g}, "
+            f"swapped ids (within tolerance) {sw_m}")
         del plain, keys
         # product-only yardstick: no single PyTorch call computes MaxSim
         mm_ms = {p: product_loop_ms(ops3, p) for p in (1, 2, 3)}
@@ -638,8 +796,10 @@ def phase_maxsim_engine(rec):
         flops = 2.0 * Q * Tq * D * Td * dim * 3
         bound_ms = max(bytes_ / PEAK_BYTES, flops / PEAK_BF16_FLOPS) * 1e3
         shapes[label] = {
-            "launches": launches, "max_abs_err": err, "ms": kernel[3],
+            "launches": launches, "launches_by_variant": by_variant,
+            "max_abs_err": err, "ms": kernel[3], "ms_before": before[3],
             "ms_by_passes": {str(p): kernel[p] for p in kernel},
+            "ms_before_by_passes": {str(p): before[p] for p in before},
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "operations" if flops / PEAK_BF16_FLOPS
             >= bytes_ / PEAK_BYTES else "bytes",
@@ -654,10 +814,11 @@ def phase_maxsim_engine(rec):
 
     main = shapes["200k x 16"]
     rec.update({key: main[key] for key in
-                ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                 "product_yardstick_ms")})
+                ("max_abs_err", "ms", "ms_before", "plain_ms", "bound_ms",
+                 "bound_by", "product_yardstick_ms")})
     rec["library_ms"] = None
     rec["passes"] = 3
+    rec["variant"] = mk.pick_variant(dim, 3)
     # launches are kept per path, never summed: the one-shot calls' stand
     # in `shapes`, the stream's here, ck's (the record's `launches`) in
     # phase 7
@@ -677,7 +838,7 @@ def stream_maxsim(q, qm, d, dm, k, s_one, i_one):
     n_tiles = -(-D // tile)
     n_full = sum(1 for s in range(0, D, tile)
                  if min(tile, D - s) >= M.SCREEN_MIN_DOCS)
-    mk.maxsim_keys.launches = 0
+    reset_maxsim_counts()
     M.counts.host_copies = 0
     M.counts.escalated = 0
     M.counts.exact_fallbacks = 0
@@ -703,6 +864,9 @@ def stream_maxsim(q, qm, d, dm, k, s_one, i_one):
         f"tile {M.counts.host_copies / max(n_full, 1):.2f}")
     if launches < n_full:
         raise AssertionError("a full tile did not launch the kernel")
+    if mk.maxsim_keys.launches_by_variant["mma"]:
+        raise AssertionError("the stream launched the 'mma' variant at "
+                             "dim 128")
     check_against_exact(acc.state[0], acc.state[1], s_one, i_one, k,
                         "[stream] streamed vs one-shot")
     # where one streamed tile's time goes (3-pass tier with diagnostics,
@@ -750,13 +914,17 @@ def phase_ck(rec, workdir):
     if not output_hdf5:
         argv.append("--no-gen-hdf5")
         log("  hdf5 export skipped: h5py is not installed on this machine")
-    mk.maxsim_keys.launches = 0
+    reset_maxsim_counts()
     M.counts.repaired = M.counts.escalated = M.counts.exact_fallbacks = 0
     t = time.perf_counter()
     ck_main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches = mk.maxsim_keys.launches
+    by_variant = dict(mk.maxsim_keys.launches_by_variant)
+    if by_variant["mma"]:
+        raise AssertionError(f"ck --maxsim launched {by_variant}: dim 128 "
+                             f"must take 'wgmma'")
     # the pipeline pads its last tile's doc axis to 8192 masked rows, so
     # the tail is screened like the full tiles
     full_tiles = n_b // mk.MEGA_DOCS
@@ -818,6 +986,7 @@ def phase_ck(rec, workdir):
     if worst > 1e-3 or below > 1e-3:
         raise AssertionError("exported neighbours differ from exact MaxSim")
     rec["launches"] = rec["ck_launches"] = launches
+    rec["launches_by_variant"] = by_variant
     rec["ck_exact_fallback_share"] = share
     rec["ck_shape"] = ck_kernel_vs_plain(dev_t[0], dev_t[1], lists[1])
 
@@ -842,21 +1011,28 @@ def ck_kernel_vs_plain(q, qm, base_docs):
            "valid_query_tokens": int(qm.sum(1).max()), "by_passes": {}}
     for passes in (3, 2, 1):
         ops = mk.prepare_operands(q, qm, d, dm, passes, True)[:5]
-        keys = mk.maxsim_keys(*ops, passes)
-        ms = event_ms(lambda o=ops, p=passes: mk.maxsim_keys(*o, p))
         torch.cuda.synchronize()
         t = time.perf_counter()
         plain = mk.maxsim_keys_plain(*ops, passes)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t) * 1e3
-        err, swapped = mk.candidates_agree(
-            mk.decode_keys(keys), mk.decode_keys(plain), q, qm, d, dm)
-        out["by_passes"][str(passes)] = {"ms": ms, "plain_ms": plain_ms,
-                                         "max_abs_err": err}
+        errs = {}
+        for variant in ("wgmma", "mma"):
+            with mk.forced_variant(variant):
+                keys = mk.maxsim_keys(*ops, passes)
+            errs[variant] = mk.candidates_agree(
+                mk.decode_keys(keys), mk.decode_keys(plain), q, qm, d, dm)
+        ms_before, ms = turns_ms(
+            mk, lambda o=ops, p=passes: mk.maxsim_keys(*o, p))
+        out["by_passes"][str(passes)] = {
+            "ms": ms, "ms_before": ms_before, "plain_ms": plain_ms,
+            "max_abs_err": errs["wgmma"][0]}
         log(f"  kernel vs plain at ck's shapes (Q={out['Q']} Tq={out['Tq']} "
-            f"D={out['D']} Td={td}, {passes} passes): kernel {ms:.2f} ms, "
-            f"plain {plain_ms:.1f} ms, max |score| {err:.3g}, swapped ids "
-            f"(within tolerance) {swapped}")
+            f"D={out['D']} Td={td}, {passes} passes): wgmma {ms:.2f} ms, mma "
+            f"{ms_before:.2f} ms, plain {plain_ms:.1f} ms; max |score| and "
+            f"swapped ids (within tolerance): wgmma {errs['wgmma'][0]:.3g}, "
+            f"{errs['wgmma'][1]}; mma {errs['mma'][0]:.3g}, "
+            f"{errs['mma'][1]}")
     return out
 
 

@@ -24,38 +24,106 @@
 // Bound on this card: 2*Q*B*D*passes FLOP on the bf16 tensor cores (the
 // headline 10k x 1M x 1536 is 3.07e13 FLOP per pass, ~31 ms per pass at
 // 989 TFLOP/s) against a 3.1 GB bf16 base read (~0.9 ms at 3.35 TB/s): the
-// function is compute-bound, so the design keeps every distance in
-// registers and spends its effort on feeding the tensor cores.
+// function is operations-bound, so every distance stays in registers and
+// the design's effort goes into feeding the tensor cores.
 //
-// Design: one block owns 64 queries x one mega-tile and walks the mega in
-// 128-row steps. A step gives every lane bin exactly one row (position =
-// step index). Eight warps each own a fixed 32-query x 32-lane tile of the
-// step's 64 x 128 product, computed with mma.sync m16n8k16 (bf16 in, fp32
-// accumulate) from ldmatrix fragments; since a warp's tile covers the same
-// (query, lane) pairs in every step, each accumulator element's 4 running
-// keys live in registers next to it and the insert is one compare-swap
-// chain, with no shared-memory traffic. Operands stream through a cp.async
-// ring of 64-column chunks (6, 4 or 3 stages at 1, 2 or 3 passes: a stage
-// holds only the operands the pass count reads) that runs across step
-// boundaries, so the loads of later chunks overlap the products of this
-// one; the step's base norms are fetched at its first chunk. Blocks
-// share no state; consecutive blocks take consecutive query blocks of one
-// mega, so concurrent blocks read the same base rows from L2.
-// wgmma, TMA and a persistent schedule are left to later work.
+// What holds such a kernel back is the bytes it pulls from L2 per FLOP: the
+// keys (64 queries x 128 lanes x 4 per block) fill half the SM's registers,
+// so a block cannot own more than 64 queries and every block of a mega
+// re-reads the mega's base rows.
+//
+// Two variants of the one function live here; the launch function takes
+// the one the wrapper chose by shape (ops/screen_kernel.py:pick_variant):
+//
+// "wgmma" (rows of D % 8 == 0 columns at 16-byte aligned addresses, which is
+// what a TMA tensor map can describe). A block owns 64 queries x one mega
+// and walks the mega in 256-row steps: rows r and r + 128 of a step fall in
+// the same lane bin at positions 2*step and 2*step + 1, so the wider step
+// adds no bins. Two consumer warpgroups each take half of the LANES, not
+// half of the rows: warpgroup w owns lanes 64w..64w+63 of both 128-row
+// halves. The producer lands its two 64-row TMA boxes next to each other in
+// shared memory, so each k-step is one wgmma m64n128k16 per pass (A = the
+// 64-query tile, B = the warpgroup's 128 rows) with 64 accumulator
+// registers per thread, and accumulator columns n and n + 64 (the same
+// thread in the wgmma layout) are a lane's two positions: 32 bins x 4 keys
+// = 128 key registers per thread, the insert is one compare-swap chain,
+// nothing of the epilogue touches shared memory. The 2- and 3-pass tiers
+// are two or three wgmmas per k-step into the same accumulator. Operands
+// come through the TMA/mbarrier ring of csrc/wgmma_mainloop.cuh (5 slots of
+// 64-column chunks at 1 pass, 4 at 2; 5 slots of 32-column chunks with the
+// 64-byte swizzle at 3 passes, where a 64-column slot would be 80 KB);
+// TMA's zero fill replaces every bounds check on operands. The blocks of a
+// cluster (consecutive query blocks of one mega) each load a share of the
+// step's base boxes and multicast them, so a base tile leaves L2 once per
+// cluster. The grid's query-block count is rounded up to the cluster size;
+// a surplus block runs every ring turn on zero-filled queries and stores
+// nothing. While one warpgroup runs its step epilogue the other one's
+// wgmmas keep the tensor cores busy.
+//
+// "mma" (any D, any alignment: the first version of this kernel). One block
+// owns 64 queries x one mega and walks it in 128-row steps; eight warps
+// each own a 32-query x 32-lane tile computed with mma.sync m16n8k16 from
+// ldmatrix fragments, keys in registers next to the accumulators, operands
+// through a cp.async ring of 64-column chunks (6, 4 or 3 stages at 1, 2 or
+// 3 passes) with scalar loads where rows are not 16-byte aligned.
+// A persistent schedule is left to later work.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "wgmma_mainloop.cuh"
 
 namespace {
 
-constexpr int BQ = 64;          // queries per block
+constexpr int BQ = 64;          // queries per block (both variants)
+constexpr int LANES = 128;      // lane bins per mega
+constexpr int KEEP = 4;
+constexpr int POS_MASK = 1023;
+
+// the three epilogues, shared by both variants
+__device__ __forceinline__ float screen_dist(float acc, float qn, float bn,
+                                             int passes, int epilogue) {
+  const float inf = __int_as_float(0x7f800000);
+  if (epilogue == 0) {
+    float x = __fsub_rn(__fadd_rn(qn, bn), __fmul_rn(2.0f, acc));
+    if (passes >= 3 && x < 0.0f) x = 0.0f;       // NaN stays NaN
+    return fabsf(x);
+  }
+  float d;
+  if (isinf(bn)) {
+    d = inf;
+  } else if (epilogue == 1) {
+    d = -acc;
+  } else {
+    float m = isnan(bn) ? bn : fmaxf(bn, 1e-30f);
+    d = __fmul_rn(-acc, rsqrtf(m));
+  }
+  return isnan(d) ? inf : d;
+}
+
+// key of distance d at bin position pos, and its insert into a bin's 4
+// ascending keys
+__device__ __forceinline__ int screen_key(float d, int epilogue, int pos) {
+  int bits = __float_as_int(d);
+  if (epilogue != 0) bits ^= (bits >> 31) & 0x7fffffff;
+  return (bits & ~POS_MASK) | pos;
+}
+
+__device__ __forceinline__ void insert_key(int (&keys)[KEEP], int hi) {
+#pragma unroll
+  for (int t = 0; t < KEEP; ++t) {
+    const int cur = keys[t];
+    keys[t] = min(cur, hi);
+    hi = max(cur, hi);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// variant "mma": mma.sync from a cp.async ring, any D and alignment
+// ---------------------------------------------------------------------------
+namespace mma {
+
 constexpr int BR = 128;         // base rows per step (= lanes)
 constexpr int KC = 64;          // depth chunk per pipeline stage
 constexpr int LDS = KC + 8;     // bf16 row stride (144 B: ldmatrix rows hit
                                 // distinct bank groups)
-constexpr int KEEP = 4;
-constexpr int POS_MASK = 1023;
 constexpr int THREADS = 256;
 
 typedef __nv_bfloat16 QTile[BQ][LDS];
@@ -132,26 +200,6 @@ __device__ __forceinline__ void load_tile(
       dst[r][c] = val;
     }
   }
-}
-
-__device__ __forceinline__ float screen_dist(float acc, float qn, float bn,
-                                             int passes, int epilogue) {
-  const float inf = __int_as_float(0x7f800000);
-  if (epilogue == 0) {
-    float x = __fsub_rn(__fadd_rn(qn, bn), __fmul_rn(2.0f, acc));
-    if (passes >= 3 && x < 0.0f) x = 0.0f;       // NaN stays NaN
-    return fabsf(x);
-  }
-  float d;
-  if (isinf(bn)) {
-    d = inf;
-  } else if (epilogue == 1) {
-    d = -acc;
-  } else {
-    float m = isnan(bn) ? bn : fmaxf(bn, 1e-30f);
-    d = __fmul_rn(-acc, rsqrtf(m));
-  }
-  return isnan(d) ? inf : d;
 }
 
 template <int PASSES>
@@ -327,15 +375,7 @@ screen_keys_kernel(const __nv_bfloat16* __restrict__ qhi,
               const int c = 2 * h + e;
               float d = screen_dist(acc[mi][ni][c], qn_r[mi][h], bnv,
                                     passes, epilogue);
-              int bits = __float_as_int(d);
-              if (epilogue != 0) bits ^= (bits >> 31) & 0x7fffffff;
-              int hi = (bits & ~POS_MASK) | step;
-#pragma unroll
-              for (int t = 0; t < KEEP; ++t) {
-                const int cur = keys[mi][ni][c][t];
-                keys[mi][ni][c][t] = min(cur, hi);
-                hi = max(cur, hi);
-              }
+              insert_key(keys[mi][ni][c], screen_key(d, epilogue, step));
               acc[mi][ni][c] = 0.0f;
             }
         }
@@ -382,23 +422,299 @@ int launch(const void* qhi, const void* qlo, const void* bhi, const void* blo,
   return (int)cudaGetLastError();
 }
 
+}  // namespace mma
+
+// ---------------------------------------------------------------------------
+// variant "wgmma": wgmma from a TMA/mbarrier ring, rows TMA can describe
+// ---------------------------------------------------------------------------
+namespace wgk {
+
+constexpr int STEP = 2 * LANES;   // base rows per step: two positions a lane
+constexpr int BOX = 64;           // rows per TMA box (queries, or base rows)
+constexpr int CONSUMER_WARPS = 8;
+constexpr int THREADS = 3 * wg::WG_THREADS;   // two consumers, one producer
+constexpr int SMEM_MAX = 232448;  // 227 KB a block may use
+constexpr int BAR_BYTES = 256;    // room for the ring's barriers
+constexpr int BN_BYTES = 2 * 2 * LANES * 4;   // staged base norms, see below
+
+// A ring slot holds one depth chunk of the operands the pass count reads:
+// qhi [qlo] (64 rows each), bhi [blo] (256 rows each: warpgroup 0's two
+// boxes, then warpgroup 1's). At 3 passes the chunk is 32 columns, so that
+// five slots fit as they do at 1 pass.
+template <int PASSES>
+struct Cfg {
+  static constexpr int KC = PASSES == 3 ? 32 : 64;
+  static constexpr int RB = KC * 2;                   // bytes per tile row
+  static constexpr int NA = PASSES >= 2 ? 2 : 1;
+  static constexpr int NB = PASSES >= 3 ? 2 : 1;
+  static constexpr int A_BYTES = BQ * RB;
+  static constexpr int B_BYTES = STEP * RB;
+  static constexpr int STAGE = NA * A_BYTES + NB * B_BYTES;
+  static constexpr int STAGES =
+      (SMEM_MAX - wg::TILE_ALIGN - BAR_BYTES - BN_BYTES) / STAGE;
+  static constexpr int SMEM =
+      STAGES * STAGE + wg::TILE_ALIGN + BAR_BYTES + BN_BYTES;
+  static_assert(STAGES >= 3 && 16 * STAGES <= BAR_BYTES, "ring depth");
+};
+
+template <int PASSES>
+__global__ void __launch_bounds__(THREADS, 1)
+screen_keys_wgmma(const __grid_constant__ CUtensorMap m_qhi,
+                  const __grid_constant__ CUtensorMap m_qlo,
+                  const __grid_constant__ CUtensorMap m_bhi,
+                  const __grid_constant__ CUtensorMap m_blo,
+                  const float* __restrict__ qn,
+                  const float* __restrict__ bn,
+                  int* __restrict__ out,
+                  int Q, int B, int D, int mega_rows, int n_mega,
+                  int epilogue) {
+  using C = Cfg<PASSES>;
+  extern __shared__ unsigned char smem_raw[];
+  // the same offset in every block of the cluster (multicast lands there)
+  const uint32_t tiles = (wg::smem_u32(smem_raw) + wg::TILE_ALIGN - 1) &
+                         ~static_cast<uint32_t>(wg::TILE_ALIGN - 1);
+  const uint32_t bars = tiles + C::STAGES * C::STAGE;
+  const uint32_t cl = wg::cluster_nctarank();
+  const uint32_t rank = wg::cluster_ctarank();
+
+  const int q0 = blockIdx.x * BQ;     // may lie past Q in a surplus block
+  const int mega = blockIdx.y;
+  const int n_pos = mega_rows / LANES;
+  const int n_steps = (n_pos + 1) / 2;
+  const int n_chunks = (D + C::KC - 1) / C::KC;
+
+  if (threadIdx.x == 0) {
+    wg::ring_init(bars, C::STAGES, CONSUMER_WARPS, cl);
+    wg::fence_barrier_init();
+  }
+  // no block may multicast into, or arrive on, barriers not yet initialised
+  wg::cluster_sync();
+
+  if (threadIdx.x >= 2 * wg::WG_THREADS) {
+    // ===== producer warpgroup: one thread issues every TMA load =====
+    wg::reg_dealloc<40>();
+    if (threadIdx.x == 2 * wg::WG_THREADS) {
+      wg::Ring ring(bars, C::STAGES);
+      const uint16_t mask = static_cast<uint16_t>((1u << cl) - 1);
+      for (int step = 0; step < n_steps; ++step) {
+        const int r0 = mega * mega_rows + step * STEP;
+        for (int kc = 0; kc < n_chunks; ++kc) {
+          ring.acquire(C::STAGE);
+          const uint32_t tile = tiles + ring.slot * C::STAGE;
+          const int k0 = kc * C::KC;
+          wg::tma_load_2d(tile, &m_qhi, ring.full(), k0, q0, 0, false);
+          if (PASSES >= 2)
+            wg::tma_load_2d(tile + C::A_BYTES, &m_qlo, ring.full(), k0, q0,
+                            0, false);
+          // box b: operand b / 4 (hi, lo), warpgroup (b / 2) % 2, 128-row
+          // half b % 2; this block's share goes to every block of the cluster
+          for (int b = rank; b < 4 * C::NB; b += cl) {
+            const uint32_t dst = tile + C::NA * C::A_BYTES +
+                                 (b >> 2) * C::B_BYTES +
+                                 (b & 3) * BOX * C::RB;
+            const int row = r0 + (b & 1) * LANES + ((b >> 1) & 1) * BOX;
+            wg::tma_load_2d(dst, (b >> 2) ? &m_blo : &m_bhi, ring.full(), k0,
+                            row, mask, cl > 1);
+          }
+          ring.advance();
+        }
+      }
+    }
+  } else {
+    // ===== consumer warpgroups: lanes 64w .. 64w+63 of both halves =====
+    wg::reg_alloc<232>();
+    const int w = threadIdx.x / wg::WG_THREADS;
+    const int tid = threadIdx.x % wg::WG_THREADS;
+    const int gid = (tid % 32) / 4;       // row within the warp's 8-row group
+    const int tig = tid % 4;              // column pair within an 8-column block
+    const int qrow = (tid / 32) * 16 + gid;   // this thread's rows: qrow, +8
+    const int qrows = min(BQ, Q - q0);        // <= 0 in a surplus block
+
+    float qn_r[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      qn_r[h] = qrow + 8 * h < qrows ? qn[q0 + qrow + 8 * h] : 0.0f;
+
+    // bins (query row half h, lane 64w + 8j + 2 tig + e)
+    int keys[2][8][2][KEEP];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+#pragma unroll
+          for (int t = 0; t < KEEP; ++t) keys[h][j][e][t] = 0x7fffffff;
+
+    // acc[4 (j + 8 half) + 2h + e]: columns 0..63 are the step's first
+    // 128-row half, 64..127 the second
+    float acc[64];
+    wg::Ring ring(bars, C::STAGES);
+    int prev_slot = 0;
+    // The step's 128 base norms of this warpgroup's lanes: each thread
+    // fetches one at the step's start (the products hide the latency) and
+    // hands it to the others through shared memory at the epilogue; the
+    // buffers alternate, and the next write of a buffer lies behind the
+    // next step's barrier, after every reader of this one is done.
+    float* bn_s = reinterpret_cast<float*>(
+                      smem_raw + (bars - wg::smem_u32(smem_raw)) + BAR_BYTES) +
+                  w * 2 * LANES;
+    for (int step = 0; step < n_steps; ++step) {
+      const int bn_row = mega * mega_rows + step * STEP + (tid >> 6) * LANES +
+                         w * BOX + (tid & 63);
+      const float bn_mine =
+          bn_row < B ? __ldg(bn + bn_row) : __int_as_float(0x7f800000);
+      for (int kc = 0; kc < n_chunks; ++kc) {
+        ring.wait_full();
+        const uint32_t tile = tiles + ring.slot * C::STAGE;
+        const uint32_t a_hi = tile, a_lo = tile + C::A_BYTES;
+        const uint32_t b_hi = tile + C::NA * C::A_BYTES + w * LANES * C::RB;
+        const uint32_t b_lo = b_hi + C::B_BYTES;
+        wg::wgmma_fence();
+        wg::wgmma_chunk<C::KC>(acc, a_hi, b_hi, kc == 0);
+        if (PASSES >= 2) wg::wgmma_chunk<C::KC>(acc, a_lo, b_hi, false);
+        if (PASSES >= 3) wg::wgmma_chunk<C::KC>(acc, a_hi, b_lo, false);
+        wg::wgmma_commit();
+        if (kc > 0) {
+          // the chunk before this one has retired: give its slot back
+          wg::wgmma_wait<1>();
+          wg::ring_release(ring.empty0, prev_slot, cl);
+        }
+        prev_slot = ring.slot;
+        ring.advance();
+      }
+      wg::wgmma_wait<0>();
+      wg::ring_release(ring.empty0, prev_slot, cl);
+      wg::fence_acc(acc);
+
+      // epilogue: two rows for each of this thread's lane bins
+      float* bn_step = bn_s + (step & 1) * LANES;
+      bn_step[tid] = bn_mine;
+      asm volatile("bar.sync %0, %1;\n" :: "r"(1 + w), "n"(wg::WG_THREADS)
+                   : "memory");
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int pos = 2 * step + half;
+        if (pos < n_pos) {      // an odd n_pos ends inside the last step
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float2 bn2 = *reinterpret_cast<const float2*>(
+                bn_step + half * BOX + 8 * j + 2 * tig);
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const float d =
+                    screen_dist(acc[4 * (j + 8 * half) + 2 * h + e], qn_r[h],
+                                e ? bn2.y : bn2.x, PASSES, epilogue);
+                insert_key(keys[h][j][e], screen_key(d, epilogue, pos));
+              }
+          }
+        }
+      }
+    }
+
+    const size_t width = (size_t)n_mega * KEEP * LANES;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int qq = qrow + 8 * h;
+      if (qq < qrows) {
+        int* orow = out + (size_t)(q0 + qq) * width +
+                    (size_t)mega * KEEP * LANES + w * BOX + 2 * tig;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int t = 0; t < KEEP; ++t)
+            *reinterpret_cast<int2*>(orow + t * LANES + 8 * j) =
+                make_int2(keys[h][j][0][t], keys[h][j][1][t]);
+      }
+    }
+  }
+  // no block leaves while a peer may still multicast into it or arrive on
+  // its barriers
+  wg::cluster_sync();
+}
+
+// Blocks per cluster for nqb query blocks x n_mega megas: the larger of 4
+// and 2 whose rounding of the grid adds at most 1/16 of surplus blocks, or
+// whose grid fits the card's SMs at once anyway (surplus blocks then cost
+// no time).
+inline int pick_cluster(int nqb, int n_mega) {
+  for (int cl = 4; cl >= 2; cl /= 2) {
+    const int up = (nqb + cl - 1) / cl * cl;
+    if ((up - nqb) * 16 <= nqb || (cl <= nqb && (long long)up * n_mega <= 128))
+      return cl;
+  }
+  return 1;
+}
+
+template <int PASSES>
+int launch(const void* qhi, const void* qlo, const void* bhi, const void* blo,
+           const void* qn, const void* bn, void* out, int Q, int B, int D,
+           int mega_rows, int n_mega, int epilogue, int cluster,
+           cudaStream_t stream) {
+  using C = Cfg<PASSES>;
+  CUtensorMap m_qhi, m_qlo, m_bhi, m_blo;
+  int e = wg::make_map_2d(&m_qhi, qhi, Q, D, BOX, C::KC);
+  if (e == 0) e = wg::make_map_2d(&m_qlo, qlo, Q, D, BOX, C::KC);
+  if (e == 0) e = wg::make_map_2d(&m_bhi, bhi, B, D, BOX, C::KC);
+  if (e == 0) e = wg::make_map_2d(&m_blo, blo, B, D, BOX, C::KC);
+  if (e != 0) return e;
+  cudaError_t err = cudaFuncSetAttribute(
+      screen_keys_wgmma<PASSES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const int nqb = (Q + BQ - 1) / BQ;
+  const int cl = cluster > 0 ? cluster : pick_cluster(nqb, n_mega);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((nqb + cl - 1) / cl * cl, n_mega);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = C::SMEM;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, screen_keys_wgmma<PASSES>, m_qhi, m_qlo,
+                           m_bhi, m_blo, (const float*)qn, (const float*)bn,
+                           (int*)out, Q, B, D, mega_rows, n_mega, epilogue);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
+}  // namespace wgk
+
 }  // namespace
 
+// variant: 0 = "mma", 1 = "wgmma" (needs vec: D % 8 == 0 and 16-byte aligned
+// operands); cluster: blocks per cluster of the wgmma variant (1, 2 or 4),
+// 0 = chosen from the grid. The unused operands of a pass count (qlo, blo)
+// alias qhi, bhi. Returns 0, a CUDA error, or a tensor-map code of
+// wgmma_mainloop.cuh.
 extern "C" int screen_keys_launch(const void* qhi, const void* qlo,
                                   const void* bhi, const void* blo,
                                   const void* qn, const void* bn, void* out,
                                   int Q, int B, int D, int mega_rows,
                                   int n_mega, int passes, int epilogue,
-                                  int vec, void* stream) {
+                                  int vec, int variant, int cluster,
+                                  void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (passes == 1)
-    return launch<1>(qhi, qlo, bhi, blo, qn, bn, out, Q, B, D, mega_rows,
-                     n_mega, epilogue, vec, st);
-  if (passes == 2)
-    return launch<2>(qhi, qlo, bhi, blo, qn, bn, out, Q, B, D, mega_rows,
-                     n_mega, epilogue, vec, st);
-  if (passes == 3)
-    return launch<3>(qhi, qlo, bhi, blo, qn, bn, out, Q, B, D, mega_rows,
-                     n_mega, epilogue, vec, st);
-  return (int)cudaErrorInvalidValue;
+  if (passes < 1 || passes > 3 || variant < 0 || variant > 1 ||
+      (variant == 1 && !vec) ||
+      (cluster != 0 && cluster != 1 && cluster != 2 && cluster != 4))
+    return (int)cudaErrorInvalidValue;
+#define NW_LAUNCH(NS, P, LAST)                                              \
+  return NS::launch<P>(qhi, qlo, bhi, blo, qn, bn, out, Q, B, D, mega_rows, \
+                       n_mega, epilogue, LAST, st)
+  if (variant == 1) {
+    if (passes == 1) NW_LAUNCH(wgk, 1, cluster);
+    if (passes == 2) NW_LAUNCH(wgk, 2, cluster);
+    NW_LAUNCH(wgk, 3, cluster);
+  }
+  if (passes == 1) NW_LAUNCH(mma, 1, vec);
+  if (passes == 2) NW_LAUNCH(mma, 2, vec);
+  NW_LAUNCH(mma, 3, vec);
+#undef NW_LAUNCH
 }

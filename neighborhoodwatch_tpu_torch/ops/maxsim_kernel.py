@@ -25,8 +25,16 @@ with no valid token at all carry a bias (NEG_BIAS). The kernel relies on
 it and masks nothing per token. Operands stay row-major, (Q, Tq, dim) and
 (D, Td, dim): the kernel reads token s of 128 consecutive docs as a strided
 tile, so the doc tensor is neither transposed nor padded to whole megas.
+
+The source holds two variants of the kernel, and `pick_variant` chooses
+between them by shape alone: "wgmma" (query tiles resident in shared
+memory, doc tiles through TMA loads multicast across a cluster, wgmma
+products, two warpgroups of 64 token rows per block) where the padded token
+dim is 64 or 128, "mma" (mma.sync from a cp.async ring) for the rest.
+Launches are counted per variant.
 """
 
+import contextlib
 import ctypes
 
 import torch
@@ -43,6 +51,38 @@ CAND_PER_MEGA = KEEP * LANES
 MAX_QUERY_TOKENS = 32
 NEG_BIAS = -1e30   # per-doc bias of empty docs (finite: no inf - inf NaNs)
 _DIM_ALIGN = 16    # the kernel's k16 steps and 16-byte loads
+
+VARIANTS = ("mma", "wgmma")
+# pass counts at which the wgmma variant is the default where the shape
+# allows it (those at which it measured faster than "mma" on the card)
+WGMMA_PASSES = (1, 2, 3)
+_forced_variant = None
+
+
+def pick_variant(dimp: int, passes: int) -> str:
+    """The kernel variant for a padded token dim of `dimp` columns: "wgmma"
+    needs whole 64-column chunks (128-byte swizzled tile rows) and query
+    tiles that stay resident beside the ring, so dimp 64 or 128; every
+    other multiple of 16 takes "mma". The choice depends on nothing but
+    the shape."""
+    if dimp in (64, 128) and passes in WGMMA_PASSES:
+        return "wgmma"
+    return "mma"
+
+
+@contextlib.contextmanager
+def forced_variant(name: str):
+    """Launch `name` instead of the variant `pick_variant` would choose, for
+    tests and timings that hold the two against each other. Forcing "wgmma"
+    on a shape it cannot take makes the launch raise."""
+    global _forced_variant
+    if name not in VARIANTS:
+        raise ValueError(f"variant {name!r} not in {VARIANTS}")
+    before, _forced_variant = _forced_variant, name
+    try:
+        yield
+    finally:
+        _forced_variant = before
 
 __all__ = ["KEEP", "LANES", "PACK_EPS_REL", "MEGA_DOCS", "CAND_PER_MEGA",
            "NEG_BIAS", "bf16_round", "norm_guard", "maxsim_acc_rel",
@@ -187,7 +227,7 @@ def load_library():
     if not getattr(lib, "_nw_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.maxsim_keys_launch.argtypes = [p, p, p, p, p, p,
-                                           i, i, i, i, i, i, i, p]
+                                           i, i, i, i, i, i, i, i, i, p]
         lib.maxsim_keys_launch.restype = i
         lib._nw_typed = True
     return lib
@@ -200,8 +240,8 @@ def maxsim_keys(qhi, qlo, dhi, dlo, bias, passes: int):
     qhi/qlo (Q, Tq, dimp) and dhi/dlo (D, Td, dimp) bf16 operands from
     `prepare_operands` (qlo only at passes >= 2, dlo only at passes 3),
     bias (D,) f32; Tq <= 32, dimp a multiple of 16. CPU tensors take the
-    plain version; CUDA tensors launch the kernel (and count the launch)
-    or raise."""
+    plain version; CUDA tensors launch the kernel variant `pick_variant`
+    names (and count the launch, in all and per variant) or raise."""
     if passes not in (1, 2, 3):
         raise ValueError(f"passes={passes}")
     if qhi.dim() != 3 or dhi.dim() != 3:
@@ -234,20 +274,24 @@ def maxsim_keys(qhi, qlo, dhi, dlo, bias, passes: int):
     ops = [qhi, qlo if passes >= 2 else qhi, dhi, dlo if passes >= 3 else dhi]
     if any(t.data_ptr() % 16 for t in ops):
         raise ValueError("operands must be 16-byte aligned")
+    variant = _forced_variant or pick_variant(dimp, passes)
     with torch.cuda.device(dev):
         err = load_library().maxsim_keys_launch(
             ops[0].data_ptr(), ops[1].data_ptr(), ops[2].data_ptr(),
             ops[3].data_ptr(), bias.data_ptr(), out.data_ptr(),
-            Q, Tq, D, Td, dimp, n_mega, passes,
+            Q, Tq, D, Td, dimp, n_mega, passes, VARIANTS.index(variant), 0,
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"maxsim_keys kernel launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"maxsim_keys kernel ({variant}) launch failed: "
+                           f"error {err} (CUDA's, or 2xxxx from the tensor "
+                           f"map encode)")
     maxsim_keys.launches += 1
+    maxsim_keys.launches_by_variant[variant] += 1
     return out
 
 
 maxsim_keys.launches = 0
+maxsim_keys.launches_by_variant = {v: 0 for v in VARIANTS}
 
 
 def decode_keys(keys):

@@ -20,8 +20,17 @@ Pallas schedules `_kernel_fused`, `_kernel_pipelined` and `_kernel` of the
 JAX package), on CPU tensors it runs `screen_keys_plain`, the vectorized
 PyTorch version of the same function (same bf16 operands, same epilogues,
 same bins, key packing and lowest-KEEP order).
+
+The source holds two variants of the kernel, and `pick_variant` chooses
+between them by shape alone: "wgmma" (TMA loads, wgmma products, a base
+tile multicast across a cluster; it walks a mega in 256-row steps, rows r
+and r + 128 of a step being positions 2*step and 2*step + 1 of one lane
+bin) wherever a TMA tensor map can describe the operands, "mma" (mma.sync
+from a cp.async ring, 128-row steps) for the rest. Launches are counted per
+variant.
 """
 
+import contextlib
 import ctypes
 
 import torch
@@ -49,6 +58,37 @@ SCREEN_PRECISIONS = ("default", "medium", "high")
 PASSES = {"default": 1, "medium": 2, "high": 3}
 EPILOGUES = ("l2", "dot", "rdot")
 _EPILOGUE_CODE = {"l2": 0, "dot": 1, "rdot": 2}
+
+VARIANTS = ("mma", "wgmma")
+# pass counts at which the wgmma variant is the default where the shape
+# allows it (those at which it measured faster than "mma" on the card)
+WGMMA_PASSES = (1, 2, 3)
+_forced_variant = None
+
+
+def pick_variant(D: int, aligned: bool, passes: int) -> str:
+    """The kernel variant for operands of D columns: "wgmma" needs rows a
+    TMA tensor map can describe (D % 8 == 0, i.e. 16-byte row strides, and
+    `aligned`: 16-byte aligned base pointers); everything else takes
+    "mma". The choice depends on nothing but the shape."""
+    if D % 8 == 0 and aligned and passes in WGMMA_PASSES:
+        return "wgmma"
+    return "mma"
+
+
+@contextlib.contextmanager
+def forced_variant(name: str):
+    """Launch `name` instead of the variant `pick_variant` would choose, for
+    tests and timings that hold the two against each other. Forcing "wgmma"
+    on a shape it cannot take makes the launch raise."""
+    global _forced_variant
+    if name not in VARIANTS:
+        raise ValueError(f"variant {name!r} not in {VARIANTS}")
+    before, _forced_variant = _forced_variant, name
+    try:
+        yield
+    finally:
+        _forced_variant = before
 
 
 def pick_sub(n_rows: int, k: int | None = None,
@@ -184,7 +224,7 @@ def load_library():
     if not getattr(lib, "_nw_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.screen_keys_launch.argtypes = [p, p, p, p, p, p, p,
-                                           i, i, i, i, i, i, i, i, p]
+                                           i, i, i, i, i, i, i, i, i, i, p]
         lib.screen_keys_launch.restype = i
         lib._nw_typed = True
     return lib
@@ -210,7 +250,8 @@ def screen_keys(qhi, qlo, bhi, blo, qn, bn, mega_rows: int, passes: int,
     qhi/qlo (Q, D) and bhi/blo (B, D) bf16 operands (qlo only at passes
     >= 2, blo only at passes 3), qn (Q,) and bn (B,) f32 squared norms with
     +inf on masked base rows. CPU tensors take the plain version; CUDA
-    tensors launch the kernel (and count the launch) or raise."""
+    tensors launch the kernel variant `pick_variant` names (and count the
+    launch, in all and per variant) or raise."""
     if passes not in (1, 2, 3) or epilogue not in EPILOGUES:
         raise ValueError(f"passes={passes} epilogue={epilogue!r}")
     if mega_rows % LANES or mega_rows // LANES > (1 << POS_BITS):
@@ -238,21 +279,27 @@ def screen_keys(qhi, qlo, bhi, blo, qn, bn, mega_rows: int, passes: int,
     if Q == 0 or n_mega == 0:
         return out
     ops = [qhi, qlo if passes >= 2 else qhi, bhi, blo if passes >= 3 else bhi]
-    vec = int(D % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in ops))
+    aligned = all(t.data_ptr() % 16 == 0 for t in ops)
+    vec = int(D % 8 == 0 and aligned)
+    variant = _forced_variant or pick_variant(D, aligned, passes)
     with torch.cuda.device(dev):
         err = load_library().screen_keys_launch(
             ops[0].data_ptr(), ops[1].data_ptr(), ops[2].data_ptr(),
             ops[3].data_ptr(), qn.data_ptr(), bn.data_ptr(), out.data_ptr(),
             Q, B, D, mega_rows, n_mega, passes, _EPILOGUE_CODE[epilogue],
-            vec, torch.cuda.current_stream(dev).cuda_stream)
+            vec, VARIANTS.index(variant), 0,
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"screen_keys kernel launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"screen_keys kernel ({variant}) launch failed: "
+                           f"error {err} (CUDA's, or 2xxxx from the tensor "
+                           f"map encode)")
     screen_keys.launches += 1
+    screen_keys.launches_by_variant[variant] += 1
     return out
 
 
 screen_keys.launches = 0
+screen_keys.launches_by_variant = {v: 0 for v in VARIANTS}
 
 
 def screen_candidates(q, base, *, n_rows: int | None = None,

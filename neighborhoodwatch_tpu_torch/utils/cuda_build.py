@@ -2,12 +2,14 @@
 interface and load it with ctypes.
 
 `nvcc -gencode arch=compute_90a,code=sm_90a` compiles one `csrc/<name>.cu`
-into `_build/lib<name>-<hash>.so` at first use (the hash covers the source
-and the flags, so an edited source rebuilds). Nothing is built at import
+into `_build/lib<name>-<hash>.so` at first use (the hash covers the source,
+every header `csrc/*.cuh` and the flags, so an edited source or header
+rebuilds). Nothing is built at import
 time: the CPU test environment has neither nvcc nor a card.
 """
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -33,8 +35,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
+    for path in [os.path.join(CSRC, f"{name}.cu"), *headers]:
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 

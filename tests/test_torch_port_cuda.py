@@ -1,4 +1,6 @@
-"""The port's CUDA kernel against its plain PyTorch version, on the card.
+"""The port's CUDA kernels, both variants of each ("wgmma": TMA + wgmma;
+"mma": cp.async + mma.sync), against their plain PyTorch versions, on the
+card.
 
 This file imports neither jax nor the JAX package, so it runs where the
 card is and JAX is not installed:
@@ -34,32 +36,45 @@ def _operands(q, b):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [200, 45])
-def test_screen_kernel_matches_plain(cuda, d):
-    """passes 1/2/3 x l2/dot/rdot on ragged Q and B; D=200 takes the
-    16-byte cp.async path, D=45 the scalar one. Tolerance as in
-    tests/test_torch_port_screen.py: masked entries masked on both sides,
-    every distance within (PACK_EPS_REL + 4 acc_rel(D)) x scale, and row
-    ids different only between rows that close."""
+@pytest.mark.parametrize("variant,n_q,d,mega", [
+    # D=200: not a multiple of 64 (TMA zero-fills the last chunk's columns),
+    # and B = mega + 555 ends inside a 256-row step
+    ("wgmma", 70, 200, MEGA), ("mma", 70, 200, MEGA),
+    # D=45: rows TMA cannot describe, scalar loads
+    ("mma", 50, 45, MEGA),
+    # 17 query blocks: the cluster of 2 leaves one surplus block per mega
+    ("wgmma", 1078, 72, MEGA),
+    # an odd number of 128-row positions: the last 256-row step is half
+    # inside the next mega
+    ("wgmma", 33, 64, 5 * 128), ("mma", 33, 64, 5 * 128)])
+def test_screen_kernel_matches_plain(cuda, variant, n_q, d, mega):
+    """passes 1/2/3 x l2/dot/rdot on ragged Q and B, each kernel variant
+    forced. Tolerance as in tests/test_torch_port_screen.py: masked
+    entries masked on both sides, every distance within (PACK_EPS_REL + 4
+    acc_rel(D)) x scale, and row ids different only between rows that
+    close."""
     rng = np.random.default_rng(29)
-    q = torch.from_numpy(rng.standard_normal((70, d)).astype(np.float32))
+    q = torch.from_numpy(rng.standard_normal((n_q, d)).astype(np.float32))
     b = torch.from_numpy(
-        rng.standard_normal((MEGA + 555, d)).astype(np.float32))
+        rng.standard_normal((2 * mega + 555, d)).astype(np.float32))
     q, b = q.to(cuda), b.to(cuda)
     ops = _operands(q, b)
+    assert variant == "mma" or tsk.pick_variant(d, True, 1) == "wgmma"
     q64, b64 = q.double(), b.double()
     qn, bn_max = (q64 ** 2).sum(1), (b64 ** 2).sum(1).max()
     scales = {"l2": qn + bn_max, "dot": qn.sqrt() * bn_max.sqrt(),
               "rdot": qn.sqrt()}
     before = tsk.screen_keys.launches
+    before_v = tsk.screen_keys.launches_by_variant[variant]
     for passes in (1, 2, 3):
         for epi in tsk.EPILOGUES:
-            k = tsk.screen_keys(**ops, mega_rows=MEGA, passes=passes,
-                                epilogue=epi)
-            kp = tsk.screen_keys_plain(**ops, mega_rows=MEGA, passes=passes,
+            with tsk.forced_variant(variant):
+                k = tsk.screen_keys(**ops, mega_rows=mega, passes=passes,
+                                    epilogue=epi)
+            kp = tsk.screen_keys_plain(**ops, mega_rows=mega, passes=passes,
                                        epilogue=epi)
-            dk, ik = tsk._decode_keys(k, epi, MEGA)
-            dp, ip = tsk._decode_keys(kp, epi, MEGA)
+            dk, ik = tsk._decode_keys(k, epi, mega)
+            dp, ip = tsk._decode_keys(kp, epi, mega)
             fin = torch.isfinite(dp)
             assert torch.equal(torch.isfinite(dk), fin)
             tol = (tsk.PACK_EPS_REL + 4 * tknn._acc_rel(d)) \
@@ -71,6 +86,22 @@ def test_screen_kernel_matches_plain(cuda, d):
             assert bool((diff[swapped] <= tol.expand_as(diff)[swapped])
                         .all())
     assert tsk.screen_keys.launches == before + 9
+    assert tsk.screen_keys.launches_by_variant[variant] == before_v + 9
+
+
+@pytest.mark.cuda
+def test_variant_follows_the_shape_and_a_wrong_force_raises(cuda):
+    """Unforced, D=200 launches "wgmma" and D=45 "mma"; forcing "wgmma" on
+    rows a tensor map cannot describe raises instead of falling back."""
+    for d, variant in ((200, "wgmma"), (45, "mma")):
+        ops = _operands(torch.randn(8, d, device=cuda),
+                        torch.randn(MEGA, d, device=cuda))
+        before = tsk.screen_keys.launches_by_variant[variant]
+        tsk.screen_keys(**ops, mega_rows=MEGA, passes=1, epilogue="l2")
+        assert tsk.screen_keys.launches_by_variant[variant] == before + 1
+    with pytest.raises(RuntimeError, match="wgmma"):
+        with tsk.forced_variant("wgmma"):
+            tsk.screen_keys(**ops, mega_rows=MEGA, passes=1, epilogue="l2")
 
 
 @pytest.mark.cuda
@@ -114,31 +145,48 @@ def _maxsim_case(rng, Q, Tq, D, Td, dim, cuda):
     return [torch.from_numpy(x).to(cuda) for x in (q, qm, d, dm)]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("Tq,Td,dim,D", [
+_MAXSIM_SHAPES = [
     (7, 12, 128, 3 * 8192 + 77), (32, 24, 128, 8192 + 5),
     (32, 64, 32, 700), (20, 180, 128, 300), (5, 16, 256, 8192),
-    # Tq=24: two queries per block, 48 of its 64 rows live (the shape of
-    # 17-token passages padded to a multiple of 8)
-    (24, 32, 128, 8192), (24, 12, 128, 1500), (1, 1, 16, 130)])
-def test_maxsim_kernel_matches_plain(cuda, Tq, Td, dim, D):
-    """maxsim_keys against maxsim_keys_plain at passes 1/2/3: empty slots
-    equal, decoded scores within (PACK_EPS_REL + 4 maxsim_acc_rel(dim)) x
-    (sum_t ||q_t|| x max ||d_s||) (fp32 sums in another order plus one key
-    quantum), doc ids different only between docs that close."""
+    # Tq=24: two queries per 64 token rows, 48 of them live (the shape of
+    # 17-token passages padded to a multiple of 8); in the wgmma variant
+    # each of the two warpgroups holds such a pair
+    (24, 32, 128, 8192), (24, 12, 128, 1500), (1, 1, 16, 130),
+    # one 64-column chunk; dim 50 is padded to it
+    (32, 16, 64, 8192 + 300), (9, 20, 50, 900)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant,Tq,Td,dim,D", [
+    (v, *shape) for shape in _MAXSIM_SHAPES
+    for v in (("wgmma", "mma") if -(-shape[2] // 16) * 16 in (64, 128)
+              else ("mma",))])
+def test_maxsim_kernel_matches_plain(cuda, variant, Tq, Td, dim, D):
+    """maxsim_keys, each variant forced where the shape allows it (dim 32,
+    16 and 256 take "mma" only), against maxsim_keys_plain at passes
+    1/2/3: empty slots equal, decoded scores within (PACK_EPS_REL + 4
+    maxsim_acc_rel(dim)) x (sum_t ||q_t|| x max ||d_s||) (fp32 sums in
+    another order plus one key quantum), doc ids different only between
+    docs that close. 37 queries leave a ragged last block, and at Tq 7 and
+    24 an odd block count: a surplus block in the cluster of 2."""
     from neighborhoodwatch_tpu_torch.ops import maxsim_kernel as tmk
     rng = np.random.default_rng(31)
     q, qm, d, dm = _maxsim_case(rng, 37, Tq, D, Td, dim, cuda)
     before = tmk.maxsim_keys.launches
+    before_v = tmk.maxsim_keys.launches_by_variant[variant]
     for passes in (1, 2, 3):
         ops = tmk.prepare_operands(q, qm, d, dm, passes)[:5]
-        keys = tmk.maxsim_keys(*ops, passes)
+        assert variant == "mma" or \
+            tmk.pick_variant(ops[0].shape[2], passes) == "wgmma"
+        with tmk.forced_variant(variant):
+            keys = tmk.maxsim_keys(*ops, passes)
         torch.cuda.synchronize()
         plain = tmk.maxsim_keys_plain(*ops, passes)
         assert keys.shape == plain.shape
         tmk.candidates_agree(tmk.decode_keys(keys), tmk.decode_keys(plain),
                              q, qm, d, dm)
     assert tmk.maxsim_keys.launches == before + 3
+    assert tmk.maxsim_keys.launches_by_variant[variant] == before_v + 3
 
 
 @pytest.mark.cuda
@@ -155,3 +203,7 @@ def test_maxsim_wrapper_checks_its_inputs(cuda):
     with pytest.raises(ValueError, match="query tokens"):
         tmk.maxsim_keys(torch.zeros((4, 33, 32), dtype=torch.bfloat16,
                                     device=cuda), None, d, None, b, 1)
+    # dim 32 cannot take the wgmma variant: a forced launch raises
+    with pytest.raises(RuntimeError, match="wgmma"):
+        with tmk.forced_variant("wgmma"):
+            tmk.maxsim_keys(q, None, d, None, b, 1)

@@ -488,3 +488,40 @@ def test_streaming_exact_path_and_checkpoint_cross_packages():
     with pytest.raises(ValueError, match="unknown engine"):
         tm.StreamingMaxSim(q, qm, k, engine="Exact",
                            device="cpu").update(d, dm)
+
+
+@pytest.mark.parametrize("dim,passes,variant", [
+    (128, 1, "wgmma"), (128, 2, "wgmma"), (128, 3, "wgmma"),
+    (64, 3, "wgmma"),
+    (50, 3, "wgmma"),      # prepare_operands pads 50 to 64
+    (32, 3, "mma"),        # half a 64-column chunk
+    (96, 2, "mma"), (256, 3, "mma"),
+])
+def test_variant_is_chosen_by_shape_alone(dim, passes, variant):
+    """The kernel variant follows the padded token dim that
+    prepare_operands gives the kernel, and nothing else."""
+    q, qm, d, dm = _t(*_corpus(3, 2, 4, 6, 3, dim))
+    dimp = tmk.prepare_operands(q, qm, d, dm, passes)[0].shape[2]
+    expected = variant if passes in tmk.WGMMA_PASSES else "mma"
+    assert tmk.pick_variant(dimp, passes) == expected
+    assert tmk._forced_variant is None
+    with tmk.forced_variant("mma"):
+        assert tmk._forced_variant == "mma"
+    assert tmk._forced_variant is None
+
+
+def test_doc_position_in_its_lane_bin():
+    """What both kernel variants rely on: a 128-doc step gives every lane
+    bin (mega, d % 128) exactly one doc, at position (d % 8192) // 128.
+    A doc planted as the best match of a query in the second mega comes
+    back in slab 0 of its bin with that position, and decodes to itself."""
+    q, qm, d, dm = _corpus(5, 3, 4, tmk.MEGA_DOCS + 900, 3, 16)
+    qm[:], dm[:] = True, True
+    doc = tmk.MEGA_DOCS + 5 * 128 + 93
+    d[doc] = 4 * q[1, :3]
+    ops = tmk.prepare_operands(*_t(q, qm, d, dm), 3)
+    keys = tmk.maxsim_keys(*ops[:5], 3)
+    col = tmk.CAND_PER_MEGA + 93
+    assert int(keys[1, col] & tmk.POS_MASK) == (doc % tmk.MEGA_DOCS) // 128 == 5
+    assert int(tmk.decode_keys(keys)[1][1, col]) == doc
+    assert set(tmk.maxsim_keys.launches_by_variant) == set(tmk.VARIANTS)

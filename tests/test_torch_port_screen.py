@@ -141,3 +141,71 @@ def test_screen_keys_plain_rejects_position_overflow():
     qn = torch.zeros(2)
     with pytest.raises(ValueError, match="positions"):
         tsk.screen_keys(q, q, q, q, qn, qn, 1025 * tsk.LANES, 1, "l2")
+
+
+def test_rows_r_and_r_plus_128_share_a_lane_bin_at_adjacent_positions():
+    """What the wgmma variant's 256-row step relies on: rows r and r + 128
+    of a step fall in the same lane bin (mega, r % 128) at positions
+    (r % mega_rows) // 128 = 2*step and 2*step + 1, so a wider step adds
+    no bins. Planted exact matches at such a pair come back as the two
+    best keys of one bin with exactly those positions."""
+    mega = 1024                       # 8 positions, 4 steps of 256 rows
+    q, b = _data(3, 2 * mega + 40, 16, seed=31)
+    step, lane = 2, 77
+    r = mega + step * 256 + lane      # second mega, first half of its step 2
+    b[r] = q[0]
+    b[r + 128] = q[0] * 1.25
+    qt, bt = torch.from_numpy(q), torch.from_numpy(b)
+    qh = tsk.bf16_round(qt)
+    bhi = tsk.bf16_round(bt).to(torch.bfloat16)
+    keys = tsk.screen_keys(qh.to(torch.bfloat16), None, bhi, None,
+                           (qt * qt).sum(1), (bt * bt).sum(1), mega, 1, "l2")
+    col = tsk.CAND_PER_MEGA + lane     # bin (mega 1, lane), slabs 0 and 1
+    pos = (keys[0, [col, col + tsk.LANES]] & tsk.POS_MASK).tolist()
+    assert pos == [2 * step, 2 * step + 1]
+    assert pos == [(x % mega) // tsk.LANES for x in (r, r + 128)]
+    _, ci = tsk._decode_keys(keys, "l2", mega)
+    assert ci[0, [col, col + tsk.LANES]].tolist() == [r, r + 128]
+
+
+@pytest.mark.parametrize("D,aligned,passes,variant", [
+    (1536, True, 1, "wgmma"), (1536, True, 2, "wgmma"),
+    (1536, True, 3, "wgmma"),
+    (200, True, 1, "wgmma"),      # D % 64 != 0, D % 8 == 0: TMA zero fill
+    (8, True, 1, "wgmma"),
+    (45, True, 1, "mma"),         # rows not 16-byte aligned
+    (1540, True, 3, "mma"),       # D % 8 == 4
+    (1536, False, 1, "mma"),      # an operand pointer off 16 bytes
+])
+def test_variant_is_chosen_by_shape_alone(D, aligned, passes, variant):
+    expected = variant if passes in tsk.WGMMA_PASSES else "mma"
+    assert tsk.pick_variant(D, aligned, passes) == expected
+
+
+def test_forced_variant_restores_and_rejects_unknown_names():
+    assert tsk._forced_variant is None
+    with tsk.forced_variant("mma"):
+        assert tsk._forced_variant == "mma"
+        with tsk.forced_variant("wgmma"):
+            assert tsk._forced_variant == "wgmma"
+        assert tsk._forced_variant == "mma"
+    assert tsk._forced_variant is None
+    with pytest.raises(ValueError, match="variant"):
+        with tsk.forced_variant("wmma"):
+            pass
+    assert set(tsk.screen_keys.launches_by_variant) == set(tsk.VARIANTS)
+
+
+def test_library_hash_covers_the_shared_header(tmp_path, monkeypatch):
+    """Both kernel sources include csrc/wgmma_mainloop.cuh: an edited
+    header must name a new library, or a stale one would be loaded."""
+    from neighborhoodwatch_tpu_torch.utils import cuda_build
+    import os
+    assert os.path.exists(os.path.join(cuda_build.CSRC, "wgmma_mainloop.cuh"))
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(cuda_build, "CSRC", str(tmp_path))
+    first = cuda_build.library_path("k")
+    assert cuda_build.library_path("k") == first
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert cuda_build.library_path("k") != first
