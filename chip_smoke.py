@@ -54,6 +54,7 @@ without that line; without a CUDA card it exits 2.
 import importlib.util
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -117,6 +118,18 @@ def turns_ms(mod, fn):
     return float(np.mean(got["mma"])), float(np.mean(got["wgmma"]))
 
 
+def cluster_sweep_ms(mod, fn):
+    """`fn` under the "wgmma" variant at 1, 2 and 4 blocks per cluster (the
+    launch function's own choice is what every other timing uses), each a
+    median of 3 by CUDA events, run twice in turns; returns {size: ms}."""
+    got = {1: [], 2: [], 4: []}
+    for size in (1, 2, 4, 4, 2, 1):
+        with mod.forced_variant("wgmma", cluster=size):
+            fn()
+            got[size].append(event_ms(fn))
+    return {size: float(np.mean(v)) for size, v in got.items()}
+
+
 def ptxas_report(name, report):
     """ptxas -v per kernel of one source: variant, pass count, registers,
     spills. Raises on any spill."""
@@ -125,8 +138,10 @@ def ptxas_report(name, report):
         if "Compiling entry function" in line:
             sym = line.split("'")[1]
             variant = "wgmma" if "wgmma" in sym else "mma"
-            passes = sym.split("ILi")[1][0] if "ILi" in sym else "?"
-            entry = f"{variant}<{passes}>"
+            # the mangled template arguments: passes[, epilogue]
+            targs = re.search(r"I((?:Li\d+E)+)E", sym)
+            args = re.findall(r"\d+", targs.group(1)) if targs else ["?"]
+            entry = f"{variant}<{', '.join(args)}>"
         elif "spill" in line and entry:
             spills = line.strip()
             if "0 bytes spill stores, 0 bytes spill loads" not in spills:
@@ -139,16 +154,10 @@ def ptxas_report(name, report):
             log(f"  ptxas {name}: {line.strip()}")
 
 
-def reset_screen_counts():
-    from neighborhoodwatch_tpu_torch.ops import screen_kernel as sk
-    sk.screen_keys.launches = 0
-    sk.screen_keys.launches_by_variant = {v: 0 for v in sk.VARIANTS}
-
-
-def reset_maxsim_counts():
-    from neighborhoodwatch_tpu_torch.ops import maxsim_kernel as mk
-    mk.maxsim_keys.launches = 0
-    mk.maxsim_keys.launches_by_variant = {v: 0 for v in mk.VARIANTS}
+def reset_counts(wrapper):
+    """Set a kernel wrapper's launch counts to 0, in all and per variant."""
+    wrapper.launches = 0
+    wrapper.launches_by_variant = {v: 0 for v in wrapper.launches_by_variant}
 
 
 def screen_operands(q, b):
@@ -235,7 +244,7 @@ def phase_kernel_vs_plain():
         q = torch.randn(qn_, d, device="cuda", generator=g)
         b = torch.randn(bn_, d, device="cuda", generator=g)
         ops = screen_operands(q, b)
-        chosen = sk.pick_variant(d, True, 1)
+        chosen = sk.pick_variant(d, True)
         for passes in (1, 2, 3):
             for epi in sk.EPILOGUES:
                 kp = sk.screen_keys_plain(**ops, mega_rows=mega,
@@ -274,7 +283,7 @@ def phase_engine(rec):
         raise AssertionError(f"auto picked {engine!r}, not 'screened'")
 
     # ---- the main-path call, counted ----
-    reset_screen_counts()
+    reset_counts(sk.screen_keys)
     torch.cuda.synchronize()
     t = time.perf_counter()
     d_s, i_s = K.knn(q, base, k, engine="auto")
@@ -354,7 +363,14 @@ def phase_engine(rec):
             f"{kernel[passes]:.1f} ms ({flops / kernel[passes] / 1e9:.1f} "
             f"TFLOP/s, {kernel[passes] / bound:.2f}x bound); bound "
             f"{bound:.1f} ms; default "
-            f"'{sk.pick_variant(D, True, passes)}'")
+            f"'{sk.pick_variant(D, True)}'")
+    sweep = {p: cluster_sweep_ms(sk, lambda p=p: sk.screen_keys(
+        qhi, qlo, prep.bhi, blo if p == 3 else None, qn, bn, mega, p, "l2"))
+        for p in (1, 2, 3)}
+    log("  wgmma variant by blocks per cluster (1 / 2 / 4), ms: " + "; ".join(
+        f"{p}-pass {sweep[p][1]:.1f} / {sweep[p][2]:.1f} / {sweep[p][4]:.1f}"
+        for p in sweep))
+    rec["cluster_sweep_ms"] = {str(p): sweep[p] for p in sweep}
     # the streamed batch's shape (phase 4): 1,000 queries, one 100,000-row
     # batch, sub=28: 16 query blocks x 4 megas = 64 blocks on 132 SMs
     sQ, sB, smega = 1000, 100_000, sk.TB * sk.SUB_PER_MEGA
@@ -392,7 +408,7 @@ def phase_engine(rec):
     plain_ms = (time.perf_counter() - t) * 1e3
     err, swapped = compare_keys(keys, keys_plain, "l2", mega, q, base)
     log(f"  plain version at the same shapes: {plain_ms:.1f} ms; kernel "
-        f"[{sk.pick_variant(D, True, 1)}] vs plain max |d| {err:.3g}, "
+        f"[{sk.pick_variant(D, True)}] vs plain max |d| {err:.3g}, "
         f"swapped ids (within tolerance) {swapped}")
     with sk.forced_variant("mma"):
         keys = sk.screen_keys(qhi, qlo, prep.bhi, None, qn, bn, mega, 1, "l2")
@@ -437,13 +453,13 @@ def phase_engine(rec):
         torch.cuda.empty_cache()
         by_passes[str(passes)] = {
             "ms": kernel[passes], "ms_before": before[passes],
-            "variant": sk.pick_variant(D, True, passes),
+            "variant": sk.pick_variant(D, True),
             "plain_ms": p_ms, "library_ms": l_ms,
             "bound_ms": 2.0 * Q * B * D * passes / PEAK_BF16_FLOPS * 1e3,
             "max_abs_err": e}
         log(f"  {passes}-pass: plain {p_ms:.1f} ms, torch.mm of the "
             f"{passes} bf16 products {l_ms:.1f} ms; kernel "
-            f"[{sk.pick_variant(D, True, passes)}] vs plain max |d| {e:.3g},"
+            f"[{sk.pick_variant(D, True)}] vs plain max |d| {e:.3g},"
             f" swapped ids (within tolerance) {sw}; [mma] {e_m:.3g}, {sw_m}")
     del blo
     rec["by_passes"] = by_passes
@@ -453,7 +469,7 @@ def phase_engine(rec):
     flops = 2.0 * Q * B * D
     bound_ms = max(bytes_ / PEAK_BYTES, flops / PEAK_BF16_FLOPS) * 1e3
     rec.update(launches=launches, launches_by_variant=by_variant,
-               variant=sk.pick_variant(D, True, 1), max_abs_err=err,
+               variant=sk.pick_variant(D, True), max_abs_err=err,
                ms=kernel[1], ms_before=before[1],
                plain_ms=plain_ms, bound_ms=bound_ms,
                bound_by="operations" if flops / PEAK_BF16_FLOPS
@@ -502,7 +518,7 @@ def phase_pipeline(rec, workdir):
     output_hdf5 = importlib.util.find_spec("h5py") is not None
     if not output_hdf5:
         log("  hdf5 export skipped: h5py is not installed on this machine")
-    reset_screen_counts()
+    reset_counts(sk.screen_keys)
     # CUDA events around each kernel launch of the pipeline
     lib = sk.load_library()
     real_launch, events = lib.screen_keys_launch, []
@@ -601,7 +617,7 @@ def phase_maxsim_kernel_vs_plain():
     shapes.append((37, 24, mk.MEGA_DOCS + 300, 16, 64))
     for Q, Tq, D, Td, dim in shapes:
         q, qm, d, dm = case(Q, Tq, D, Td, dim)
-        chosen = mk.pick_variant(-(-dim // 16) * 16, 1)
+        chosen = mk.pick_variant(-(-dim // 16) * 16)
         variants = tuple(dict.fromkeys((chosen, "mma")))
         for passes in (1, 2, 3):
             ops = mk.prepare_operands(q, qm, d, dm, passes)[:5]
@@ -704,7 +720,7 @@ def phase_maxsim_engine(rec):
             raise AssertionError(f"auto picked {engine!r}, not 'screened'")
 
         # ---- the main-path call, counted ----
-        reset_maxsim_counts()
+        reset_counts(mk.maxsim_keys)
         torch.cuda.synchronize()
         t = time.perf_counter()
         s_s, i_s = M.maxsim_topk(q, qm, d, dm, k, engine="auto")
@@ -757,8 +773,14 @@ def phase_maxsim_engine(rec):
                 f"{kernel[passes]:.1f} ms "
                 f"({flops / kernel[passes] / 1e9:.1f} TFLOP/s, "
                 f"{kernel[passes] / bound:.2f}x bound); bound {bound:.1f} ms;"
-                f" default '{mk.pick_variant(dim, passes)}'")
+                f" default '{mk.pick_variant(dim)}'")
             del ops
+        if label == "200k x 16":
+            sweep = cluster_sweep_ms(
+                mk, lambda: mk.maxsim_keys(*ops3[:5], 3))
+            log(f"  [{label}] wgmma variant, 3 passes, by blocks per cluster "
+                f"(1 / 2 / 4): {sweep[1]:.1f} / {sweep[2]:.1f} / "
+                f"{sweep[4]:.1f} ms")
         log(f"  [{label}] stages of a 3-pass call: prep {prep_ms:.1f} ms, "
             f"kernel {kernel[3]:.1f} ms, decode + select (merge, re-rank, "
             f"certificate, repair) {select_ms:.1f} ms, the rest "
@@ -771,7 +793,7 @@ def phase_maxsim_engine(rec):
         err, swapped = mk.candidates_agree(
             mk.decode_keys(keys), mk.decode_keys(plain), q, qm, d, dm)
         log(f"  [{label}] plain version (3 passes): {plain_ms:.1f} ms; "
-            f"kernel [{mk.pick_variant(dim, 3)}] vs plain max |score| "
+            f"kernel [{mk.pick_variant(dim)}] vs plain max |score| "
             f"{err:.3g}, swapped ids (within tolerance) {swapped}")
         with mk.forced_variant("mma"):
             keys = mk.maxsim_keys(*ops3[:5], 3)
@@ -818,7 +840,7 @@ def phase_maxsim_engine(rec):
                  "bound_by", "product_yardstick_ms")})
     rec["library_ms"] = None
     rec["passes"] = 3
-    rec["variant"] = mk.pick_variant(dim, 3)
+    rec["variant"] = mk.pick_variant(dim)
     # launches are kept per path, never summed: the one-shot calls' stand
     # in `shapes`, the stream's here, ck's (the record's `launches`) in
     # phase 7
@@ -838,7 +860,7 @@ def stream_maxsim(q, qm, d, dm, k, s_one, i_one):
     n_tiles = -(-D // tile)
     n_full = sum(1 for s in range(0, D, tile)
                  if min(tile, D - s) >= M.SCREEN_MIN_DOCS)
-    reset_maxsim_counts()
+    reset_counts(mk.maxsim_keys)
     M.counts.host_copies = 0
     M.counts.escalated = 0
     M.counts.exact_fallbacks = 0
@@ -914,7 +936,7 @@ def phase_ck(rec, workdir):
     if not output_hdf5:
         argv.append("--no-gen-hdf5")
         log("  hdf5 export skipped: h5py is not installed on this machine")
-    reset_maxsim_counts()
+    reset_counts(mk.maxsim_keys)
     M.counts.repaired = M.counts.escalated = M.counts.exact_fallbacks = 0
     t = time.perf_counter()
     ck_main(argv)

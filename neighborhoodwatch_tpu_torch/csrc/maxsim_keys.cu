@@ -494,7 +494,7 @@ maxsim_keys_wgmma(const __grid_constant__ CUtensorMap m_qhi,
   wg::cluster_sync();
 
   if (threadIdx.x >= 2 * wg::WG_THREADS) {
-    // ===== producer warpgroup: one thread issues every TMA load =====
+    // ===== producer warpgroup: one thread starts every TMA load =====
     wg::reg_dealloc<40>();
     if (threadIdx.x == 2 * wg::WG_THREADS) {
       // the query tiles, once: warpgroup w's 64 rows start at its first

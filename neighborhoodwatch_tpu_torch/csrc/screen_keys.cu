@@ -46,8 +46,12 @@
 // 64-query tile, B = the warpgroup's 128 rows) with 64 accumulator
 // registers per thread, and accumulator columns n and n + 64 (the same
 // thread in the wgmma layout) are a lane's two positions: 32 bins x 4 keys
-// = 128 key registers per thread, the insert is one compare-swap chain,
-// nothing of the epilogue touches shared memory. The 2- and 3-pass tiers
+// = 128 key registers per thread, the insert is four min/max pairs, and
+// nothing of the epilogue touches shared memory but the step's 128 base
+// norms, which each thread fetches one of at the step's start. The epilogue
+// is a template parameter, so a step's 64 distances are straight-line code,
+// and each of a bin's new keys is computed from the old ones alone, so the
+// inserts of a thread's 32 bins overlap. The 2- and 3-pass tiers
 // are two or three wgmmas per k-step into the same accumulator. Operands
 // come through the TMA/mbarrier ring of csrc/wgmma_mainloop.cuh (5 slots of
 // 64-column chunks at 1 pass, 4 at 2; 5 slots of 32-column chunks with the
@@ -57,8 +61,11 @@
 // step's base boxes and multicast them, so a base tile leaves L2 once per
 // cluster. The grid's query-block count is rounded up to the cluster size;
 // a surplus block runs every ring turn on zero-filled queries and stores
-// nothing. While one warpgroup runs its step epilogue the other one's
-// wgmmas keep the tensor cores busy.
+// nothing. Both warpgroups wait on the same ring slots, so they reach their
+// step epilogues together and the tensor cores idle meanwhile: the ring's 5
+// slots are too short a lead for one to run ahead through the other's
+// epilogue. Shifting one warpgroup half a step measured slower for that
+// reason.
 //
 // "mma" (any D, any alignment: the first version of this kernel). One block
 // owns 64 queries x one mega and walks it in 128-row steps; eight warps
@@ -106,13 +113,12 @@ __device__ __forceinline__ int screen_key(float d, int epilogue, int pos) {
   return (bits & ~POS_MASK) | pos;
 }
 
-__device__ __forceinline__ void insert_key(int (&keys)[KEEP], int hi) {
+__device__ __forceinline__ void insert_key(int (&keys)[KEEP], int x) {
+  // each new key from the old ones alone (no chain through the four), so
+  // the inserts of a thread's many bins overlap
 #pragma unroll
-  for (int t = 0; t < KEEP; ++t) {
-    const int cur = keys[t];
-    keys[t] = min(cur, hi);
-    hi = max(cur, hi);
-  }
+  for (int t = KEEP - 1; t > 0; --t) keys[t] = min(keys[t], max(keys[t - 1], x));
+  keys[0] = min(keys[0], x);
 }
 
 // ---------------------------------------------------------------------------
@@ -457,7 +463,7 @@ struct Cfg {
   static_assert(STAGES >= 3 && 16 * STAGES <= BAR_BYTES, "ring depth");
 };
 
-template <int PASSES>
+template <int PASSES, int EPILOGUE>
 __global__ void __launch_bounds__(THREADS, 1)
 screen_keys_wgmma(const __grid_constant__ CUtensorMap m_qhi,
                   const __grid_constant__ CUtensorMap m_qlo,
@@ -466,9 +472,9 @@ screen_keys_wgmma(const __grid_constant__ CUtensorMap m_qhi,
                   const float* __restrict__ qn,
                   const float* __restrict__ bn,
                   int* __restrict__ out,
-                  int Q, int B, int D, int mega_rows, int n_mega,
-                  int epilogue) {
+                  int Q, int B, int D, int mega_rows, int n_mega) {
   using C = Cfg<PASSES>;
+  constexpr int epilogue = EPILOGUE;
   extern __shared__ unsigned char smem_raw[];
   // the same offset in every block of the cluster (multicast lands there)
   const uint32_t tiles = (wg::smem_u32(smem_raw) + wg::TILE_ALIGN - 1) &
@@ -491,7 +497,7 @@ screen_keys_wgmma(const __grid_constant__ CUtensorMap m_qhi,
   wg::cluster_sync();
 
   if (threadIdx.x >= 2 * wg::WG_THREADS) {
-    // ===== producer warpgroup: one thread issues every TMA load =====
+    // ===== producer warpgroup: one thread starts every TMA load =====
     wg::reg_dealloc<40>();
     if (threadIdx.x == 2 * wg::WG_THREADS) {
       wg::Ring ring(bars, C::STAGES);
@@ -648,11 +654,11 @@ inline int pick_cluster(int nqb, int n_mega) {
   return 1;
 }
 
-template <int PASSES>
-int launch(const void* qhi, const void* qlo, const void* bhi, const void* blo,
-           const void* qn, const void* bn, void* out, int Q, int B, int D,
-           int mega_rows, int n_mega, int epilogue, int cluster,
-           cudaStream_t stream) {
+template <int PASSES, int EPILOGUE>
+int launch_epilogue(const void* qhi, const void* qlo, const void* bhi,
+                    const void* blo, const void* qn, const void* bn,
+                    void* out, int Q, int B, int D, int mega_rows, int n_mega,
+                    int cluster, cudaStream_t stream) {
   using C = Cfg<PASSES>;
   CUtensorMap m_qhi, m_qlo, m_bhi, m_blo;
   int e = wg::make_map_2d(&m_qhi, qhi, Q, D, BOX, C::KC);
@@ -661,8 +667,8 @@ int launch(const void* qhi, const void* qlo, const void* bhi, const void* blo,
   if (e == 0) e = wg::make_map_2d(&m_blo, blo, B, D, BOX, C::KC);
   if (e != 0) return e;
   cudaError_t err = cudaFuncSetAttribute(
-      screen_keys_wgmma<PASSES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      C::SMEM);
+      screen_keys_wgmma<PASSES, EPILOGUE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return (int)err;
   const int nqb = (Q + BQ - 1) / BQ;
   const int cl = cluster > 0 ? cluster : pick_cluster(nqb, n_mega);
@@ -678,10 +684,27 @@ int launch(const void* qhi, const void* qlo, const void* bhi, const void* blo,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, screen_keys_wgmma<PASSES>, m_qhi, m_qlo,
-                           m_bhi, m_blo, (const float*)qn, (const float*)bn,
-                           (int*)out, Q, B, D, mega_rows, n_mega, epilogue);
+  err = cudaLaunchKernelEx(&cfg, screen_keys_wgmma<PASSES, EPILOGUE>, m_qhi,
+                           m_qlo, m_bhi, m_blo, (const float*)qn,
+                           (const float*)bn, (int*)out, Q, B, D, mega_rows,
+                           n_mega);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
+// the epilogue is a template parameter of this variant: its 64 distances a
+// step are straight-line code without a branch or a select per element
+template <int PASSES>
+int launch(const void* qhi, const void* qlo, const void* bhi, const void* blo,
+           const void* qn, const void* bn, void* out, int Q, int B, int D,
+           int mega_rows, int n_mega, int epilogue, int cluster,
+           cudaStream_t stream) {
+#define NW_EPILOGUE(E)                                                     \
+  return launch_epilogue<PASSES, E>(qhi, qlo, bhi, blo, qn, bn, out, Q, B, \
+                                    D, mega_rows, n_mega, cluster, stream)
+  if (epilogue == 0) NW_EPILOGUE(0);
+  if (epilogue == 1) NW_EPILOGUE(1);
+  NW_EPILOGUE(2);
+#undef NW_EPILOGUE
 }
 
 }  // namespace wgk
@@ -701,7 +724,8 @@ extern "C" int screen_keys_launch(const void* qhi, const void* qlo,
                                   int vec, int variant, int cluster,
                                   void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (passes < 1 || passes > 3 || variant < 0 || variant > 1 ||
+  if (passes < 1 || passes > 3 || epilogue < 0 || epilogue > 2 ||
+      variant < 0 || variant > 1 ||
       (variant == 1 && !vec) ||
       (cluster != 0 && cluster != 1 && cluster != 2 && cluster != 4))
     return (int)cudaErrorInvalidValue;

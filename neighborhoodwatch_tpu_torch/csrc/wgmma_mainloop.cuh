@@ -10,11 +10,11 @@
 //
 //   * Ring: `stages` slots of shared memory, a full and an empty mbarrier per
 //     slot. One producer thread waits for a slot to be empty, announces the
-//     slot's bytes (arrive.expect_tx) and issues the TMA loads; the hardware
+//     slot's bytes (arrive.expect_tx) and starts the TMA loads; the hardware
 //     completes the full barrier when the bytes have landed. Consumer warps
-//     wait on the full barrier, issue their wgmmas, and release the slot once
+//     wait on the full barrier, start their wgmmas, and release the slot once
 //     the wgmmas that read it have retired (wait_group), one chunk behind the
-//     one they issue, so the tensor cores always have a chunk queued.
+//     one they start, so the tensor cores always have a chunk queued.
 //   * Tiles are K-major rows of 128 bytes (64 bf16 columns, SWIZZLE_128B) or
 //     64 bytes (32 columns, SWIZZLE_64B), 8-row swizzle atoms back to back:
 //     exactly what cuTensorMapEncodeTiled writes and what a wgmma shared-
@@ -33,9 +33,9 @@
 //     closing cluster barrier, so that setmaxnreg moves registers from the
 //     producer warpgroup to the consumers. Every role runs the same number
 //     of ring turns; a surplus block of a rounded-up grid runs them too.
-//   * Tensor maps are encoded on the host at launch through
-//     cudaGetDriverEntryPoint (no -lcuda at link) and passed by value as
-//     __grid_constant__ parameters.
+//   * Tensor maps are encoded on the host at launch by
+//     cuTensorMapEncodeTiled, looked up at run time (no -lcuda at link), and
+//     passed by value as __grid_constant__ parameters.
 
 #pragma once
 
@@ -49,7 +49,7 @@ namespace wg {
 constexpr int WG_THREADS = 128;      // one warpgroup
 constexpr int TILE_ALIGN = 1024;     // swizzle atom: 8 rows x 128 bytes
 // launch-function codes beside CUDA's own (the wrappers raise on any)
-constexpr int ERR_NO_ENCODE_FN = 20001;   // driver entry point not found
+constexpr int ERR_NO_ENCODE_FN = 20001;   // cuTensorMapEncodeTiled not found
 constexpr int ERR_ENCODE_BASE = 21000;    // + CUresult of the encode call
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {

@@ -53,36 +53,37 @@ NEG_BIAS = -1e30   # per-doc bias of empty docs (finite: no inf - inf NaNs)
 _DIM_ALIGN = 16    # the kernel's k16 steps and 16-byte loads
 
 VARIANTS = ("mma", "wgmma")
-# pass counts at which the wgmma variant is the default where the shape
-# allows it (those at which it measured faster than "mma" on the card)
-WGMMA_PASSES = (1, 2, 3)
 _forced_variant = None
+_forced_cluster = 0     # 0: the launch function chooses
 
 
-def pick_variant(dimp: int, passes: int) -> str:
+def pick_variant(dimp: int) -> str:
     """The kernel variant for a padded token dim of `dimp` columns: "wgmma"
     needs whole 64-column chunks (128-byte swizzled tile rows) and query
     tiles that stay resident beside the ring, so dimp 64 or 128; every
     other multiple of 16 takes "mma". The choice depends on nothing but
-    the shape."""
-    if dimp in (64, 128) and passes in WGMMA_PASSES:
-        return "wgmma"
-    return "mma"
+    the shape: "wgmma" measured faster at every pass count."""
+    return "wgmma" if dimp in (64, 128) else "mma"
 
 
 @contextlib.contextmanager
-def forced_variant(name: str):
+def forced_variant(name: str, cluster: int = 0):
     """Launch `name` instead of the variant `pick_variant` would choose, for
     tests and timings that hold the two against each other. Forcing "wgmma"
-    on a shape it cannot take makes the launch raise."""
-    global _forced_variant
+    on a shape it cannot take makes the launch raise. `cluster` (1, 2 or
+    4) also fixes the blocks per cluster of the "wgmma" variant, which the
+    launch function otherwise chooses from the grid."""
+    global _forced_variant, _forced_cluster
     if name not in VARIANTS:
         raise ValueError(f"variant {name!r} not in {VARIANTS}")
-    before, _forced_variant = _forced_variant, name
+    if cluster not in (0, 1, 2, 4):
+        raise ValueError(f"cluster {cluster} not in (0, 1, 2, 4)")
+    before = _forced_variant, _forced_cluster
+    _forced_variant, _forced_cluster = name, cluster
     try:
         yield
     finally:
-        _forced_variant = before
+        _forced_variant, _forced_cluster = before
 
 __all__ = ["KEEP", "LANES", "PACK_EPS_REL", "MEGA_DOCS", "CAND_PER_MEGA",
            "NEG_BIAS", "bf16_round", "norm_guard", "maxsim_acc_rel",
@@ -274,12 +275,13 @@ def maxsim_keys(qhi, qlo, dhi, dlo, bias, passes: int):
     ops = [qhi, qlo if passes >= 2 else qhi, dhi, dlo if passes >= 3 else dhi]
     if any(t.data_ptr() % 16 for t in ops):
         raise ValueError("operands must be 16-byte aligned")
-    variant = _forced_variant or pick_variant(dimp, passes)
+    variant = _forced_variant or pick_variant(dimp)
     with torch.cuda.device(dev):
         err = load_library().maxsim_keys_launch(
             ops[0].data_ptr(), ops[1].data_ptr(), ops[2].data_ptr(),
             ops[3].data_ptr(), bias.data_ptr(), out.data_ptr(),
-            Q, Tq, D, Td, dimp, n_mega, passes, VARIANTS.index(variant), 0,
+            Q, Tq, D, Td, dimp, n_mega, passes, VARIANTS.index(variant),
+            _forced_cluster,
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"maxsim_keys kernel ({variant}) launch failed: "

@@ -60,35 +60,37 @@ EPILOGUES = ("l2", "dot", "rdot")
 _EPILOGUE_CODE = {"l2": 0, "dot": 1, "rdot": 2}
 
 VARIANTS = ("mma", "wgmma")
-# pass counts at which the wgmma variant is the default where the shape
-# allows it (those at which it measured faster than "mma" on the card)
-WGMMA_PASSES = (1, 2, 3)
 _forced_variant = None
+_forced_cluster = 0     # 0: the launch function chooses
 
 
-def pick_variant(D: int, aligned: bool, passes: int) -> str:
+def pick_variant(D: int, aligned: bool) -> str:
     """The kernel variant for operands of D columns: "wgmma" needs rows a
     TMA tensor map can describe (D % 8 == 0, i.e. 16-byte row strides, and
     `aligned`: 16-byte aligned base pointers); everything else takes
-    "mma". The choice depends on nothing but the shape."""
-    if D % 8 == 0 and aligned and passes in WGMMA_PASSES:
-        return "wgmma"
-    return "mma"
+    "mma". The choice depends on nothing but the shape: "wgmma" measured
+    faster at every pass count, on full and on small grids."""
+    return "wgmma" if D % 8 == 0 and aligned else "mma"
 
 
 @contextlib.contextmanager
-def forced_variant(name: str):
+def forced_variant(name: str, cluster: int = 0):
     """Launch `name` instead of the variant `pick_variant` would choose, for
     tests and timings that hold the two against each other. Forcing "wgmma"
-    on a shape it cannot take makes the launch raise."""
-    global _forced_variant
+    on a shape it cannot take makes the launch raise. `cluster` (1, 2 or
+    4) also fixes the blocks per cluster of the "wgmma" variant, which the
+    launch function otherwise chooses from the grid."""
+    global _forced_variant, _forced_cluster
     if name not in VARIANTS:
         raise ValueError(f"variant {name!r} not in {VARIANTS}")
-    before, _forced_variant = _forced_variant, name
+    if cluster not in (0, 1, 2, 4):
+        raise ValueError(f"cluster {cluster} not in (0, 1, 2, 4)")
+    before = _forced_variant, _forced_cluster
+    _forced_variant, _forced_cluster = name, cluster
     try:
         yield
     finally:
-        _forced_variant = before
+        _forced_variant, _forced_cluster = before
 
 
 def pick_sub(n_rows: int, k: int | None = None,
@@ -281,13 +283,13 @@ def screen_keys(qhi, qlo, bhi, blo, qn, bn, mega_rows: int, passes: int,
     ops = [qhi, qlo if passes >= 2 else qhi, bhi, blo if passes >= 3 else bhi]
     aligned = all(t.data_ptr() % 16 == 0 for t in ops)
     vec = int(D % 8 == 0 and aligned)
-    variant = _forced_variant or pick_variant(D, aligned, passes)
+    variant = _forced_variant or pick_variant(D, aligned)
     with torch.cuda.device(dev):
         err = load_library().screen_keys_launch(
             ops[0].data_ptr(), ops[1].data_ptr(), ops[2].data_ptr(),
             ops[3].data_ptr(), qn.data_ptr(), bn.data_ptr(), out.data_ptr(),
             Q, B, D, mega_rows, n_mega, passes, _EPILOGUE_CODE[epilogue],
-            vec, VARIANTS.index(variant), 0,
+            vec, VARIANTS.index(variant), _forced_cluster,
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"screen_keys kernel ({variant}) launch failed: "

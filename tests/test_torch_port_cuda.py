@@ -59,7 +59,7 @@ def test_screen_kernel_matches_plain(cuda, variant, n_q, d, mega):
         rng.standard_normal((2 * mega + 555, d)).astype(np.float32))
     q, b = q.to(cuda), b.to(cuda)
     ops = _operands(q, b)
-    assert variant == "mma" or tsk.pick_variant(d, True, 1) == "wgmma"
+    assert variant == "mma" or tsk.pick_variant(d, True) == "wgmma"
     q64, b64 = q.double(), b.double()
     qn, bn_max = (q64 ** 2).sum(1), (b64 ** 2).sum(1).max()
     scales = {"l2": qn + bn_max, "dot": qn.sqrt() * bn_max.sqrt(),
@@ -177,7 +177,7 @@ def test_maxsim_kernel_matches_plain(cuda, variant, Tq, Td, dim, D):
     for passes in (1, 2, 3):
         ops = tmk.prepare_operands(q, qm, d, dm, passes)[:5]
         assert variant == "mma" or \
-            tmk.pick_variant(ops[0].shape[2], passes) == "wgmma"
+            tmk.pick_variant(ops[0].shape[2]) == "wgmma"
         with tmk.forced_variant(variant):
             keys = tmk.maxsim_keys(*ops, passes)
         torch.cuda.synchronize()
@@ -207,3 +207,35 @@ def test_maxsim_wrapper_checks_its_inputs(cuda):
     with pytest.raises(RuntimeError, match="wgmma"):
         with tmk.forced_variant("wgmma"):
             tmk.maxsim_keys(q, None, d, None, b, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [1, 2, 4])
+def test_wgmma_keys_do_not_depend_on_the_cluster_size(cuda, cluster):
+    """The "wgmma" variants at a fixed number of blocks per cluster against
+    the launch function's own choice: the cluster only changes who loads a
+    tile, so the keys are bit-identical. 330 queries are 6 query blocks (2
+    surplus blocks at 4 per cluster); 37 queries of 7 tokens are 3 MaxSim
+    blocks (1 surplus block at 2 and at 4)."""
+    from neighborhoodwatch_tpu_torch.ops import maxsim_kernel as tmk
+    rng = np.random.default_rng(37)
+    q = torch.from_numpy(rng.standard_normal((330, 72)).astype(np.float32))
+    b = torch.from_numpy(
+        rng.standard_normal((MEGA + 555, 72)).astype(np.float32))
+    ops = _operands(q.to(cuda), b.to(cuda))
+    for passes in (1, 2, 3):
+        with tsk.forced_variant("wgmma"):
+            ref = tsk.screen_keys(**ops, mega_rows=MEGA, passes=passes,
+                                  epilogue="l2")
+        with tsk.forced_variant("wgmma", cluster=cluster):
+            got = tsk.screen_keys(**ops, mega_rows=MEGA, passes=passes,
+                                  epilogue="l2")
+        assert torch.equal(got, ref), passes
+    mq, mqm, md, mdm = _maxsim_case(rng, 37, 7, 8192 + 300, 12, 128, cuda)
+    for passes in (1, 2, 3):
+        mops = tmk.prepare_operands(mq, mqm, md, mdm, passes)[:5]
+        with tmk.forced_variant("wgmma"):
+            ref = tmk.maxsim_keys(*mops, passes)
+        with tmk.forced_variant("wgmma", cluster=cluster):
+            got = tmk.maxsim_keys(*mops, passes)
+        assert torch.equal(got, ref), passes

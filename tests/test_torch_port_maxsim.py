@@ -502,8 +502,7 @@ def test_variant_is_chosen_by_shape_alone(dim, passes, variant):
     prepare_operands gives the kernel, and nothing else."""
     q, qm, d, dm = _t(*_corpus(3, 2, 4, 6, 3, dim))
     dimp = tmk.prepare_operands(q, qm, d, dm, passes)[0].shape[2]
-    expected = variant if passes in tmk.WGMMA_PASSES else "mma"
-    assert tmk.pick_variant(dimp, passes) == expected
+    assert tmk.pick_variant(dimp) == variant
     assert tmk._forced_variant is None
     with tmk.forced_variant("mma"):
         assert tmk._forced_variant == "mma"

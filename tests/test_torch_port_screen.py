@@ -168,18 +168,16 @@ def test_rows_r_and_r_plus_128_share_a_lane_bin_at_adjacent_positions():
     assert ci[0, [col, col + tsk.LANES]].tolist() == [r, r + 128]
 
 
-@pytest.mark.parametrize("D,aligned,passes,variant", [
-    (1536, True, 1, "wgmma"), (1536, True, 2, "wgmma"),
-    (1536, True, 3, "wgmma"),
-    (200, True, 1, "wgmma"),      # D % 64 != 0, D % 8 == 0: TMA zero fill
-    (8, True, 1, "wgmma"),
-    (45, True, 1, "mma"),         # rows not 16-byte aligned
-    (1540, True, 3, "mma"),       # D % 8 == 4
-    (1536, False, 1, "mma"),      # an operand pointer off 16 bytes
+@pytest.mark.parametrize("D,aligned,variant", [
+    (1536, True, "wgmma"), (768, True, "wgmma"), (1024, True, "wgmma"),
+    (200, True, "wgmma"),      # D % 64 != 0, D % 8 == 0: TMA zero fill
+    (8, True, "wgmma"),
+    (45, True, "mma"),         # rows not 16-byte aligned
+    (1540, True, "mma"),       # D % 8 == 4
+    (1536, False, "mma"),      # an operand pointer off 16 bytes
 ])
-def test_variant_is_chosen_by_shape_alone(D, aligned, passes, variant):
-    expected = variant if passes in tsk.WGMMA_PASSES else "mma"
-    assert tsk.pick_variant(D, aligned, passes) == expected
+def test_variant_is_chosen_by_shape_alone(D, aligned, variant):
+    assert tsk.pick_variant(D, aligned) == variant
 
 
 def test_forced_variant_restores_and_rejects_unknown_names():
@@ -190,8 +188,14 @@ def test_forced_variant_restores_and_rejects_unknown_names():
             assert tsk._forced_variant == "wgmma"
         assert tsk._forced_variant == "mma"
     assert tsk._forced_variant is None
+    with tsk.forced_variant("wgmma", cluster=4):
+        assert tsk._forced_cluster == 4
+    assert tsk._forced_cluster == 0
     with pytest.raises(ValueError, match="variant"):
         with tsk.forced_variant("wmma"):
+            pass
+    with pytest.raises(ValueError, match="cluster"):
+        with tsk.forced_variant("wgmma", cluster=3):
             pass
     assert set(tsk.screen_keys.launches_by_variant) == set(tsk.VARIANTS)
 
