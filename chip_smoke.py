@@ -41,7 +41,7 @@ Phases, each printing its own lines and seconds:
      StreamingMaxSim over the first corpus in 8192-doc tiles;
   7. ck: the port's ck_main --maxsim --synthetic --post-validation at
      BERT-base width with seeded random weights (bf16 activations) over
-     25,600 base passages (3 full 8192-doc tiles + a padded tail), then
+     17,408 base passages (2 full 8192-doc tiles + a padded tail), then
      validate_maxsim_files, the exported neighbours against the exact
      MaxSim engine on the same parquet, and both kernel variants against
      the plain version on the run's own queries and first tile at 3/2/1
@@ -925,9 +925,9 @@ def phase_ck(rec, workdir):
     from neighborhoodwatch_tpu_torch.utils import naming
     from neighborhoodwatch_tpu_torch.validate import validate_maxsim_files
     # a synthetic source row is one 17-token passage: 512 query passages,
-    # 25,600 base passages = 3 full 8192-doc tiles + a 1,024-doc tail,
+    # 17,408 base passages = 2 full 8192-doc tiles + a 1,024-doc tail,
     # which the pipeline pads to 8192 masked rows and screens too
-    per_doc, n_q, n_b, k = 17, 512, 25_600, 100
+    per_doc, n_q, n_b, k = 17, 512, 17_408, 100
     q_tok, b_tok = per_doc * n_q, per_doc * n_b
     argv = [str(q_tok), str(b_tok), "-k", str(k), "-es", "small",
             "--data-dir", workdir, "--maxsim", "--synthetic",

@@ -34,15 +34,15 @@ dim is 64 or 128, "mma" (mma.sync from a cp.async ring) for the rest.
 Launches are counted per variant.
 """
 
-import contextlib
 import ctypes
 
 import torch
 import torch.nn.functional as F
 
+from neighborhoodwatch_tpu_torch.ops import screen_kernel as _sk
 from neighborhoodwatch_tpu_torch.ops.screen_kernel import (
-    KEEP, LANES, PASSES, POS_MASK, PACK_EPS_REL, _check,
-    bf16_round, norm_guard,
+    KEEP, LANES, PASSES, POS_MASK, PACK_EPS_REL, VARIANTS, _check,
+    bf16_round, forced_variant, norm_guard,
 )
 from neighborhoodwatch_tpu_torch.utils.misc import cdiv, round_up
 
@@ -52,9 +52,10 @@ MAX_QUERY_TOKENS = 32
 NEG_BIAS = -1e30   # per-doc bias of empty docs (finite: no inf - inf NaNs)
 _DIM_ALIGN = 16    # the kernel's k16 steps and 16-byte loads
 
-VARIANTS = ("mma", "wgmma")
-_forced_variant = None
-_forced_cluster = 0     # 0: the launch function chooses
+__all__ = ["KEEP", "LANES", "PACK_EPS_REL", "MEGA_DOCS", "CAND_PER_MEGA",
+           "NEG_BIAS", "bf16_round", "norm_guard", "maxsim_acc_rel",
+           "maxsim_eps3_rel", "doc_cert_stats", "prepare_operands",
+           "maxsim_keys", "maxsim_keys_plain", "screen_maxsim"]
 
 
 def pick_variant(dimp: int) -> str:
@@ -62,33 +63,10 @@ def pick_variant(dimp: int) -> str:
     needs whole 64-column chunks (128-byte swizzled tile rows) and query
     tiles that stay resident beside the ring, so dimp 64 or 128; every
     other multiple of 16 takes "mma". The choice depends on nothing but
-    the shape: "wgmma" measured faster at every pass count."""
+    the shape: "wgmma" measured faster at every pass count.
+    `forced_variant` (shared with ops/screen_kernel.py) overrides it for
+    tests and timings."""
     return "wgmma" if dimp in (64, 128) else "mma"
-
-
-@contextlib.contextmanager
-def forced_variant(name: str, cluster: int = 0):
-    """Launch `name` instead of the variant `pick_variant` would choose, for
-    tests and timings that hold the two against each other. Forcing "wgmma"
-    on a shape it cannot take makes the launch raise. `cluster` (1, 2 or
-    4) also fixes the blocks per cluster of the "wgmma" variant, which the
-    launch function otherwise chooses from the grid."""
-    global _forced_variant, _forced_cluster
-    if name not in VARIANTS:
-        raise ValueError(f"variant {name!r} not in {VARIANTS}")
-    if cluster not in (0, 1, 2, 4):
-        raise ValueError(f"cluster {cluster} not in (0, 1, 2, 4)")
-    before = _forced_variant, _forced_cluster
-    _forced_variant, _forced_cluster = name, cluster
-    try:
-        yield
-    finally:
-        _forced_variant, _forced_cluster = before
-
-__all__ = ["KEEP", "LANES", "PACK_EPS_REL", "MEGA_DOCS", "CAND_PER_MEGA",
-           "NEG_BIAS", "bf16_round", "norm_guard", "maxsim_acc_rel",
-           "maxsim_eps3_rel", "doc_cert_stats", "prepare_operands",
-           "maxsim_keys", "maxsim_keys_plain", "screen_maxsim"]
 
 
 def maxsim_acc_rel(dim: int) -> float:
@@ -275,13 +253,13 @@ def maxsim_keys(qhi, qlo, dhi, dlo, bias, passes: int):
     ops = [qhi, qlo if passes >= 2 else qhi, dhi, dlo if passes >= 3 else dhi]
     if any(t.data_ptr() % 16 for t in ops):
         raise ValueError("operands must be 16-byte aligned")
-    variant = _forced_variant or pick_variant(dimp)
+    variant = _sk._forced_variant or pick_variant(dimp)
     with torch.cuda.device(dev):
         err = load_library().maxsim_keys_launch(
             ops[0].data_ptr(), ops[1].data_ptr(), ops[2].data_ptr(),
             ops[3].data_ptr(), bias.data_ptr(), out.data_ptr(),
             Q, Tq, D, Td, dimp, n_mega, passes, VARIANTS.index(variant),
-            _forced_cluster,
+            _sk._forced_cluster,
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"maxsim_keys kernel ({variant}) launch failed: "

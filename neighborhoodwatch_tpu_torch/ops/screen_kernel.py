@@ -75,9 +75,10 @@ def pick_variant(D: int, aligned: bool) -> str:
 
 @contextlib.contextmanager
 def forced_variant(name: str, cluster: int = 0):
-    """Launch `name` instead of the variant `pick_variant` would choose, for
-    tests and timings that hold the two against each other. Forcing "wgmma"
-    on a shape it cannot take makes the launch raise. `cluster` (1, 2 or
+    """Launch `name` instead of the variant `pick_variant` would choose
+    (here and in ops/maxsim_kernel.py, which shares this switch), for tests
+    and timings that hold the two against each other. Forcing "wgmma" on a
+    shape it cannot take makes the launch raise. `cluster` (1, 2 or
     4) also fixes the blocks per cluster of the "wgmma" variant, which the
     launch function otherwise chooses from the grid."""
     global _forced_variant, _forced_cluster

@@ -503,10 +503,6 @@ def test_variant_is_chosen_by_shape_alone(dim, passes, variant):
     q, qm, d, dm = _t(*_corpus(3, 2, 4, 6, 3, dim))
     dimp = tmk.prepare_operands(q, qm, d, dm, passes)[0].shape[2]
     assert tmk.pick_variant(dimp) == variant
-    assert tmk._forced_variant is None
-    with tmk.forced_variant("mma"):
-        assert tmk._forced_variant == "mma"
-    assert tmk._forced_variant is None
 
 
 def test_doc_position_in_its_lane_bin():
