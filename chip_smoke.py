@@ -45,13 +45,30 @@ Phases, each printing its own lines and seconds:
      validate_maxsim_files, the exported neighbours against the exact
      MaxSim engine on the same parquet, and both kernel variants against
      the plain version on the run's own queries and first tile at 3/2/1
-     passes.
+     passes;
+  8. nw: the port's nw_main --synthetic --post-validation --trace-dir at
+     e5-large-v2's full width (1024 hidden, 24 layers, 16 heads, FFN 4096,
+     bf16, seeded random weights, hash tokenizer) over 1,000 queries and
+     100,000 base sentences, k=100, through the table path (compute_knn ->
+     partial files -> merge): the screened engine must launch the "wgmma"
+     kernel at D=1024; the ivec is held against the exact engine on the
+     same parquet (tie-tolerant recall 1.000), validate_files_v0 must find
+     0 mismatches, and the kernel is held against its plain version on the
+     run's own queries and first mega-tile at 1/2/3 passes. Prints the
+     sections' seconds, the encoder's tokens/s, the kNN stages, the
+     class-A/B repairs, the trace's top CUDA kernels, and the run's kNN
+     call timed at each screen tier beside the exact engine;
+  9. nw-tools: the port's tools.main knn over phase 8's fvec files (its
+     ivec must equal phase 8's, tie-tolerant) and recall of one against
+     the other (1.000).
 The line before the last is one JSON object with the kernels' numbers;
 the last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 without that line; without a CUDA card it exits 2.
 """
 
+import contextlib
 import importlib.util
+import io
 import json
 import os
 import re
@@ -1058,6 +1075,285 @@ def ck_kernel_vs_plain(q, qm, base_docs):
     return out
 
 
+class Tee(io.TextIOBase):
+    """stdout that is also kept: the entry points print their sections'
+    seconds and the encoder's throughput, which the phase reads back."""
+
+    def __init__(self, out):
+        self.out, self.kept = out, io.StringIO()
+
+    def write(self, text):
+        self.kept.write(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+@contextlib.contextmanager
+def counted_repairs():
+    """Count the screened engine's class-A and class-B repairs of every
+    call the wrapped region makes (knn() and StreamingKNN.update look the
+    engine up in ops.knn at call time); yields the list of per-call
+    (class A, class B, whole-batch) triples."""
+    from neighborhoodwatch_tpu_torch.ops import knn as K
+    real, diags = K.screened_knn_traced, []
+
+    def counted(*args, with_diagnostics=False, **kw):
+        d, i, diag = real(*args, with_diagnostics=True, **kw)
+        diags.append(diag)
+        return (d, i, diag) if with_diagnostics else (d, i)
+    K.screened_knn_traced = counted
+    try:
+        yield diags
+    finally:
+        K.screened_knn_traced = real
+
+
+def trace_top_kernels(trace_dir, n=5):
+    """The Chrome trace device_trace wrote: (file, [(kernel, ms, calls)])
+    for the `n` CUDA kernels with the most device time, or (None, [])."""
+    import glob
+    paths = sorted(glob.glob(os.path.join(trace_dir, "device_trace_*.json")))
+    if not paths:
+        return None, []
+    with open(paths[-1]) as f:
+        events = json.load(f).get("traceEvents", [])
+    total = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            ms, calls = total.get(e["name"], (0.0, 0))
+            total[e["name"]] = (ms + e.get("dur", 0) / 1e3, calls + 1)
+    top = sorted(total.items(), key=lambda kv: -kv[1][0])[:n]
+    return paths[-1], [(name[:80], round(ms, 3), calls)
+                       for name, (ms, calls) in top]
+
+
+def nw_sections(text):
+    """From nw_main's printed output: {section title: seconds} and
+    {section title: (tokens, seconds)} summed over the section's
+    `embedding pipeline:` lines."""
+    seconds, tokens, title = {}, {}, None
+    for line in text.splitlines():
+        m = re.match(r"\W*=== (.+) ===", line)
+        if m:
+            title = m.group(1)
+        m = re.match(r"\(Duration: ([\d.]+) s of", line)
+        if m and title:
+            seconds[title] = float(m.group(1))
+        m = re.search(r"embedding pipeline: (\d+) tokens in ([\d.]+)s", line)
+        if m and title:
+            toks, secs = tokens.get(title, (0, 0.0))
+            tokens[title] = (toks + int(m.group(1)), secs + float(m.group(2)))
+    return seconds, tokens
+
+
+def phase_nw(rec, workdir, Q=1000, B=100_000, k=100,
+             model="intfloat/e5-large-v2"):
+    import torch
+    from neighborhoodwatch_tpu_torch.cli import nw_main
+    from neighborhoodwatch_tpu_torch.io import fvec
+    from neighborhoodwatch_tpu_torch.io.parquet_io import read_embeddings
+    from neighborhoodwatch_tpu_torch.models.bert import E5_CONFIGS
+    from neighborhoodwatch_tpu_torch.ops import knn as K
+    from neighborhoodwatch_tpu_torch.ops import screen_kernel as sk
+    from neighborhoodwatch_tpu_torch.utils import naming
+    from neighborhoodwatch_tpu_torch.validate import validate_files_v0
+    cfg = E5_CONFIGS[model]
+    D = cfg.hidden_size
+    trace_dir = os.path.join(workdir, "trace")
+    argv = [str(Q), str(B), "-k", str(k), "-m", model, "--synthetic",
+            "--post-validation", "--yes", "--no-gen-hdf5", "--trace-dir",
+            trace_dir, "--data-dir", workdir]
+    log(f"  nw_main {' '.join(argv[:6])} ... ({cfg.num_layers} layers, "
+        f"{D} hidden, {cfg.num_heads} heads, FFN {cfg.intermediate_size}, "
+        f"{cfg.dtype}; seeded random weights)")
+    reset_counts(sk.screen_keys)
+    tee = Tee(sys.stdout)
+    t = time.perf_counter()
+    with counted_repairs() as diags, contextlib.redirect_stdout(tee):
+        nw_main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = sk.screen_keys.launches
+    by_variant = dict(sk.screen_keys.launches_by_variant)
+    text = tee.kept.getvalue()
+    sections, tokens = nw_sections(text)
+    rates = {name: toks / secs for name, (toks, secs) in tokens.items()
+             if secs > 0}
+    stages = {m.group(1): float(m.group(2)) for m in re.finditer(
+        r"^  (load_query|load_base|knn_batches|TOTAL)\s+([\d.]+) s", text,
+        re.M)}
+    class_a = sum(d[0] for d in diags)
+    class_b = sum(d[1] for d in diags)
+    log(f"  nw_main: {wall:.1f} s; sections (s) {sections}; encoder "
+        f"tokens/s {({n: round(r) for n, r in rates.items()})}; kNN stages "
+        f"(s) {stages}; kernel launches {launches} {by_variant}; screened "
+        f"calls {len(diags)}, class-A repairs {class_a}, class-B repairs "
+        f"{class_b}, whole-batch fallbacks {sum(d[2] for d in diags)}")
+    if launches < 1:
+        raise AssertionError("nw never launched the screen kernel")
+    if by_variant["mma"] or by_variant["wgmma"] != launches:
+        raise AssertionError(f"nw launched {by_variant}: D={D} must take "
+                             f"'wgmma'")
+    trace_file, top = trace_top_kernels(trace_dir)
+    if trace_file is None:
+        log("  trace: none written (see the warnings above)")
+    else:
+        log(f"  trace: {os.path.getsize(trace_file)} bytes; top CUDA kernels "
+            f"by device time (name, ms, calls): {top}")
+
+    data_dir = naming.get_model_data_homedir(workdir, model + "_synthetic",
+                                             Q, B, k)
+    files = naming.get_ivec_fvec_filenames(
+        data_dir, naming.get_model_prefix(model), D, B, Q, k)
+    mismatches = validate_files_v0(data_dir, *files)
+    if mismatches != 0:
+        raise AssertionError(f"validate_files_v0 found {mismatches}")
+    idx = fvec.read_vectors(files[2])
+    dist = fvec.read_vectors(files[3])
+    qfile = naming.get_source_query_dataset_filename(data_dir, model, Q, D)
+    bfile = naming.get_source_base_dataset_filename(data_dir, model, B, D)
+    q = torch.as_tensor(read_embeddings(data_dir, qfile, Q, D), device="cuda")
+    base = torch.as_tensor(read_embeddings(data_dir, bfile, B, D),
+                           device="cuda")
+    d_e, i_e = K.knn(q, base, k, engine="exact")
+    got = torch.as_tensor(idx, device="cuda").long()
+    # each exported neighbour's squared distance, recomputed in fp32; a
+    # neighbour outside the exact engine's set counts as found when it
+    # ties the exact k-th distance within 1e-5
+    d_got = ((q[:, None, :] - base[got]) ** 2).sum(2)
+    found = (got[:, :, None] == i_e.long()[:, None, :]).any(2)
+    tied = d_got <= d_e[:, k - 1:k] + 1e-5
+    recall = float(found.float().mean())
+    recall_tied = float((found | tied).float().mean())
+    written = torch.as_tensor(dist, device="cuda")
+    dd = (written - d_e).abs()
+    moved = got != i_e.long()
+    ties_ok = bool((~moved | (dd <= 1e-5)).all())
+    log(f"  ivec vs exact engine: recall {recall:.4f}, tie-tolerant recall "
+        f"{recall_tied:.4f}, identical positions "
+        f"{1 - float(moved.float().mean()):.5f}, max |d_written - d_exact| "
+        f"{float(dd.max()):.3g}, max |d_recomputed - d_written| "
+        f"{float((d_got - written).abs().max()):.3g}; distance spread of "
+        f"the run (k-th minus 1st, mean) "
+        f"{float((d_e[:, -1] - d_e[:, 0]).mean()):.4g}")
+    if idx.shape != (Q, k) or recall_tied != 1.0 or not ties_ok:
+        raise AssertionError("nw's neighbours differ from the exact engine")
+    # the same kNN call at each screen tier against the exact engine:
+    # which tier's certificate holds on this run's crowded embeddings
+    exact_ms = median_ms(lambda: K.knn(q, base, k, engine="exact"))
+    tiers = {}
+    for sp in ("auto", "medium", "high"):
+        with counted_repairs() as dg:
+            K.knn(q, base, k, engine="screened", screen_precision=sp)
+        tiers[sp] = {"ms": median_ms(lambda sp=sp: K.knn(
+            q, base, k, engine="screened", screen_precision=sp)),
+            "class_a": dg[0][0], "class_b": dg[0][1],
+            "whole_batch": dg[0][2]}
+    log(f"  knn() on the run's queries and base, medians of 3: exact "
+        f"{exact_ms:.1f} ms; screened by tier (ms, class-A, class-B, "
+        f"whole-batch fallback): " + "; ".join(
+            f"{sp} {v['ms']:.1f}, {v['class_a']}, {v['class_b']}, "
+            f"{v['whole_batch']}" for sp, v in tiers.items()))
+
+    # ---- the kernel at the run's own shapes ----
+    sub = sk.pick_sub(B, k, q_rows=Q)
+    mega = sk.TB * sub
+    qhi_f = sk.bf16_round(q)
+    ops = dict(qhi=qhi_f.to(torch.bfloat16),
+               qlo=(q - qhi_f).to(torch.bfloat16), qn=(q * q).sum(1))
+    first = base[:mega]
+    bhi = sk.bf16_round(first).to(torch.bfloat16)
+    ops.update(bhi=bhi, blo=(first - bhi.float()).to(torch.bfloat16),
+               bn=(first * first).sum(1))
+    errs = {}
+    for passes in (1, 2, 3):
+        kp = sk.screen_keys_plain(**ops, mega_rows=mega, passes=passes,
+                                  epilogue="l2")
+        kk = sk.screen_keys(**ops, mega_rows=mega, passes=passes,
+                            epilogue="l2")
+        errs[passes] = compare_keys(kk, kp, "l2", mega, q, first)
+    log(f"  kernel [{sk.pick_variant(D, True)}] vs plain on the run's "
+        f"{Q} queries and first mega-tile ({mega} rows, sub={sub}, D={D}): "
+        + "; ".join(f"{p}-pass max |d| {e:.3g}, swapped ids (within "
+                    f"tolerance) {sw}" for p, (e, sw) in errs.items()))
+    # the kernel and its plain version on the whole batch the run screened
+    bhi_all = sk.bf16_round(base).to(torch.bfloat16)
+    full = dict(qhi=ops["qhi"], qlo=ops["qlo"], bhi=bhi_all, blo=None,
+                qn=ops["qn"], bn=(base * base).sum(1))
+    ms = event_ms(lambda: sk.screen_keys(**full, mega_rows=mega, passes=1,
+                                         epilogue="l2"))
+    plain_ms = event_ms(lambda: sk.screen_keys_plain(
+        **full, mega_rows=mega, passes=1, epilogue="l2"))
+    flops = 2.0 * Q * B * D
+    n_mega = -(-B // mega)
+    bytes_ = Q * D * 2 + B * D * 2 + Q * 4 + B * 4 + Q * n_mega * 512 * 4
+    bound = max(flops / PEAK_BF16_FLOPS, bytes_ / PEAK_BYTES) * 1e3
+    log(f"  kernel at the run's batch ({Q} x {B} x {D}, 1 pass, sub={sub}): "
+        f"{ms:.2f} ms, plain {plain_ms:.2f} ms, bound {bound:.3f} ms "
+        f"({'operations' if flops / PEAK_BF16_FLOPS >= bytes_ / PEAK_BYTES else 'bytes'})")
+    del q, base, ops, first, full, bhi_all, d_e, i_e
+    torch.cuda.empty_cache()
+    rec["nw_launches"] = launches
+    rec["nw_launches_by_variant"] = by_variant
+    rec["nw_shape"] = {
+        "Q": Q, "B": B, "D": D, "sub": sub, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound,
+        "max_abs_err_by_passes": {str(p): e for p, (e, _) in errs.items()},
+        "repairs": {"class_a": class_a, "class_b": class_b},
+        "exact_ms": exact_ms, "tiers": tiers,
+        "sections_s": sections, "encoder_tokens_per_s": rates,
+        "knn_stages_s": stages, "wall_s": wall,
+        "trace_top_kernels": top}
+    return files
+
+
+def phase_tools(rec, workdir, files, k=100):
+    from neighborhoodwatch_tpu_torch import tools
+    from neighborhoodwatch_tpu_torch.io import fvec
+    from neighborhoodwatch_tpu_torch.ops import screen_kernel as sk
+    out_dir = os.path.join(workdir, "tools")
+    os.makedirs(out_dir)
+    reset_counts(sk.screen_keys)
+    tee = Tee(sys.stdout)
+    t = time.perf_counter()
+    with counted_repairs() as diags, contextlib.redirect_stdout(tee):
+        tools.main(["knn", files[0], files[1], "-k", str(k), "--out-dir",
+                    out_dir])
+    wall = time.perf_counter() - t
+    launches = sk.screen_keys.launches
+    by_variant = dict(sk.screen_keys.launches_by_variant)
+    report = json.loads(tee.kept.getvalue().strip().splitlines()[-1])
+    log(f"  nw-tools knn: {wall:.1f} s, kernel launches {launches} "
+        f"{by_variant}, class-A repairs {sum(d[0] for d in diags)}, "
+        f"class-B {sum(d[1] for d in diags)}")
+    if launches < 1 or by_variant["mma"]:
+        raise AssertionError(f"nw-tools knn launched {by_variant}")
+    got, want = fvec.read_vectors(report["indices"]),         fvec.read_vectors(files[2])
+    gd, wd = fvec.read_vectors(report["distances"]),         fvec.read_vectors(files[3])
+    moved = got != want
+    dd = np.abs(gd - wd)
+    # ids may differ only where the two distances tie within 1e-5, and the
+    # k-th boundary only between ties of the k-th distance
+    if got.shape != want.shape or bool((moved & (dd > 1e-5)).any()):
+        raise AssertionError("nw-tools knn ivec differs from nw's")
+    tee = Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        tools.main(["recall", files[2], report["indices"],
+                    "--truth-distances", files[3]])
+    recall = json.loads(tee.kept.getvalue().strip().splitlines()[-1])
+    log(f"  ivec vs nw's: identical positions "
+        f"{1 - float(moved.mean()):.5f}, max |d - d_nw| {float(dd.max()):.3g};"
+        f" recall (tie-aware) {recall['recall']:.4f}, perfect queries "
+        f"{recall['perfect_queries']} of {recall['queries']}")
+    if recall["recall"] != 1.0:
+        raise AssertionError("nw-tools recall of the two ivecs is not 1.0")
+    rec["tools_launches"] = launches
+    rec["tools_launches_by_variant"] = by_variant
+    rec["tools_wall_s"] = wall
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1110,6 +1406,18 @@ def main():
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     log(f"phase 7 ck --maxsim: ok, {time.perf_counter() - t:.1f} s")
+    workdir = tempfile.mkdtemp(prefix="nw_smoke_", dir=HERE)
+    try:
+        t = time.perf_counter()
+        files = phase_nw(rec, workdir)
+        log(f"phase 8 nw e5-large-v2 1,000 x 100,000: ok, "
+            f"{time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        phase_tools(rec, workdir, files)
+        log(f"phase 9 nw-tools knn + recall: ok, "
+            f"{time.perf_counter() - t:.1f} s")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     assert "jax" not in sys.modules
     log(f"total {time.perf_counter() - t0:.1f} s on {card}")
     print(json.dumps({"kernels": [rec, mrec]}))

@@ -1,10 +1,11 @@
-"""`ck` command-line entry point (counterpart of cli.py's ck_main; `nw` is
-not ported yet).
+"""`nw` and `ck` command-line entry points (counterpart of cli.py).
 
-Flag parity with the JAX package's `ck` (and so with the reference
-colbert_knn.py:155-172), plus `--device` (default "cuda": the run raises
-without a card unless `--device cpu` asks for the host). `--mesh N` with
-N > 0 exits: the multi-device path is not ported yet.
+Flag parity with the JAX package's `nw` and `ck` (and so with the
+reference neighborhoodwatch.py:42-61 and colbert_knn.py:155-172), plus
+`--device` (default "cuda": the run raises without a card unless
+`--device cpu` asks for the host). `--mesh N` with N > 0 exits: the
+multi-device path is not ported yet. `nw --trace-dir` records a
+torch.profiler trace of the kNN stage (utils/profiling.device_trace).
 """
 
 import argparse
@@ -60,6 +61,217 @@ def _encoder_rate(generator, section_time):
     if wall > 0:
         print(f"   encoder pipeline: {seen} tokens in {wall:.1f} s = "
               f"{seen / wall:.0f} tokens/s")
+
+
+def nw_main(argv=None):
+    from neighborhoodwatch_tpu_torch import resolve_device
+    from neighborhoodwatch_tpu_torch.core.colbert_pipeline import MESH_NOT_PORTED
+    from neighborhoodwatch_tpu_torch.core.merge import merge_indices_and_distances
+    from neighborhoodwatch_tpu_torch.core.pipeline import compute_knn, compute_knn_ds
+    from neighborhoodwatch_tpu_torch.data import sources
+    from neighborhoodwatch_tpu_torch.io.export import generate_output_files
+    from neighborhoodwatch_tpu_torch.io.parquet_io import cleanup_partial_parquet
+    from neighborhoodwatch_tpu_torch.models.registry import (
+        EmbeddingModelName, get_effective_embedding_size,
+        get_valid_model_names_string, is_valid_model_name,
+        local_weight_status,
+    )
+    from neighborhoodwatch_tpu_torch.utils import naming
+    from neighborhoodwatch_tpu_torch.utils.profiling import device_trace
+    from neighborhoodwatch_tpu_torch.validate import validate_files_v0
+
+    start_time = time.time()
+    parser = argparse.ArgumentParser(
+        description="nw (neighborhood watch, PyTorch/CUDA edition) generates "
+                    "ground truth KNN datasets with exact brute-force search",
+        epilog="""
+Some example commands:\n
+    nw 1000 10000 -k 100 -m 'intfloat/e5-small-v2'
+    nw 1000 10000 -k 100 -m 'intfloat/e5-large-v2' --use-dataset-api
+    nw 100 1000 -k 10 -m 'intfloat/e5-small-v2' --synthetic --device cpu
+        """, formatter_class=KeepLineBreaksFormatter)
+    parser.add_argument("query_count", type=int,
+                        help="number of query vectors to generate")
+    parser.add_argument("base_count", type=int,
+                        help="number of base vectors to generate")
+    parser.add_argument("-m", "--model_name", type=str,
+                        help=f"model name, one of: {get_valid_model_names_string()}")
+    parser.add_argument("-ods", "--output_dimension_size", type=int, default=None,
+                        help="output dimension size (differs from model default "
+                             "only for models that support reduction)")
+    parser.add_argument("-odt", "--output_dtype", type=str, default="float",
+                        help="output dtype; currently only valid for VoyageAI models")
+    parser.add_argument("-k", "--k", type=int, default=100,
+                        help="number of neighbors per query vector")
+    parser.add_argument("--data-dir", type=str, default="knn_dataset",
+                        help="directory for generated data (default: knn_dataset)")
+    parser.add_argument("--use-dataset-api", action=argparse.BooleanOptionalAction,
+                        default=False,
+                        help="stream the base corpus out-of-core (recommended "
+                             "for large datasets)")
+    parser.add_argument("--gen-hdf5", action=argparse.BooleanOptionalAction,
+                        default=True, help="generate hdf5 files (default: True)")
+    parser.add_argument("--post-validation", action=argparse.BooleanOptionalAction,
+                        default=False, help="validate the generated files")
+    parser.add_argument("--enable-memory-tuning", action="store_true",
+                        help="derive batch sizes from the device memory "
+                             "budget threshold")
+    parser.add_argument("--disable-memory-tuning", action="store_false",
+                        dest="enable_memory_tuning",
+                        help="use default batch sizing")
+    parser.add_argument("--metric", type=str, default="sqeuclidean",
+                        choices=["sqeuclidean", "euclidean", "cosine", "dot"],
+                        help="distance metric (sqeuclidean matches the "
+                             "reference raft engine)")
+    parser.add_argument("--precision", type=str, default="highest",
+                        choices=["default", "high", "highest"],
+                        help="exact engine's matmul precision (highest = "
+                             "full fp32)")
+    parser.add_argument("--synthetic", action="store_true",
+                        help="use synthetic source text (hermetic, no network)")
+    parser.add_argument("--yes", action="store_true",
+                        help="skip interactive confirmation prompts")
+    parser.add_argument("--trace-dir", type=str, default=None,
+                        help="write a torch.profiler trace of the kNN phase "
+                             "here (a Chrome trace JSON file)")
+    parser.add_argument("--engine", type=str, default="auto",
+                        choices=["auto", "exact", "verified", "screened"],
+                        help="kNN engine: exact (the oracle), verified (the "
+                             "exact engine here), screened (the hand-written "
+                             "screen kernel + certificate + repair), auto "
+                             "(screened for CUDA bases of >= 2 mega-tiles, "
+                             "exact otherwise)")
+    parser.add_argument("--screen-precision", type=str, default="auto",
+                        choices=["auto", "default", "medium", "high"],
+                        help="screened engine's tensor-core pass count: "
+                             "high=bf16x3, medium=bf16x2, default=bf16, "
+                             "auto (the default) = lean 1-pass plan with "
+                             "adaptive streaming escalation; every tier is "
+                             "exact via the certificate + repair")
+    parser.add_argument("--mesh", type=int, default=0, metavar="N",
+                        help="shard the kNN over an N-device mesh; not "
+                             "ported yet: any N > 0 exits. 0 = single device")
+    parser.add_argument("--device", type=str, default=None,
+                        help="torch device of the encoder and the engines "
+                             "(default: cuda; raises without a card unless "
+                             "'cpu' is asked for)")
+    args = parser.parse_args(argv)
+
+    if args.mesh:
+        print(f"--mesh {args.mesh}: {MESH_NOT_PORTED}")
+        sys.exit(2)
+    device = resolve_device(args.device)
+
+    assert is_valid_model_name(args.model_name), \
+        f"unknown embedding model {args.model_name!r}; supported: {get_valid_model_names_string()}"
+    if args.model_name == EmbeddingModelName.COLBERT_V2.value:
+        raise SystemExit("For the ColBERT model, use the `ck` program")
+
+    if not args.synthetic and not sources.check_dataset_exists_remote():
+        print(f"The wikipedia dataset configuration does not exist/is not "
+              f"reachable: {naming.BASE_CONFIG}")
+        sys.exit(1)
+
+    print(f"""Neighborhood Watch (PyTorch/CUDA) generating brute force neighbors:
+  source dataset:      {'synthetic' if args.synthetic else naming.BASE_DATASET + '-' + naming.BASE_CONFIG}
+  query count:         {args.query_count}
+  base vector count:   {args.base_count}
+  model name:          {args.model_name}
+  output dimensions:   {args.output_dimension_size}
+  output dtype:        {args.output_dtype}
+  K:                   {args.k}
+  dataset API:         {args.use_dataset_api}
+  hdf5:                {args.gen_hdf5}
+  post validation:     {args.post_validation}
+  memory tuning:       {args.enable_memory_tuning}
+  metric/precision:    {args.metric}/{args.precision}
+  device:              {device}
+  model weights:       {local_weight_status(args.model_name)}""")
+
+    model_prefix = naming.get_model_prefix(args.model_name)
+    # synthetic smoke runs get their own artifact tree: the resume-by-
+    # artifact guards key on filenames only, so a later REAL run in the
+    # same tree would silently reuse synthetic-text embeddings as
+    # published ground truth
+    tree_name = args.model_name + ("_synthetic" if args.synthetic else "")
+    data_dir = naming.setup_model_output_folder(
+        args.data_dir, tree_name, args.query_count, args.base_count, args.k)
+    output_dimension = get_effective_embedding_size(args.model_name,
+                                                    args.output_dimension_size)
+    output_dtype = None
+    if args.model_name.startswith("voyage"):
+        output_dtype = args.output_dtype
+        assert output_dtype in ["float", "int8", "uint8", "binary", "ubinary"]
+
+    _section("Generating query dataset")
+    section_time = time.time()
+    qsource = sources.load_query_source(
+        synthetic_rows=args.query_count * 3 if args.synthetic else None)
+    query_filename = sources.generate_query_dataset(
+        data_dir, args.model_name, args.query_count, output_dimension,
+        output_dtype, source=qsource, device=device)
+    _duration(section_time, start_time)
+
+    _section("Generating base dataset")
+    section_time = time.time()
+    bsource = sources.load_base_source(
+        synthetic_rows=args.base_count * 3 if args.synthetic else None)
+    base_filename = sources.generate_base_dataset(
+        data_dir, args.model_name, query_filename, args.base_count,
+        output_dimension, output_dtype, source=bsource, device=device)
+    _duration(section_time, start_time)
+
+    cleanup_partial_parquet(f"{data_dir}/partial")
+
+    _section("Computing knn")
+    section_time = time.time()
+    with device_trace(args.trace_dir):
+        if args.use_dataset_api:
+            timer = compute_knn_ds(data_dir, output_dimension, query_filename,
+                                   args.query_count, base_filename,
+                                   args.base_count, args.enable_memory_tuning,
+                                   args.k, metric=args.metric,
+                                   precision=args.precision,
+                                   engine=args.engine,
+                                   screen_precision=args.screen_precision,
+                                   device=device)
+        else:
+            timer = compute_knn(data_dir, args.model_name, output_dimension,
+                                query_filename, args.query_count, base_filename,
+                                args.base_count, args.enable_memory_tuning,
+                                args.k, metric=args.metric,
+                                precision=args.precision, engine=args.engine,
+                                screen_precision=args.screen_precision,
+                                device=device)
+    print(timer.report())
+    _duration(section_time, start_time)
+
+    _section("Merging indices and distances")
+    section_time = time.time()
+    merge_indices_and_distances(data_dir, k=args.k, device=device)
+    _duration(section_time, start_time)
+
+    _section("Generating ivec's and fvec's")
+    section_time = time.time()
+    query_fvec, base_fvec, indices_ivec, distances_fvec = generate_output_files(
+        data_dir, model_prefix, output_dimension, base_filename, query_filename,
+        args.base_count, args.query_count,
+        naming.get_partial_indices_filename(data_dir, -1),
+        naming.get_partial_distances_filename(data_dir, -1),
+        args.k, args.gen_hdf5, column_names=None, output_dtype=output_dtype)
+    _duration(section_time, start_time)
+
+    if args.post_validation:
+        proceed = args.yes or _confirm(
+            "Dataset validation may take a long time. "
+            "Continue? (y/n/yes/no): ")
+        if proceed:
+            _section("Validating ivec's and fvec's")
+            section_time = time.time()
+            validate_files_v0(data_dir, query_fvec, base_fvec, indices_ivec,
+                              distances_fvec, metric=args.metric,
+                              device=device)
+            _duration(section_time, start_time)
 
 
 def ck_main(argv=None):
@@ -361,4 +573,4 @@ Some example commands:\n
 
 
 if __name__ == "__main__":
-    ck_main()
+    nw_main()

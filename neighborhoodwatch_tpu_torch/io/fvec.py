@@ -76,6 +76,36 @@ def read_vectors(filename: str, dtype=None) -> np.ndarray:
     return out.astype(dtype) if dtype is not None else out
 
 
+def iter_vector_batches(filename: str, batch_rows: int,
+                        count: int | None = None):
+    """Yield (offset, (rows, dim) ndarray) batches of the first `count`
+    rows (all when None) of an fvec/ivec file, out of core: one sequential
+    read of `batch_rows` rows at a time, never the whole file."""
+    payload_dtype = _payload_dtype(_type_char_for(filename))
+    size = os.path.getsize(filename)
+    if size == 0:
+        return
+    with open(filename, "rb") as f:
+        dim = struct.unpack("<i", f.read(4))[0]
+        f.seek(0)
+        row_words = dim + 1
+        assert size % (4 * row_words) == 0, \
+            (f"{filename}: size {size} is not a whole number of "
+             f"{dim}-dim rows (a truncated trailing row?)")
+        n = size // (4 * row_words)
+        if count is not None:
+            n = min(n, count)
+        offset = 0
+        while offset < n:
+            take = min(batch_rows, n - offset)
+            raw = np.fromfile(f, dtype=np.dtype("<i4"), count=take * row_words)
+            raw = raw.reshape(take, row_words)
+            assert (raw[:, 0] == dim).all(), \
+                f"{filename}: inconsistent per-row dims"
+            yield offset, raw[:, 1:].view(payload_dtype)
+            offset += take
+
+
 def read_selected(filename: str, row_ids) -> np.ndarray:
     """Read only `row_ids` (any order, duplicates allowed) with one
     sequential chunked scan: memory stays O(selected + chunk)."""

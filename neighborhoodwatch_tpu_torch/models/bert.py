@@ -5,7 +5,9 @@ e5 models are plain BERT encoders + mean pooling, ColBERT is BERT + a
 live in the config's activation dtype (bf16 by default: the same values
 the JAX module computes with, which casts its fp32 params per call),
 layernorm, embeddings and the softmax run in fp32. Attention is written
-out: matmul, masked softmax in fp32, matmul.
+out: matmul, masked softmax in fp32, matmul. The JAX package's opt-in
+fused attention (`attention_impl="flash"`, JAX's library Pallas kernel on
+the TPU) has no Hopper counterpart yet and raises here.
 
 Weights load from a locally cached HuggingFace torch checkpoint when
 available; otherwise a seeded random init (pipeline testing, not real
@@ -31,11 +33,24 @@ class BertConfig:
     type_vocab_size: int = 2
     layer_norm_eps: float = 1e-12
     dtype: str = "bfloat16"  # activation/matmul dtype
+    # "auto" / "xla": the written-out attention below. "flash" asks for a
+    # fused attention kernel, which is still to be ported (ROADMAP.md §2,
+    # kernel queue): it raises rather than run anything else.
+    attention_impl: str = "auto"
     # GELU flavor: "auto" resolves to the tanh approximation under bf16
     # activations (its error sits below the activation dtype's) and to
     # exact erf-GELU under fp32 (bit-faithful to torch's BERT).
     gelu: str = "auto"  # "auto" | "exact" | "tanh"
 
+
+E5_CONFIGS = {
+    "intfloat/e5-small-v2": BertConfig(hidden_size=384, num_layers=12,
+                                       num_heads=12, intermediate_size=1536),
+    "intfloat/e5-base-v2": BertConfig(hidden_size=768, num_layers=12,
+                                      num_heads=12, intermediate_size=3072),
+    "intfloat/e5-large-v2": BertConfig(hidden_size=1024, num_layers=24,
+                                       num_heads=16, intermediate_size=4096),
+}
 
 COLBERT_BASE_CONFIG = BertConfig()  # bert-base-uncased backbone
 
@@ -54,9 +69,19 @@ def _gelu_approximate(cfg: BertConfig) -> bool:
     return cfg.gelu == "tanh"
 
 
+def _check_attention_impl(cfg: BertConfig) -> None:
+    if cfg.attention_impl == "flash":
+        raise NotImplementedError(
+            'attention_impl="flash": the fused attention kernel is not '
+            "ported yet (ROADMAP.md §2, the kernel queue); use \"auto\"")
+    if cfg.attention_impl not in ("auto", "xla"):
+        raise ValueError(f"unknown attention_impl {cfg.attention_impl!r}")
+
+
 class BertSelfAttention(nn.Module):
     def __init__(self, config: BertConfig):
         super().__init__()
+        _check_attention_impl(config)
         h, dt = config.hidden_size, _dtype(config)
         self.num_heads = config.num_heads
         self.head_dim = h // config.num_heads
@@ -133,6 +158,20 @@ class BertEncoder(nn.Module):
         for layer in self.layers:
             hidden = layer(hidden, mask)
         return hidden.float()
+
+
+def mean_pool_normalize(hidden, attention_mask):
+    """Masked mean pooling + L2 normalization in fp32: the e5 embedding
+    head (SentenceTransformer's `normalize_embeddings=True` encode,
+    reference: model_generator.py:285-287). The token count is clamped at
+    1 and a zero norm divides by 1."""
+    hidden = hidden.float()
+    mask = attention_mask[..., None].to(hidden.dtype)
+    summed = (hidden * mask).sum(dim=1)
+    counts = mask.sum(dim=1).clamp_min(1.0)
+    pooled = summed / counts
+    norm = torch.linalg.vector_norm(pooled, dim=-1, keepdim=True)
+    return pooled / torch.where(norm == 0, torch.ones_like(norm), norm)
 
 
 def init_params(module: nn.Module, seed: int = 0) -> None:

@@ -239,3 +239,32 @@ def test_wgmma_keys_do_not_depend_on_the_cluster_size(cuda, cluster):
         with tmk.forced_variant("wgmma", cluster=cluster):
             got = tmk.maxsim_keys(*mops, passes)
         assert torch.equal(got, ref), passes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,layers,atol", [("float32", 12, 1e-5),
+                                               ("bfloat16", 2, 2e-2)])
+def test_e5_generator_on_the_card_matches_the_cpu(cuda, monkeypatch, dtype,
+                                                  layers, atol):
+    """The e5 generator (e5-small-v2's width, seeded random weights) on the
+    card against the same generator on the CPU: fp32 within 1e-5 (TF32 is
+    off), bf16 activations within 2e-2 on the unit-norm embeddings (the
+    two devices round bf16 products at different places), over two chunks
+    with a ragged tail."""
+    import dataclasses
+    from neighborhoodwatch_tpu_torch.models import bert as tbert
+    from neighborhoodwatch_tpu_torch.models.e5 import E5EmbeddingGenerator
+    name = "intfloat/e5-small-v2"
+    monkeypatch.setitem(tbert.E5_CONFIGS, name, dataclasses.replace(
+        tbert.E5_CONFIGS[name], dtype=dtype, num_layers=layers))
+    texts = [f"Sentence {i} about " + " ".join(f"w{j}" for j in range(i % 17))
+             for i in range(100)]
+    out = {}
+    for dev in ("cpu", cuda):
+        g = E5EmbeddingGenerator(name, max_length=64, seed=3, device=dev)
+        out[str(dev)] = np.asarray(g.generate_embedding(texts))
+        assert g.tokens_seen > 0 and not g.pretrained
+    got, want = out["cuda"], out["cpu"]
+    assert got.shape == want.shape == (100, 384)
+    np.testing.assert_allclose(got, want, atol=atol, rtol=0)
+    np.testing.assert_allclose(np.linalg.norm(got, axis=1), 1.0, atol=1e-3)
