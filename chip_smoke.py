@@ -5,9 +5,10 @@
 Phases, each printing its own lines and seconds:
   1. setup: the card's name and power limit, torch/CUDA versions, and the
      build of the hand-written kernels (csrc/screen_keys.cu and
-     csrc/maxsim_keys.cu, both on csrc/wgmma_mainloop.cuh, one nvcc each,
-     started together, into neighborhoodwatch_tpu_torch/_build/) with
-     ptxas' registers and spills per kernel variant (a spill fails the run);
+     csrc/maxsim_keys.cu, both on csrc/wgmma_mainloop.cuh, and
+     csrc/masked_attention.cu, one nvcc each, started together, into
+     neighborhoodwatch_tpu_torch/_build/) with ptxas' registers and spills
+     per kernel variant (a spill fails the run);
   2. kernel against plain: the screen kernel and its plain PyTorch version
      on the same bf16 operands, passes 1/2/3 x l2/dot/rdot, on ragged
      shapes (D=200 and D=45, padded nowhere; a query count that leaves a
@@ -60,7 +61,22 @@ Phases, each printing its own lines and seconds:
      call timed at each screen tier beside the exact engine;
   9. nw-tools: the port's tools.main knn over phase 8's fvec files (its
      ivec must equal phase 8's, tie-tolerant) and recall of one against
-     the other (1.000).
+     the other (1.000);
+ 10. attention (csrc/masked_attention.cu, the BERT encoders under
+     attention_impl="flash"): (a) the kernel against its plain version on
+     ragged masks (valid lengths 1, 37, T-1, T and an all-padding row) at
+     T 128/256/512 x (H, D) (12, 64)/(16, 64)/(16, 128) x bf16/fp32, every
+     row; (b) the e5-large-v2 generator at its published width (24 layers,
+     bf16, seeded random weights, hash tokenizer) with the flash config
+     and with "auto" on one state, ~131,072 ragged tokens per forward in
+     buckets 128, 256 and 512: 24 launches per forward, 0 in bucket 64,
+     tokens/s of both, the pooled embeddings against each other; (c) the
+     ColBERT generator at bert-base width, flash against "auto" on one
+     state over passages in bucket 128 (12 launches per forward); (d) the
+     kernel at e5-large's shapes (B = 131072/T, H=16, D=64) by CUDA events
+     beside its bound, its plain version, the written-out attention and
+     torch's scaled_dot_product_attention with the segment mask (a
+     yardstick the port never calls).
 The line before the last is one JSON object with the kernels' numbers;
 the last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 without that line; without a CUDA card it exits 2.
@@ -154,11 +170,17 @@ def ptxas_report(name, report):
     for line in report.splitlines():
         if "Compiling entry function" in line:
             sym = line.split("'")[1]
-            variant = "wgmma" if "wgmma" in sym else "mma"
-            # the mangled template arguments: passes[, epilogue]
-            targs = re.search(r"I((?:Li\d+E)+)E", sym)
-            args = re.findall(r"\d+", targs.group(1)) if targs else ["?"]
-            entry = f"{variant}<{', '.join(args)}>"
+            if "masked_attention" in sym:
+                # the mangled template arguments: dtype, head dim
+                dim = re.search(r"Li(\d+)E", sym).group(1)
+                entry = f"{'bf16' if 'bfloat16' in sym else 'fp32'}, D={dim}"
+            else:
+                variant = "wgmma" if "wgmma" in sym else "mma"
+                # the mangled template arguments: passes[, epilogue]
+                targs = re.search(r"I((?:Li\d+E)+)E", sym)
+                args = re.findall(r"\d+", targs.group(1)) if targs \
+                    else ["?"]
+                entry = f"{variant}<{', '.join(args)}>"
         elif "spill" in line and entry:
             spills = line.strip()
             if "0 bytes spill stores, 0 bytes spill loads" not in spills:
@@ -174,7 +196,9 @@ def ptxas_report(name, report):
 def reset_counts(wrapper):
     """Set a kernel wrapper's launch counts to 0, in all and per variant."""
     wrapper.launches = 0
-    wrapper.launches_by_variant = {v: 0 for v in wrapper.launches_by_variant}
+    if hasattr(wrapper, "launches_by_variant"):
+        wrapper.launches_by_variant = {
+            v: 0 for v in wrapper.launches_by_variant}
 
 
 def screen_operands(q, b):
@@ -227,16 +251,18 @@ def phase_setup():
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     from concurrent.futures import ThreadPoolExecutor
     from neighborhoodwatch_tpu_torch.utils import cuda_build
+    from neighborhoodwatch_tpu_torch.ops import attention_kernel as ak
     from neighborhoodwatch_tpu_torch.ops import maxsim_kernel as mk
     from neighborhoodwatch_tpu_torch.ops import screen_kernel as sk
     # one nvcc per source, all started together
     shutil.rmtree(cuda_build.BUILD_DIR, ignore_errors=True)
-    names = ("screen_keys", "maxsim_keys")
+    names = ("screen_keys", "maxsim_keys", "masked_attention")
     t = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         reports = [r for _, r in pool.map(cuda_build.build, names)]
     sk.load_library()
     mk.load_library()
+    ak.load_library()
     log(f"kernel builds ({', '.join(names)}): "
         f"{time.perf_counter() - t:.2f} s "
         f"(nvcc {' '.join(cuda_build.NVCC_FLAGS)})")
@@ -1286,12 +1312,14 @@ def phase_nw(rec, workdir, Q=1000, B=100_000, k=100,
                                          epilogue="l2"))
     plain_ms = event_ms(lambda: sk.screen_keys_plain(
         **full, mega_rows=mega, passes=1, epilogue="l2"))
+    library_ms = event_ms(lambda: torch.mm(full["qhi"], bhi_all.T))
     flops = 2.0 * Q * B * D
     n_mega = -(-B // mega)
     bytes_ = Q * D * 2 + B * D * 2 + Q * 4 + B * 4 + Q * n_mega * 512 * 4
     bound = max(flops / PEAK_BF16_FLOPS, bytes_ / PEAK_BYTES) * 1e3
     log(f"  kernel at the run's batch ({Q} x {B} x {D}, 1 pass, sub={sub}): "
-        f"{ms:.2f} ms, plain {plain_ms:.2f} ms, bound {bound:.3f} ms "
+        f"{ms:.2f} ms, plain {plain_ms:.2f} ms, torch.mm of the bf16 "
+        f"operands {library_ms:.2f} ms, bound {bound:.3f} ms "
         f"({'operations' if flops / PEAK_BF16_FLOPS >= bytes_ / PEAK_BYTES else 'bytes'})")
     del q, base, ops, first, full, bhi_all, d_e, i_e
     torch.cuda.empty_cache()
@@ -1299,7 +1327,7 @@ def phase_nw(rec, workdir, Q=1000, B=100_000, k=100,
     rec["nw_launches_by_variant"] = by_variant
     rec["nw_shape"] = {
         "Q": Q, "B": B, "D": D, "sub": sub, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound,
+        "bound_ms": bound, "library_ms": library_ms,
         "max_abs_err_by_passes": {str(p): e for p, (e, _) in errs.items()},
         "repairs": {"class_a": class_a, "class_b": class_b},
         "exact_ms": exact_ms, "tiers": tiers,
@@ -1352,6 +1380,291 @@ def phase_tools(rec, workdir, files, k=100):
     rec["tools_launches"] = launches
     rec["tools_launches_by_variant"] = by_variant
     rec["tools_wall_s"] = wall
+
+def ragged_mask(lengths, T):
+    """(len(lengths), T) int32 mask on the card, row i valid up to
+    lengths[i]."""
+    import torch
+    n = torch.as_tensor(lengths, device="cuda")[:, None]
+    return (torch.arange(T, device="cuda")[None] < n).to(torch.int32)
+
+
+def attention_kernel_vs_plain():
+    """Phase 10(a): the kernel against its plain version on every row
+    (attention_kernel.outputs_agree), int32 and bool masks. Returns the
+    worst max |d| per dtype."""
+    import torch
+    from neighborhoodwatch_tpu_torch.ops import attention_kernel as ak
+    g = torch.Generator(device="cuda").manual_seed(10)
+    worst = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for T in (128, 256, 512):
+            for H, D in ((12, 64), (16, 64), (16, 128)):
+                q, k, v = (torch.randn((5, T, H, D), device="cuda",
+                                       generator=g).to(dtype)
+                           for _ in range(3))
+                seg = ragged_mask([1, 37, T - 1, T, 0], T)
+                plain = ak.masked_attention_plain(q, k, v, seg, D ** -0.5)
+                for mask in (seg, seg.bool()):
+                    out = ak.masked_attention(q, k, v, mask, D ** -0.5)
+                    torch.cuda.synchronize()
+                    err = ak.outputs_agree(out, plain)
+                    worst[str(dtype)] = max(worst.get(str(dtype), 0.0), err)
+    log(f"  (a) 18 cases per dtype (T 128/256/512 x (H, D) (12, 64)/(16, "
+        f"64)/(16, 128) x int32/bool masks; valid lengths 1, 37, T-1, T, 0),"
+        f" "
+        f"every row: max |kernel - plain| " + ", ".join(
+            f"{k} {v:.3g}" for k, v in worst.items()) + " (tolerance: fp32 "
+        "1e-5 abs, bf16 2 ulps of the row's largest |o|)")
+    return worst
+
+
+def bucket_texts(n, T, rng):
+    """n texts of T/2 + 1 .. T hash tokens (CLS and SEP included), the
+    first exactly T: bucket T of the tokenizer."""
+    lengths = rng.integers(T // 2 + 1, T + 1, size=n)
+    lengths[0] = T
+    return [" ".join(f"w{j}" for j in rng.integers(0, 5000, size=L - 2))
+            for L in lengths]
+
+
+def embeddings_agree(a, b):
+    """(max |a - b|, least cosine of matching rows) of two (N, dim)
+    arrays."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    cos = (a * b).sum(1) / np.maximum(np.linalg.norm(a, axis=1)
+                                      * np.linalg.norm(b, axis=1), 1e-30)
+    return float(np.abs(a - b).max()), float(cos.min())
+
+
+def attention_e5(rec, tokens=131_072, model="intfloat/e5-large-v2"):
+    """Phase 10(b): the e5 generator with the flash config and with "auto"
+    on one state, ~`tokens` ragged tokens per forward in buckets 128, 256
+    and 512. Returns {T: (ids, mask)} for the timings of (d)."""
+    import dataclasses
+    import torch
+    from neighborhoodwatch_tpu_torch.models import bert as bert_mod
+    from neighborhoodwatch_tpu_torch.models.e5 import E5EmbeddingGenerator
+    from neighborhoodwatch_tpu_torch.ops import attention_kernel as ak
+    cfg = bert_mod.E5_CONFIGS[model]
+    t = time.perf_counter()
+    auto = E5EmbeddingGenerator(model, seed=0, device="cuda")
+    bert_mod.E5_CONFIGS[model] = dataclasses.replace(cfg,
+                                                     attention_impl="flash")
+    try:
+        flash = E5EmbeddingGenerator(model, state=auto.model.state_dict(),
+                                     device="cuda")
+    finally:
+        bert_mod.E5_CONFIGS[model] = cfg
+    log(f"  (b) {model} ({cfg.num_layers} layers, {cfg.hidden_size} hidden,"
+        f" {cfg.num_heads} heads, FFN {cfg.intermediate_size}, {cfg.dtype};"
+        f" seeded random weights), generators with attention_impl "
+        f"'{flash.config.attention_impl}' and '{auto.config.attention_impl}'"
+        f" on one state: {time.perf_counter() - t:.1f} s")
+    rng = np.random.default_rng(10)
+    batches, per_bucket, launches = {}, {}, 0
+    worst_d, worst_cos = 0.0, 1.0
+    for T in (128, 256, 512):
+        texts = bucket_texts(tokens // T, T, rng)
+        ids, mask = flash.tokenizer(texts, max_length=512)
+        assert ids.shape == (tokens // T, T), ids.shape
+        ids = torch.from_numpy(ids).to("cuda", torch.long)
+        mask = torch.from_numpy(mask).to("cuda")
+        batches[T] = (ids, mask)
+        # the main path: the generator's own encode of one chunk
+        reset_counts(ak.masked_attention)
+        got = flash._encode(texts)
+        torch.cuda.synchronize()
+        n = ak.masked_attention.launches
+        launches += n
+        if n != cfg.num_layers:
+            raise AssertionError(f"bucket {T}: {n} launches per forward, "
+                                 f"expected {cfg.num_layers}")
+        want = auto._encode(texts)
+        d, cos = embeddings_agree(got.cpu(), want.cpu())
+        worst_d, worst_cos = max(worst_d, d), min(worst_cos, cos)
+
+        @torch.no_grad()
+        def forward(gen):
+            return bert_mod.mean_pool_normalize(gen.model(ids, mask), mask)
+        ms = {}
+        for name, gen in (("flash", flash), ("auto", auto), ("auto", auto),
+                          ("flash", flash)):
+            forward(gen)
+            ms.setdefault(name, []).append(median_ms(lambda: forward(gen)))
+        valid = int(mask.sum())
+        per_bucket[str(T)] = {
+            "batch": tokens // T, "valid_tokens": valid,
+            "launches": n, "max_abs_diff": d, "min_cosine": cos}
+        for name in ("flash", "auto"):
+            sec = float(np.mean(ms[name])) / 1e3
+            per_bucket[str(T)][f"{name}_ms"] = sec * 1e3
+            per_bucket[str(T)][f"{name}_tokens_per_s"] = valid / sec
+            per_bucket[str(T)][f"{name}_padded_tokens_per_s"] = tokens / sec
+        r = per_bucket[str(T)]
+        log(f"  (b) bucket {T}: {tokens // T} texts, {valid} valid of "
+            f"{tokens} tokens; launches per forward {n}; forward + pooling "
+            f"(median of 3, in turns flash, auto, auto, flash): flash "
+            f"{r['flash_ms']:.1f} ms ({r['flash_tokens_per_s']:.0f} valid, "
+            f"{r['flash_padded_tokens_per_s']:.0f} padded tokens/s), auto "
+            f"{r['auto_ms']:.1f} ms ({r['auto_tokens_per_s']:.0f}, "
+            f"{r['auto_padded_tokens_per_s']:.0f}); pooled embeddings flash "
+            f"vs auto: max |d| {d:.3g}, least cosine {cos:.6f}")
+    # the same texts cut to bucket 64: outside the gate, no launch
+    texts = bucket_texts(tokens // 128, 128, np.random.default_rng(11))
+    flash.max_length = 64
+    reset_counts(ak.masked_attention)
+    flash._encode(texts)
+    torch.cuda.synchronize()
+    flash.max_length = 512
+    if ak.masked_attention.launches != 0:
+        raise AssertionError("bucket 64 launched the attention kernel")
+    log(f"  (b) the bucket-128 texts cut to bucket 64: "
+        f"{ak.masked_attention.launches} launches")
+    # bf16 activations through 24 layers: the two attentions round p at
+    # other places and "auto" stores its logits in bf16
+    if worst_d > 5e-2 or worst_cos < 0.999:
+        raise AssertionError(f"flash and auto e5 embeddings differ: max |d| "
+                             f"{worst_d:.3g}, least cosine {worst_cos:.6f}")
+    rec["launches"] = rec["e5_launches"] = launches
+    rec["e5"] = per_bucket
+    del flash, auto
+    torch.cuda.empty_cache()
+    return batches
+
+
+def attention_colbert(rec, n=512):
+    """Phase 10(c): the ColBERT generator at bert-base width with the flash
+    config and with "auto" on one state, passages in bucket 128."""
+    import dataclasses
+    import torch
+    from neighborhoodwatch_tpu_torch.models import bert as bert_mod
+    from neighborhoodwatch_tpu_torch.models import colbert as cb
+    from neighborhoodwatch_tpu_torch.ops import attention_kernel as ak
+    cfg = cb.COLBERT_BASE_CONFIG
+    model = cb.ColbertModel(cfg)
+    bert_mod.init_params(model, seed=0)
+    state = model.state_dict()
+    gens = {impl: cb.ColbertEmbeddingGenerator(
+        state=state, device="cuda",
+        config=dataclasses.replace(cfg, attention_impl=impl))
+        for impl in ("flash", "auto")}
+    rng = np.random.default_rng(12)
+    texts = [" ".join(f"w{j}" for j in rng.integers(0, 5000, size=L - 2))
+             for L in rng.integers(65, 129, size=n)]
+    out, wall = {}, {}
+    for impl in ("flash", "auto"):
+        reset_counts(ak.masked_attention)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out[impl] = gens[impl].encode_passages(texts, batch_size=64)
+        torch.cuda.synchronize()
+        wall[impl] = time.perf_counter() - t
+        if impl == "flash":
+            launches = ak.masked_attention.launches
+    forwards = -(-n // 64)
+    (fe, fc), (ae, ac) = out["flash"], out["auto"]
+    if fc != ac or not all(65 <= c <= 128 for c in fc):
+        raise AssertionError("flash and auto token counts differ")
+    d, cos = embeddings_agree(fe, ae)
+    log(f"  (c) ColBERT (bert-base, {cfg.num_layers} layers, bf16, seeded "
+        f"random weights) encode_passages over {n} passages of 65-128 "
+        f"tokens (bucket 128, {forwards} forwards): launches {launches}; "
+        f"{wall['flash']:.2f} s flash, {wall['auto']:.2f} s auto; "
+        f"{len(fe)} valid tokens, flash vs auto: max |d| {d:.3g}, least "
+        f"cosine {cos:.6f}")
+    if launches != cfg.num_layers * forwards:
+        raise AssertionError(f"ColBERT launched {launches}, expected "
+                             f"{cfg.num_layers * forwards}")
+    if d > 5e-2 or cos < 0.999:
+        raise AssertionError("flash and auto ColBERT embeddings differ")
+    rec["colbert_launches"] = launches
+    rec["colbert"] = {"passages": n, "forwards": forwards,
+                      "valid_tokens": len(fe), "max_abs_diff": d,
+                      "min_cosine": cos}
+    del gens, model, state
+    torch.cuda.empty_cache()
+
+
+def attention_timings(rec, batches, H=16, D=64):
+    """Phase 10(d): at e5-large's shapes with (b)'s ragged masks, the
+    kernel (CUDA events, median of 3, in turns with the written-out
+    attention) against its plain version, beside its bound and torch's
+    scaled_dot_product_attention with the (B, 1, T, T) segment mask."""
+    import torch
+    import torch.nn.functional as F
+    from neighborhoodwatch_tpu_torch.models.bert import written_out_attention
+    from neighborhoodwatch_tpu_torch.ops import attention_kernel as ak
+    g = torch.Generator(device="cuda").manual_seed(13)
+    shapes = {}
+    for T, (_, mask) in batches.items():
+        B = mask.shape[0]
+        q, k, v = (torch.randn((B, T, H, D), device="cuda",
+                               generator=g).to(torch.bfloat16)
+                   for _ in range(3))
+        seg, key_mask = mask.to(torch.int32), mask.bool()
+        scale = D ** -0.5
+
+        def kernel():
+            return ak.masked_attention(q, k, v, key_mask, scale)
+
+        def written():
+            return written_out_attention(q, k, v, key_mask)
+        got = {"kernel": [], "written": []}
+        for name, fn in (("kernel", kernel), ("written", written),
+                         ("written", written), ("kernel", kernel)):
+            fn()
+            got[name].append(event_ms(fn))
+        ms, written_ms = float(np.mean(got["kernel"])), \
+            float(np.mean(got["written"]))
+        plain = ak.masked_attention_plain(q, k, v, seg, scale)
+        err = ak.outputs_agree(kernel(), plain)
+        del plain
+        plain_ms = event_ms(lambda: ak.masked_attention_plain(
+            q, k, v, seg, scale))
+        torch.cuda.empty_cache()
+        same = (seg[:, :, None] == seg[:, None, :])[:, None]   # (B,1,T,T)
+        qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+        library_ms = event_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=same, scale=scale))
+        del same
+        torch.cuda.empty_cache()
+        n_valid = mask.sum(1).double()
+        dense_flops = 4.0 * B * H * T * T * D
+        # what this data needs: a query's own segment only
+        flops = float(4.0 * H * D * (n_valid ** 2 + (T - n_valid) ** 2)
+                      .sum())
+        bytes_ = 4 * B * T * H * D * 2 + B * T * 4
+        bound = max(bytes_ / PEAK_BYTES, flops / PEAK_BF16_FLOPS) * 1e3
+        shapes[str(T)] = {
+            "B": B, "H": H, "D": D, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "written_out_ms": written_ms,
+            "bound_ms": bound, "bound_by": "bytes" if bytes_ / PEAK_BYTES
+            >= flops / PEAK_BF16_FLOPS else "operations",
+            "flops": flops, "dense_flops": dense_flops, "bytes": bytes_,
+            "max_abs_err": err}
+        log(f"  (d) T={T} B={B} H={H} D={D} bf16, ragged: kernel {ms:.3f} "
+            f"ms ({ms / bound:.2f}x bound, {ms / library_ms:.2f}x SDPA), "
+            f"written-out {written_ms:.3f} ms, plain {plain_ms:.3f} ms, "
+            f"SDPA with the segment mask {library_ms:.3f} ms; bound "
+            f"{bound:.3f} ms ({shapes[str(T)]['bound_by']}: "
+            f"{bytes_ / 1e9:.3f} GB, {flops / 1e9:.1f} GFLOP of the "
+            f"{dense_flops / 1e9:.1f} dense); kernel vs plain max |d| "
+            f"{err:.3g}")
+        del q, k, v, qh, kh, vh
+        torch.cuda.empty_cache()
+    main = shapes["512"]
+    rec.update({key: main[key] for key in
+                ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                 "written_out_ms", "max_abs_err")})
+    rec["shapes"] = shapes
+
+
+def phase_attention(rec):
+    rec["kernel_vs_plain_max_abs_err"] = attention_kernel_vs_plain()
+    batches = attention_e5(rec)
+    attention_colbert(rec)
+    attention_timings(rec, batches)
 
 
 def main():
@@ -1418,9 +1731,15 @@ def main():
             f"{time.perf_counter() - t:.1f} s")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    arec = {"name": "masked_attention", "route": "cuda",
+            "source": "neighborhoodwatch_tpu_torch/csrc/masked_attention.cu",
+            "replaces": "neighborhoodwatch_tpu/models/bert_flax.py:110"}
+    t = time.perf_counter()
+    phase_attention(arec)
+    log(f"phase 10 attention: ok, {time.perf_counter() - t:.1f} s")
     assert "jax" not in sys.modules
     log(f"total {time.perf_counter() - t0:.1f} s on {card}")
-    print(json.dumps({"kernels": [rec, mrec]}))
+    print(json.dumps({"kernels": [rec, mrec, arec]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

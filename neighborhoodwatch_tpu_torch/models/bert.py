@@ -5,9 +5,11 @@ e5 models are plain BERT encoders + mean pooling, ColBERT is BERT + a
 live in the config's activation dtype (bf16 by default: the same values
 the JAX module computes with, which casts its fp32 params per call),
 layernorm, embeddings and the softmax run in fp32. Attention is written
-out: matmul, masked softmax in fp32, matmul. The JAX package's opt-in
-fused attention (`attention_impl="flash"`, JAX's library Pallas kernel on
-the TPU) has no Hopper counterpart yet and raises here.
+out (matmul, masked softmax in fp32, matmul) unless the config opts into
+the fused attention (`attention_impl="flash"`, JAX's library Pallas kernel
+on the TPU): where ops/attention_kernel.py:use_flash admits the shape, it
+runs the hand-written Hopper kernel csrc/masked_attention.cu on CUDA tensors
+and its plain version on CPU tensors.
 
 Weights load from a locally cached HuggingFace torch checkpoint when
 available; otherwise a seeded random init (pipeline testing, not real
@@ -21,6 +23,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from neighborhoodwatch_tpu_torch.ops.attention_kernel import (
+    masked_attention, use_flash,
+)
+
 
 @dataclass(frozen=True)
 class BertConfig:
@@ -33,9 +39,9 @@ class BertConfig:
     type_vocab_size: int = 2
     layer_norm_eps: float = 1e-12
     dtype: str = "bfloat16"  # activation/matmul dtype
-    # "auto" / "xla": the written-out attention below. "flash" asks for a
-    # fused attention kernel, which is still to be ported (ROADMAP.md §2,
-    # kernel queue): it raises rather than run anything else.
+    # "auto" / "xla": the written-out attention below. "flash": the fused
+    # masked attention (ops/attention_kernel.py) where its gate admits the
+    # shape (sequence % 128, head dim % 64), the written-out one elsewhere.
     attention_impl: str = "auto"
     # GELU flavor: "auto" resolves to the tanh approximation under bf16
     # activations (its error sits below the activation dtype's) and to
@@ -70,11 +76,7 @@ def _gelu_approximate(cfg: BertConfig) -> bool:
 
 
 def _check_attention_impl(cfg: BertConfig) -> None:
-    if cfg.attention_impl == "flash":
-        raise NotImplementedError(
-            'attention_impl="flash": the fused attention kernel is not '
-            "ported yet (ROADMAP.md §2, the kernel queue); use \"auto\"")
-    if cfg.attention_impl not in ("auto", "xla"):
+    if cfg.attention_impl not in ("auto", "xla", "flash"):
         raise ValueError(f"unknown attention_impl {cfg.attention_impl!r}")
 
 
@@ -82,6 +84,7 @@ class BertSelfAttention(nn.Module):
     def __init__(self, config: BertConfig):
         super().__init__()
         _check_attention_impl(config)
+        self.config = config
         h, dt = config.hidden_size, _dtype(config)
         self.num_heads = config.num_heads
         self.head_dim = h // config.num_heads
@@ -92,24 +95,30 @@ class BertSelfAttention(nn.Module):
 
     def forward(self, hidden, mask):
         b, t, _ = hidden.shape
-        dt = hidden.dtype
+        # (B, T, H, D) views of the projections
+        q, k, v = (lin(hidden).view(b, t, self.num_heads, self.head_dim)
+                   for lin in (self.query, self.key, self.value))
+        if use_flash(self.config, t):
+            # read in place; padding tokens are segment 0, valid tokens 1
+            ctx = masked_attention(q, k, v, mask,
+                                   1.0 / math.sqrt(self.head_dim))
+            return self.out(ctx.reshape(b, t, -1))
+        return self.out(written_out_attention(q, k, v, mask))
 
-        def heads(x):                                 # (B, H, T, D)
-            return x.view(b, t, self.num_heads, self.head_dim) \
-                .transpose(1, 2)
 
-        q = heads(self.query(hidden))
-        k = heads(self.key(hidden))
-        v = heads(self.value(hidden))
-        # (B, H, T, T) logits, scaled and masked in fp32, stored in the
-        # activation dtype (bf16 keeps fp32's exponent range, so the -1e9
-        # mask survives) and widened again for a stable softmax
-        logits = (q @ k.transpose(2, 3)).float() / math.sqrt(self.head_dim)
-        logits = torch.where(mask[:, None, None, :], logits,
-                             torch.full((), -1e9, device=logits.device))
-        probs = torch.softmax(logits.to(dt).float(), dim=-1).to(dt)
-        ctx = (probs @ v).transpose(1, 2).reshape(b, t, -1)
-        return self.out(ctx)
+def written_out_attention(q, k, v, mask):
+    """(B, T, H, D) q, k, v and a (B, T) bool key mask -> (B, T, H*D) context
+    of the written-out attention: (B, H, T, T) logits, scaled and masked in
+    fp32, stored in the activation dtype (bf16 keeps fp32's exponent range,
+    so the -1e9 mask survives) and widened again for a stable softmax."""
+    b, t, _, d = q.shape
+    dt = q.dtype
+    q, k, v = (x.transpose(1, 2) for x in (q, k, v))    # (B, H, T, D)
+    logits = (q @ k.transpose(2, 3)).float() / math.sqrt(d)
+    logits = torch.where(mask[:, None, None, :], logits,
+                         torch.full((), -1e9, device=logits.device))
+    probs = torch.softmax(logits.to(dt).float(), dim=-1).to(dt)
+    return (probs @ v).transpose(1, 2).reshape(b, t, -1)
 
 
 class BertLayer(nn.Module):

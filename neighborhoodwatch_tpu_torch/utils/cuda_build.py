@@ -23,12 +23,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v"]
 
+# where the CUDA toolkit puts nvcc when it is not on PATH
+TOOLKIT_NVCC = "/usr/local/cuda/bin/nvcc"
+
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+    for cand in (shutil.which("nvcc"), TOOLKIT_NVCC):
         if cand and os.path.exists(cand):
             return cand
     raise RuntimeError("nvcc not found (needed to build the CUDA kernels)")

@@ -268,3 +268,124 @@ def test_e5_generator_on_the_card_matches_the_cpu(cuda, monkeypatch, dtype,
     assert got.shape == want.shape == (100, 384)
     np.testing.assert_allclose(got, want, atol=atol, rtol=0)
     np.testing.assert_allclose(np.linalg.norm(got, axis=1), 1.0, atol=1e-3)
+
+
+# ------------------------------------------------------ masked attention
+
+def _attention_case(rng, T, H, D, dtype, cuda):
+    """(5, T, H, D) q, k, v and a ragged (5, T) mask: valid lengths 1, 37,
+    T - 1, T and an all-padding row."""
+    ops = [torch.from_numpy(rng.standard_normal((5, T, H, D))
+                            .astype(np.float32)).to(cuda, dtype)
+           for _ in range(3)]
+    seg = torch.zeros((5, T), dtype=torch.int32)
+    for i, n in enumerate((1, 37, T - 1, T, 0)):
+        seg[i, :n] = 1
+    return ops, seg.to(cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [128, 256, 512])
+@pytest.mark.parametrize("H,D", [(12, 64), (16, 64), (16, 128)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_masked_attention_matches_plain(cuda, T, H, D, dtype):
+    """The kernel against its plain version on every row, padding rows
+    included (attention_kernel.outputs_agree: fp32 1e-5 abs, bf16 2 ulps
+    of the row's largest |o|), with int32 and bool masks."""
+    from neighborhoodwatch_tpu_torch.ops import attention_kernel as tak
+    rng = np.random.default_rng(T + H + D)
+    (q, k, v), seg = _attention_case(rng, T, H, D, dtype, cuda)
+    scale = 1.0 / D ** 0.5
+    plain = tak.masked_attention_plain(q, k, v, seg, scale)
+    for mask in (seg, seg.bool()):
+        before = tak.masked_attention.launches
+        got = tak.masked_attention(q, k, v, mask, scale)
+        torch.cuda.synchronize()
+        assert tak.masked_attention.launches == before + 1
+        assert got.dtype == dtype and got.shape == q.shape
+        tak.outputs_agree(got, plain)
+
+
+@pytest.mark.cuda
+def test_masked_attention_reads_strided_operands_and_checks_inputs(cuda):
+    """q, k, v as strided views of one (B, T, 3, H, D) tensor (no copy)
+    give the contiguous operands' output; what the kernel does not take
+    raises."""
+    from neighborhoodwatch_tpu_torch.ops import attention_kernel as tak
+    rng = np.random.default_rng(3)
+    qkv = torch.from_numpy(rng.standard_normal((5, 128, 3, 12, 64))
+                           .astype(np.float32)).to(cuda, torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    assert not q.is_contiguous()
+    seg = _attention_case(rng, 128, 12, 64, torch.bfloat16, cuda)[1]
+    got = tak.masked_attention(q, k, v, seg, 0.125)
+    want = tak.masked_attention(q.contiguous(), k.contiguous(),
+                                v.contiguous(), seg, 0.125)
+    assert torch.equal(got, want)
+    with pytest.raises(TypeError):
+        tak.masked_attention(q, k.float(), v, seg, 0.125)
+    with pytest.raises(TypeError):
+        tak.masked_attention(q.half(), k.half(), v.half(), seg, 0.125)
+    with pytest.raises(ValueError, match="head dim"):
+        tak.masked_attention(q[..., :32], k[..., :32], v[..., :32], seg,
+                             0.125)
+    with pytest.raises(ValueError, match="unit-stride"):
+        tak.masked_attention(q.transpose(2, 3), k.transpose(2, 3),
+                             v.transpose(2, 3), seg, 0.125)
+    with pytest.raises(ValueError, match="sequence length"):
+        tak.masked_attention(q[:, :96], k[:, :96], v[:, :96], seg[:, :96],
+                             0.125)
+
+
+@pytest.mark.cuda
+def test_bert_encoder_launches_masked_attention_per_layer(cuda):
+    """A flash encoder on the card: one launch per layer at T=128 (and its
+    pooled embedding equals the CPU's within 1e-5 in fp32), none at T=64."""
+    from neighborhoodwatch_tpu_torch.models import bert as tbert
+    from neighborhoodwatch_tpu_torch.ops import attention_kernel as tak
+    cfg = tbert.BertConfig(hidden_size=256, num_layers=3, num_heads=4,
+                           intermediate_size=512, dtype="float32",
+                           attention_impl="flash")
+    model = tbert.BertEncoder(cfg)
+    tbert.init_params(model, seed=4)
+    rng = np.random.default_rng(4)
+    for T, launches in ((128, 3), (64, 0)):
+        mask = np.zeros((6, T), np.int32)
+        for i, n in enumerate((1, 20, T - 1, T, 0, T // 2)):
+            mask[i, :n] = 1
+        ids = torch.from_numpy(rng.integers(999, 30522, (6, T)) * mask)
+        mask = torch.from_numpy(mask)
+        out = {}
+        for dev in ("cpu", cuda):
+            model.to(dev)
+            before = tak.masked_attention.launches
+            with torch.no_grad():
+                h = model(ids.to(dev), mask.to(dev))
+                out[str(dev)] = tbert.mean_pool_normalize(h, mask.to(dev))
+            torch.cuda.synchronize()
+            want = launches if str(dev) != "cpu" else 0
+            assert tak.masked_attention.launches == before + want
+        torch.testing.assert_close(out["cuda"].cpu(), out["cpu"], atol=1e-5,
+                                   rtol=0)
+
+
+@pytest.mark.cuda
+def test_masked_attention_build_failure_raises(cuda, monkeypatch, tmp_path):
+    """No nvcc on PATH or in the toolkit, nothing built yet: the flash
+    encoder's first launch raises; nothing falls back to another path."""
+    from neighborhoodwatch_tpu_torch.models import bert as tbert
+    from neighborhoodwatch_tpu_torch.ops import attention_kernel as tak
+    from neighborhoodwatch_tpu_torch.utils import cuda_build
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(cuda_build, "TOOLKIT_NVCC", str(tmp_path / "nvcc"))
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(cuda_build, "_loaded", {})
+    model = tbert.BertEncoder(tbert.BertConfig(
+        hidden_size=128, num_layers=1, num_heads=2, intermediate_size=256,
+        attention_impl="flash")).to(cuda)
+    ids = torch.ones((2, 128), dtype=torch.long, device=cuda)
+    before = tak.masked_attention.launches
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        with torch.no_grad():
+            model(ids, torch.ones_like(ids))
+    assert tak.masked_attention.launches == before

@@ -137,16 +137,15 @@ def test_e5_encoder_matches_flax_on_carried_weights(dtype, atol):
 
 
 def test_attention_impl_flash_raises_and_xla_is_auto():
-    """"flash" (the JAX package's library Pallas kernel) is not ported: it
-    raises, naming the kernel queue, and runs nothing else; "xla" is the
-    written-out attention "auto" selects."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbert.BertEncoder(tbert.BertConfig(attention_impl="flash", **SMALL))
+    """"flash" (the fused masked attention, ported as
+    csrc/masked_attention.cu) runs: on CPU tensors at a sequence of 32,
+    outside its gate, it is the written-out attention; an unknown value
+    raises; "xla" is the written-out attention "auto" selects."""
     with pytest.raises(ValueError, match="attention_impl"):
         tbert.BertEncoder(tbert.BertConfig(attention_impl="sdpa", **SMALL))
     ids, mask = _ids(13)
     outs = []
-    for impl in ("auto", "xla"):
+    for impl in ("auto", "xla", "flash"):
         model = tbert.BertEncoder(tbert.BertConfig(
             dtype="float32", attention_impl=impl, **SMALL))
         tbert.init_params(model, seed=3)
@@ -154,6 +153,7 @@ def test_attention_impl_flash_raises_and_xla_is_auto():
             outs.append(model(torch.from_numpy(ids).long(),
                               torch.from_numpy(mask)))
     assert torch.equal(outs[0], outs[1])
+    assert torch.equal(outs[0], outs[2])
 
 
 # -------------------------------------------------------------- generator
