@@ -63,20 +63,23 @@ Phases, each printing its own lines and seconds:
      ivec must equal phase 8's, tie-tolerant) and recall of one against
      the other (1.000);
  10. attention (csrc/masked_attention.cu, the BERT encoders under
-     attention_impl="flash"): (a) the kernel against its plain version on
-     ragged masks (valid lengths 1, 37, T-1, T and an all-padding row) at
-     T 128/256/512 x (H, D) (12, 64)/(16, 64)/(16, 128) x bf16/fp32, every
-     row; (b) the e5-large-v2 generator at its published width (24 layers,
-     bf16, seeded random weights, hash tokenizer) with the flash config
-     and with "auto" on one state, ~131,072 ragged tokens per forward in
-     buckets 128, 256 and 512: 24 launches per forward, 0 in bucket 64,
-     tokens/s of both, the pooled embeddings against each other; (c) the
-     ColBERT generator at bert-base width, flash against "auto" on one
-     state over passages in bucket 128 (12 launches per forward); (d) the
-     kernel at e5-large's shapes (B = 131072/T, H=16, D=64) by CUDA events
-     beside its bound, its plain version, the written-out attention and
-     torch's scaled_dot_product_attention with the segment mask (a
-     yardstick the port never calls).
+     attention_impl="flash"; variants "wgmma", TMA + wgmma, warp-
+     specialized and persistent, and "mma"): (a) both variants against the
+     plain version on ragged masks (valid lengths 1, 37, T-1, T and an
+     all-padding row) at T 128/256/512 x (H, D) (12, 64)/(16, 64)/(16,
+     128) x bf16/fp16 (and fp32 on "mma"), every row; (b) the e5-large-v2
+     generator at its published width (24 layers, bf16, seeded random
+     weights, hash tokenizer) with the flash config and with "auto" on one
+     state, ~131,072 ragged tokens per forward in buckets 128, 256 and
+     512: 24 "wgmma" launches per forward, 0 in bucket 64, tokens/s of
+     both, the pooled embeddings against each other; (c) the ColBERT
+     generator at bert-base width, flash against "auto" on one state over
+     passages in bucket 128 (12 "wgmma" launches per forward); (d) at
+     e5-large's shapes (B = 131072/T, H=16, D=64) the two variants by CUDA
+     events around 10 calls back to back, in turns, beside the bound, the
+     plain version, the written-out attention and torch's
+     scaled_dot_product_attention with the segment mask (a yardstick the
+     port never calls).
 The line before the last is one JSON object with the kernels' numbers;
 the last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 without that line; without a CUDA card it exits 2.
@@ -102,6 +105,8 @@ sys.path.insert(0, HERE)
 # published H100 SXM peaks: dense bf16 tensor-core rate, HBM3 bandwidth
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+# calls per CUDA-event timing where one call is a fraction of a millisecond
+REPS = 10
 
 
 def log(msg):
@@ -171,9 +176,13 @@ def ptxas_report(name, report):
         if "Compiling entry function" in line:
             sym = line.split("'")[1]
             if "masked_attention" in sym:
-                # the mangled template arguments: dtype, head dim
+                # the kernel's name, then the mangled template arguments:
+                # dtype, head dim
                 dim = re.search(r"Li(\d+)E", sym).group(1)
-                entry = f"{'bf16' if 'bfloat16' in sym else 'fp32'}, D={dim}"
+                dtype = ("bf16" if "bfloat16" in sym else
+                         "fp16" if "__half" in sym else "fp32")
+                variant = "wgmma" if "wgmma" in sym else "mma"
+                entry = f"{variant} {dtype}, D={dim}"
             else:
                 variant = "wgmma" if "wgmma" in sym else "mma"
                 # the mangled template arguments: passes[, epilogue]
@@ -1390,14 +1399,18 @@ def ragged_mask(lengths, T):
 
 
 def attention_kernel_vs_plain():
-    """Phase 10(a): the kernel against its plain version on every row
-    (attention_kernel.outputs_agree), int32 and bool masks. Returns the
-    worst max |d| per dtype."""
+    """Phase 10(a): both variants against the plain version on every row
+    (attention_kernel.outputs_agree), int32 and bool masks: bf16 and fp16
+    on "mma" and "wgmma", fp32 on "mma" (wgmma would read fp32 as TF32).
+    Returns the worst max |d| per variant and dtype."""
     import torch
     from neighborhoodwatch_tpu_torch.ops import attention_kernel as ak
     g = torch.Generator(device="cuda").manual_seed(10)
     worst = {}
-    for dtype in (torch.bfloat16, torch.float32):
+    combos = [(torch.bfloat16, "mma"), (torch.bfloat16, "wgmma"),
+              (torch.float16, "mma"), (torch.float16, "wgmma"),
+              (torch.float32, "mma")]
+    for dtype, variant in combos:
         for T in (128, 256, 512):
             for H, D in ((12, 64), (16, 64), (16, 128)):
                 q, k, v = (torch.randn((5, T, H, D), device="cuda",
@@ -1406,16 +1419,17 @@ def attention_kernel_vs_plain():
                 seg = ragged_mask([1, 37, T - 1, T, 0], T)
                 plain = ak.masked_attention_plain(q, k, v, seg, D ** -0.5)
                 for mask in (seg, seg.bool()):
-                    out = ak.masked_attention(q, k, v, mask, D ** -0.5)
+                    with ak.forced_variant(variant):
+                        out = ak.masked_attention(q, k, v, mask, D ** -0.5)
                     torch.cuda.synchronize()
                     err = ak.outputs_agree(out, plain)
-                    worst[str(dtype)] = max(worst.get(str(dtype), 0.0), err)
-    log(f"  (a) 18 cases per dtype (T 128/256/512 x (H, D) (12, 64)/(16, "
-        f"64)/(16, 128) x int32/bool masks; valid lengths 1, 37, T-1, T, 0),"
-        f" "
-        f"every row: max |kernel - plain| " + ", ".join(
+                    key = f"{variant} {str(dtype).split('.')[1]}"
+                    worst[key] = max(worst.get(key, 0.0), err)
+    log(f"  (a) 18 cases per variant and dtype (T 128/256/512 x (H, D) (12, "
+        f"64)/(16, 64)/(16, 128) x int32/bool masks; valid lengths 1, 37, "
+        f"T-1, T, 0), every row: max |kernel - plain| " + ", ".join(
             f"{k} {v:.3g}" for k, v in worst.items()) + " (tolerance: fp32 "
-        "1e-5 abs, bf16 2 ulps of the row's largest |o|)")
+        "1e-5 abs, bf16 / fp16 2 ulps of the row's largest |o|)")
     return worst
 
 
@@ -1462,7 +1476,7 @@ def attention_e5(rec, tokens=131_072, model="intfloat/e5-large-v2"):
         f"'{flash.config.attention_impl}' and '{auto.config.attention_impl}'"
         f" on one state: {time.perf_counter() - t:.1f} s")
     rng = np.random.default_rng(10)
-    batches, per_bucket, launches = {}, {}, 0
+    batches, per_bucket, launches, by_variant = {}, {}, 0, {}
     worst_d, worst_cos = 0.0, 1.0
     for T in (128, 256, 512):
         texts = bucket_texts(tokens // T, T, rng)
@@ -1476,10 +1490,14 @@ def attention_e5(rec, tokens=131_072, model="intfloat/e5-large-v2"):
         got = flash._encode(texts)
         torch.cuda.synchronize()
         n = ak.masked_attention.launches
+        n_wgmma = ak.masked_attention.launches_by_variant["wgmma"]
         launches += n
-        if n != cfg.num_layers:
-            raise AssertionError(f"bucket {T}: {n} launches per forward, "
-                                 f"expected {cfg.num_layers}")
+        for name, count in ak.masked_attention.launches_by_variant.items():
+            by_variant[name] = by_variant.get(name, 0) + count
+        if n != cfg.num_layers or n_wgmma != n:
+            raise AssertionError(f"bucket {T}: {n} launches per forward "
+                                 f"({n_wgmma} wgmma), expected "
+                                 f"{cfg.num_layers}, all wgmma")
         want = auto._encode(texts)
         d, cos = embeddings_agree(got.cpu(), want.cpu())
         worst_d, worst_cos = max(worst_d, d), min(worst_cos, cos)
@@ -1527,6 +1545,7 @@ def attention_e5(rec, tokens=131_072, model="intfloat/e5-large-v2"):
         raise AssertionError(f"flash and auto e5 embeddings differ: max |d| "
                              f"{worst_d:.3g}, least cosine {worst_cos:.6f}")
     rec["launches"] = rec["e5_launches"] = launches
+    rec["launches_by_variant"] = by_variant
     rec["e5"] = per_bucket
     del flash, auto
     torch.cuda.empty_cache()
@@ -1562,6 +1581,7 @@ def attention_colbert(rec, n=512):
         wall[impl] = time.perf_counter() - t
         if impl == "flash":
             launches = ak.masked_attention.launches
+            by_variant = dict(ak.masked_attention.launches_by_variant)
     forwards = -(-n // 64)
     (fe, fc), (ae, ac) = out["flash"], out["auto"]
     if fc != ac or not all(65 <= c <= 128 for c in fc):
@@ -1573,12 +1593,14 @@ def attention_colbert(rec, n=512):
         f"{wall['flash']:.2f} s flash, {wall['auto']:.2f} s auto; "
         f"{len(fe)} valid tokens, flash vs auto: max |d| {d:.3g}, least "
         f"cosine {cos:.6f}")
-    if launches != cfg.num_layers * forwards:
-        raise AssertionError(f"ColBERT launched {launches}, expected "
-                             f"{cfg.num_layers * forwards}")
+    if launches != cfg.num_layers * forwards or by_variant["wgmma"] != \
+            launches:
+        raise AssertionError(f"ColBERT launched {launches} ({by_variant}), "
+                             f"expected {cfg.num_layers * forwards} wgmma")
     if d > 5e-2 or cos < 0.999:
         raise AssertionError("flash and auto ColBERT embeddings differ")
     rec["colbert_launches"] = launches
+    rec["colbert_launches_by_variant"] = by_variant
     rec["colbert"] = {"passages": n, "forwards": forwards,
                       "valid_tokens": len(fe), "max_abs_diff": d,
                       "min_cosine": cos}
@@ -1586,11 +1608,25 @@ def attention_colbert(rec, n=512):
     torch.cuda.empty_cache()
 
 
+def tile_pair_flops(seg, H, D, tile=128):
+    """The products the "wgmma" variant computes on these segment ids: 4 *
+    tile^2 * D per head for every pair of 128-row query and key tiles whose
+    sets of (id & 31) meet (the tiles it does not skip)."""
+    import torch
+    B, T = seg.shape
+    sets = torch.nn.functional.one_hot((seg.long() & 31), 32).view(
+        B, T // tile, tile, 32).any(2)
+    pairs = (sets[:, :, None] & sets[:, None]).any(-1).sum()
+    return 4.0 * H * D * tile * tile * float(pairs)
+
+
 def attention_timings(rec, batches, H=16, D=64):
-    """Phase 10(d): at e5-large's shapes with (b)'s ragged masks, the
-    kernel (CUDA events, median of 3, in turns with the written-out
-    attention) against its plain version, beside its bound and torch's
-    scaled_dot_product_attention with the (B, 1, T, T) segment mask."""
+    """Phase 10(d): at e5-large's shapes with (b)'s ragged masks, the two
+    kernel variants (CUDA events around REPS calls back to back, median of
+    3, in turns mma, wgmma, wgmma, mma) against their bound, the plain
+    version, the written-out attention and torch's
+    scaled_dot_product_attention with the (B, 1, T, T) segment mask (REPS
+    calls too)."""
     import torch
     import torch.nn.functional as F
     from neighborhoodwatch_tpu_torch.models.bert import written_out_attention
@@ -1604,59 +1640,71 @@ def attention_timings(rec, batches, H=16, D=64):
                    for _ in range(3))
         seg, key_mask = mask.to(torch.int32), mask.bool()
         scale = D ** -0.5
+        variant = ak.pick_variant(T, D, q.dtype, True)
 
         def kernel():
             return ak.masked_attention(q, k, v, key_mask, scale)
 
+        def kernel_reps():
+            # back to back: the card's time, not the wrapper's on the host
+            for _ in range(REPS):
+                kernel()
+
         def written():
             return written_out_attention(q, k, v, key_mask)
-        got = {"kernel": [], "written": []}
-        for name, fn in (("kernel", kernel), ("written", written),
-                         ("written", written), ("kernel", kernel)):
-            fn()
-            got[name].append(event_ms(fn))
-        ms, written_ms = float(np.mean(got["kernel"])), \
-            float(np.mean(got["written"]))
+        ms_before, ms = (x / REPS for x in turns_ms(ak, kernel_reps))
+        written()
+        written_ms = event_ms(written)
         plain = ak.masked_attention_plain(q, k, v, seg, scale)
-        err = ak.outputs_agree(kernel(), plain)
+        err = {}
+        for name in ak.VARIANTS:
+            with ak.forced_variant(name):
+                err[name] = ak.outputs_agree(kernel(), plain)
         del plain
         plain_ms = event_ms(lambda: ak.masked_attention_plain(
             q, k, v, seg, scale))
         torch.cuda.empty_cache()
         same = (seg[:, :, None] == seg[:, None, :])[:, None]   # (B,1,T,T)
         qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
-        library_ms = event_ms(lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, attn_mask=same, scale=scale))
+        library_ms = event_ms(lambda: [F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=same, scale=scale) for _ in range(REPS)]
+        ) / REPS
         del same
         torch.cuda.empty_cache()
         n_valid = mask.sum(1).double()
         dense_flops = 4.0 * B * H * T * T * D
-        # what this data needs: a query's own segment only
+        # a query's own segment only, and what the 128-row skip computes
         flops = float(4.0 * H * D * (n_valid ** 2 + (T - n_valid) ** 2)
                       .sum())
+        tile_flops = tile_pair_flops(seg, H, D)
         bytes_ = 4 * B * T * H * D * 2 + B * T * 4
-        bound = max(bytes_ / PEAK_BYTES, flops / PEAK_BF16_FLOPS) * 1e3
+        bound = max(bytes_ / PEAK_BYTES, tile_flops / PEAK_BF16_FLOPS) * 1e3
         shapes[str(T)] = {
-            "B": B, "H": H, "D": D, "ms": ms, "plain_ms": plain_ms,
+            "B": B, "H": H, "D": D, "variant": variant, "ms": ms,
+            "ms_before": ms_before, "plain_ms": plain_ms,
             "library_ms": library_ms, "written_out_ms": written_ms,
             "bound_ms": bound, "bound_by": "bytes" if bytes_ / PEAK_BYTES
-            >= flops / PEAK_BF16_FLOPS else "operations",
-            "flops": flops, "dense_flops": dense_flops, "bytes": bytes_,
-            "max_abs_err": err}
-        log(f"  (d) T={T} B={B} H={H} D={D} bf16, ragged: kernel {ms:.3f} "
-            f"ms ({ms / bound:.2f}x bound, {ms / library_ms:.2f}x SDPA), "
+            >= tile_flops / PEAK_BF16_FLOPS else "operations",
+            "flops": flops, "tile_flops": tile_flops,
+            "dense_flops": dense_flops, "bytes": bytes_,
+            "max_abs_err": err[variant], "max_abs_err_mma": err["mma"]}
+        log(f"  (d) T={T} B={B} H={H} D={D} bf16, ragged: {variant} {ms:.3f}"
+            f" ms ({ms / bound:.2f}x bound, {ms / library_ms:.2f}x SDPA), "
+            f"mma {ms_before:.3f} ms (in turns mma, wgmma, wgmma, mma; "
+            f"{REPS} calls a timing); "
             f"written-out {written_ms:.3f} ms, plain {plain_ms:.3f} ms, "
             f"SDPA with the segment mask {library_ms:.3f} ms; bound "
             f"{bound:.3f} ms ({shapes[str(T)]['bound_by']}: "
-            f"{bytes_ / 1e9:.3f} GB, {flops / 1e9:.1f} GFLOP of the "
+            f"{bytes_ / 1e9:.3f} GB; {tile_flops / 1e9:.1f} GFLOP on the "
+            f"unskipped tiles, {flops / 1e9:.1f} needed, "
             f"{dense_flops / 1e9:.1f} dense); kernel vs plain max |d| "
-            f"{err:.3g}")
+            f"{err[variant]:.3g} ({variant}), {err['mma']:.3g} (mma)")
         del q, k, v, qh, kh, vh
         torch.cuda.empty_cache()
     main = shapes["512"]
     rec.update({key: main[key] for key in
-                ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                 "written_out_ms", "max_abs_err")})
+                ("variant", "ms", "ms_before", "plain_ms", "bound_ms",
+                 "bound_by", "library_ms", "written_out_ms", "max_abs_err")})
     rec["shapes"] = shapes
 
 

@@ -36,13 +36,20 @@
 //   * Tensor maps are encoded on the host at launch by
 //     cuTensorMapEncodeTiled, looked up at run time (no -lcuda at link), and
 //     passed by value as __grid_constant__ parameters.
+//   * csrc/masked_attention.cu takes the same pieces and a few of its own,
+//     kept beside them: 4-D tensor-map loads and stores with their bulk
+//     groups, fp16 as well as bf16 wgmma, and wgmma with A from registers
+//     against an MN-major B (the transpose-B bit and its descriptor).
 
 #pragma once
 
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace wg {
 
@@ -169,6 +176,50 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst,
   }
 }
 
+// one box of a 4-D map into this block only
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  const uint64_t m = reinterpret_cast<uint64_t>(map);
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(m), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// one box from this block's shared memory to a 4-D map; the bulk group's
+// commit and waits below (read: the shared memory may be reused)
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2, int c3) {
+  const uint64_t m = reinterpret_cast<uint64_t>(map);
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4, %5}], [%1];\n"
+      :: "l"(m), "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3) : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// until at most N committed groups are still reading shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// ordinary shared-memory writes before an async-proxy (TMA) read of them
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // ---- registers between the roles --------------------------------------------
 
 template <int N>
@@ -264,6 +315,131 @@ __device__ __forceinline__ void wgmma_chunk(float (&d)[64], uint32_t a_tile,
     wgmma_m64n128k16(d, da + 2 * k, db + 2 * k, (fresh && k == 0) ? 0 : 1);
 }
 
+// ---- wgmma for 16-bit types other than bf16, and with A from registers ------
+// (csrc/masked_attention.cu: scores Q K^T from shared memory, then P V with
+// P from the score registers and V MN-major in shared memory)
+
+// keeps a register array live, and unmoved, across an asynchronous wgmma
+// that reads or writes it (until the wait that follows)
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j]) :: "memory");
+}
+
+// Shared-memory descriptor of an MN-major tile in 128-byte swizzle, the
+// layout TMA writes for a box of 64 16-bit columns (the N dimension) by K
+// rows: an atom is 8 K rows x 128 bytes, atoms along K back to back (stride
+// 1024 B), the next 64 N columns `lbo_bytes` further on. Used with the
+// transpose-B bit, which exists for 16-bit types only.
+__device__ __forceinline__ uint64_t make_desc_mn128(uint32_t addr,
+                                                    uint32_t lbo_bytes) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo_bytes >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+#define WG_ACC8(d, i)                                                   \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),           \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define WG_ACC32(d) WG_ACC8(d, 0), WG_ACC8(d, 8), WG_ACC8(d, 16), WG_ACC8(d, 24)
+#define WG_ACC64(d)                                                     \
+  WG_ACC32(d), WG_ACC8(d, 32), WG_ACC8(d, 40), WG_ACC8(d, 48), WG_ACC8(d, 56)
+#define WG_R32                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7,"                                    \
+  " %8, %9, %10, %11, %12, %13, %14, %15,"                              \
+  " %16, %17, %18, %19, %20, %21, %22, %23,"                            \
+  " %24, %25, %26, %27, %28, %29, %30, %31}"
+#define WG_R64                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7,"                                    \
+  " %8, %9, %10, %11, %12, %13, %14, %15,"                              \
+  " %16, %17, %18, %19, %20, %21, %22, %23,"                            \
+  " %24, %25, %26, %27, %28, %29, %30, %31,"                            \
+  " %32, %33, %34, %35, %36, %37, %38, %39,"                            \
+  " %40, %41, %42, %43, %44, %45, %46, %47,"                            \
+  " %48, %49, %50, %51, %52, %53, %54, %55,"                            \
+  " %56, %57, %58, %59, %60, %61, %62, %63}"
+// the instruction's operand type for an element type
+#define WG_TYPE(T) (std::is_same<T, __half>::value ? 1 : 0)
+
+// d (64 x 128 fp32) = or += A (64 x 16) . B (128 x 16)^T, both K-major in
+// shared memory, T = __nv_bfloat16 or __half; the layout of d as for
+// wgmma_m64n128k16.
+template <typename T>
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
+                                                    uint64_t da, uint64_t db,
+                                                    int scale_d) {
+#define WG_SS(TY)                                                        \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"               \
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY  \
+               " " WG_R64 ", %64, %65, p, 1, 1, 0, 0;\n}\n"               \
+               : WG_ACC64(d)                                             \
+               : "l"(da), "l"(db), "r"(scale_d))
+  if constexpr (WG_TYPE(T)) {
+    WG_SS("f16");
+  } else {
+    WG_SS("bf16");
+  }
+#undef WG_SS
+}
+
+// d (64 x N fp32, N = 64 or 128) += A (64 x 16, four registers a thread:
+// the m16n8k16 A fragment of the warp's 16 rows) . B (16 x N), B MN-major
+// in shared memory (descriptor from make_desc_mn128). The layout of d:
+// d[4j + 2h + e] is row half h, column 8j + 2 (t % 4) + e.
+template <typename T>
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db) {
+#define WG_RS(TY)                                                        \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"               \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY   \
+               " " WG_R32 ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n" \
+               : WG_ACC32(d)                                             \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),     \
+                 "r"(1))
+  if constexpr (WG_TYPE(T)) {
+    WG_RS("f16");
+  } else {
+    WG_RS("bf16");
+  }
+#undef WG_RS
+}
+
+template <typename T>
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t db) {
+#define WG_RS(TY)                                                        \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"               \
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY  \
+               " " WG_R64 ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n" \
+               : WG_ACC64(d)                                             \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),     \
+                 "r"(1))
+  if constexpr (WG_TYPE(T)) {
+    WG_RS("f16");
+  } else {
+    WG_RS("bf16");
+  }
+#undef WG_RS
+}
+
+#undef WG_TYPE
+#undef WG_R64
+#undef WG_R32
+#undef WG_ACC64
+#undef WG_ACC32
+#undef WG_ACC8
+
 // ---- the ring ------------------------------------------------------------------
 
 // Slot and phase bookkeeping, the same on the producer's and the consumers'
@@ -347,16 +523,19 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// bf16 tensor of `rank` dims (innermost first; strides in bytes for dims
-// 1..rank-1), box of the same rank; the swizzle follows the box's inner
-// width (64 columns: 128 B, 32 columns: 64 B). Returns 0 or an error code.
+// 16-bit tensor (bf16 unless `dtype` says otherwise) of `rank` <= 5 dims
+// (innermost first; strides in bytes for dims 1..rank-1), box of the same
+// rank; the swizzle follows the box's inner width (64 columns: 128 B, 32
+// columns: 64 B). Returns 0 or an error code.
 inline int make_map(CUtensorMap* map, const void* ptr, int rank,
                     const uint64_t* dims, const uint64_t* strides,
-                    const uint32_t* box) {
+                    const uint32_t* box,
+                    CUtensorMapDataType dtype =
+                        CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return ERR_NO_ENCODE_FN;
-  cuuint64_t gdim[3], gstr[2];
-  cuuint32_t gbox[3], estr[3] = {1, 1, 1};
+  cuuint64_t gdim[5], gstr[4];
+  cuuint32_t gbox[5], estr[5] = {1, 1, 1, 1, 1};
   for (int i = 0; i < rank; ++i) {
     gdim[i] = dims[i];
     gbox[i] = box[i];
@@ -365,7 +544,7 @@ inline int make_map(CUtensorMap* map, const void* ptr, int rank,
   const CUtensorMapSwizzle sw =
       box[0] * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
                         : CU_TENSOR_MAP_SWIZZLE_64B;
-  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+  CUresult r = fn(map, dtype, rank,
                   const_cast<void*>(ptr), gdim, gstr, gbox, estr,
                   CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,

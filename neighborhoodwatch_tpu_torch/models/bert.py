@@ -11,6 +11,14 @@ on the TPU): where ops/attention_kernel.py:use_flash admits the shape, it
 runs the hand-written Hopper kernel csrc/masked_attention.cu on CUDA tensors
 and its plain version on CPU tensors.
 
+One difference from the reference under "flash": on CUDA tensors the gate
+also asks for a head dim the kernel instantiates (64 or 128), so a config
+the reference's gate admits with head dim 192 or 256 takes the written-out
+attention on the card (and the plain version on the CPU, as the reference
+takes its library kernel). There a padding query attends to the valid keys
+instead of the padding keys; valid rows, the only ones pooling and the
+ColBERT head read, get the same attention either way.
+
 Weights load from a locally cached HuggingFace torch checkpoint when
 available; otherwise a seeded random init (pipeline testing, not real
 ground truth).
@@ -41,7 +49,8 @@ class BertConfig:
     dtype: str = "bfloat16"  # activation/matmul dtype
     # "auto" / "xla": the written-out attention below. "flash": the fused
     # masked attention (ops/attention_kernel.py) where its gate admits the
-    # shape (sequence % 128, head dim % 64), the written-out one elsewhere.
+    # shape (sequence % 128, head dim % 64; on CUDA head dim 64 or 128),
+    # the written-out one elsewhere.
     attention_impl: str = "auto"
     # GELU flavor: "auto" resolves to the tanh approximation under bf16
     # activations (its error sits below the activation dtype's) and to
@@ -98,7 +107,7 @@ class BertSelfAttention(nn.Module):
         # (B, T, H, D) views of the projections
         q, k, v = (lin(hidden).view(b, t, self.num_heads, self.head_dim)
                    for lin in (self.query, self.key, self.value))
-        if use_flash(self.config, t):
+        if use_flash(self.config, t, hidden.device):
             # read in place; padding tokens are segment 0, valid tokens 1
             ctx = masked_attention(q, k, v, mask,
                                    1.0 / math.sqrt(self.head_dim))

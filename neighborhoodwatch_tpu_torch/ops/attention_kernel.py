@@ -10,6 +10,14 @@ runs `masked_attention_plain`, the plain PyTorch version of the same
 function (the library's `mha_reference` with segment ids, p cast to v's
 dtype before its product with v).
 
+The source holds two variants, and `pick_variant` chooses between them by
+shape alone: "wgmma" (TMA loads, wgmma products, a producer warp and two
+consumer warpgroups, which take turns at the tensor cores at D = 128, one
+persistent block per SM; 128-query items, 128-key tiles) for bf16 and fp16
+at T % 128 == 0, "mma" (mma.sync from a cp.async ring, 64 x 64 tiles; an
+fp32 SIMT form) for the rest.
+Launches are counted in all and per variant.
+
 Layout: q, k, v and the output are (B, T, H, D), the encoder's nn.Linear
 outputs viewed per head, which the kernel reads in place with their strides
 (the JAX call site swaps them to (B, H, T, D) around the library call and
@@ -20,6 +28,7 @@ written-out attention masks keys only; pooling and the ColBERT head drop
 those rows downstream.
 """
 
+import contextlib
 import ctypes
 
 import torch
@@ -27,22 +36,63 @@ import torch
 # the library's DEFAULT_MASK_VALUE: added to masked logits, kept finite
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 HEAD_DIMS = (64, 128)        # the kernel's instantiations
-TILE = 64                    # its query and key tile
+TILE = 64                    # the "mma" variant's query and key tile
+WGMMA_TILE = 128             # the "wgmma" variant's
 MAX_SEQ = 8192               # a row's segment ids live in shared memory
-_DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
+_DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}
+
+VARIANTS = ("mma", "wgmma")
+_forced_variant = None
 
 
-def use_flash(config, seq: int) -> bool:
-    """The gate of bert_flax._use_flash: the fused attention runs for
-    `attention_impl="flash"`, a sequence of a multiple of 128 and a head dim
-    of a multiple of 64; elsewhere the written-out attention runs, as in the
-    reference. The reference's TPU-backend clause becomes the tensors'
-    device: CUDA tensors launch the kernel, CPU tensors run the plain
-    version."""
+def use_flash(config, seq: int, device="cpu") -> bool:
+    """Whether a forward over `seq` positions on `device` takes the fused
+    attention. The reference's gate (bert_flax._use_flash):
+    `attention_impl="flash"`, a sequence of a multiple of 128 and a head
+    dim of a multiple of 64. Its TPU-backend clause becomes the device: on
+    the CPU the plain version runs every shape that gate admits; on CUDA
+    the kernel runs, so the gate also asks for what the kernel takes (head
+    dim in HEAD_DIMS, the config's dtype in bf16/fp16/fp32, seq up to
+    MAX_SEQ) and sends the rest (head dim 192 or 256) to the written-out
+    attention. Elsewhere the written-out attention runs, as in the
+    reference."""
     if config.attention_impl != "flash":
         return False
     head_dim = config.hidden_size // config.num_heads
-    return seq % 128 == 0 and head_dim % 64 == 0
+    if seq % 128 or head_dim % 64:
+        return False
+    if torch.device(device).type == "cpu":
+        return True
+    return (head_dim in HEAD_DIMS and seq <= MAX_SEQ
+            and getattr(torch, config.dtype) in _DTYPE_CODE)
+
+
+def pick_variant(T: int, D: int, dtype, aligned: bool) -> str:
+    """The kernel variant for (B, T, H, D) operands of `dtype`: "wgmma"
+    takes bf16 and fp16 (wgmma's fp32 inputs are TF32, which would break
+    the fp32 tolerance), head dims in HEAD_DIMS, T % 128 == 0 and rows a
+    TMA tensor map can describe (`aligned`: 16-byte aligned base and
+    strides); everything else takes "mma"."""
+    if (dtype in (torch.bfloat16, torch.float16) and D in HEAD_DIMS
+            and T % WGMMA_TILE == 0 and aligned):
+        return "wgmma"
+    return "mma"
+
+
+@contextlib.contextmanager
+def forced_variant(name: str):
+    """Launch `name` instead of the variant `pick_variant` would choose,
+    for tests and timings that hold the two against each other. Forcing
+    "wgmma" on a shape it cannot take makes the launch raise."""
+    global _forced_variant
+    if name not in VARIANTS:
+        raise ValueError(f"variant {name!r} not in {VARIANTS}")
+    before = _forced_variant
+    _forced_variant = name
+    try:
+        yield
+    finally:
+        _forced_variant = before
 
 
 def masked_attention_plain(q, k, v, seg, sm_scale: float):
@@ -66,8 +116,10 @@ def outputs_agree(out, plain) -> float:
     within 2 bf16 ulps of the row's largest |o| (the kernel rounds each
     unnormalized p to bf16, the plain version each normalized one, and
     each rounds its output once: a term's error is at most 2^-8 of its
-    share of the sum). Returns the max abs difference; raises
-    AssertionError beyond the tolerance or on a non-finite output."""
+    share of the sum); fp16 within 2 fp16 ulps of it, by the same argument
+    at fp16's 10-bit mantissa (2^-11 a term). Returns the max abs
+    difference; raises AssertionError beyond the tolerance or on a
+    non-finite output."""
     o, p = out.float(), plain.float()
     if not bool(torch.isfinite(o).all()):
         raise AssertionError("non-finite attention output")
@@ -75,8 +127,9 @@ def outputs_agree(out, plain) -> float:
     if out.dtype == torch.float32:
         tol = torch.full_like(diff, 1e-5)
     else:
+        mantissa = 10 if out.dtype == torch.float16 else 7
         row = p.abs().amax(-1, keepdim=True).clamp_min(2.0 ** -126)
-        tol = 2 * torch.exp2(torch.floor(torch.log2(row)) - 7)
+        tol = 2 * torch.exp2(torch.floor(torch.log2(row)) - mantissa)
     if bool((diff > tol).any()):
         raise AssertionError(f"attention output beyond tolerance: max "
                              f"excess {float((diff - tol).max()):.3g}")
@@ -91,7 +144,7 @@ def load_library():
         p, i, s = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.masked_attention_launch.argtypes = [p, p, p, p, p, i, i, i, i,
                                                 s, s, s, s, s, s, s, s, s,
-                                                i, i, ctypes.c_float, p]
+                                                i, i, i, ctypes.c_float, p]
         lib.masked_attention_launch.restype = i
         lib._nw_typed = True
     return lib
@@ -117,10 +170,11 @@ def _check_operand(t, name, q):
 def masked_attention(q, k, v, seg, sm_scale: float):
     """(B, T, H, D) output of `masked_attention_plain`'s function.
 
-    q, k, v (B, T, H, D) bf16 or fp32 with unit stride along D; seg (B, T)
-    int32, uint8 or bool. CPU tensors take the plain version; CUDA tensors
-    launch the kernel (and count the launch) or raise, on a shape, dtype or
-    layout the kernel does not take, a failed build or a failed launch."""
+    q, k, v (B, T, H, D) bf16, fp16 or fp32 with unit stride along D; seg
+    (B, T) int32, uint8 or bool. CPU tensors take the plain version; CUDA
+    tensors launch the kernel variant `pick_variant` names (and count the
+    launch, in all and per variant) or raise, on a shape, dtype or layout
+    the kernel does not take, a failed build or a failed launch."""
     if q.dim() != 4:
         raise ValueError(f"q: expected (B, T, H, D), got {tuple(q.shape)}")
     B, T, H, D = q.shape
@@ -152,18 +206,24 @@ def masked_attention(q, k, v, seg, sm_scale: float):
     out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
     if B == 0 or H == 0:
         return out
+    # _check_operand holds every operand to what a tensor map describes
+    variant = _forced_variant or pick_variant(T, D, q.dtype, True)
     dev = q.device
     with torch.cuda.device(dev):
         err = load_library().masked_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
             out.data_ptr(), B, T, H, D, *q.stride()[:3], *k.stride()[:3],
             *v.stride()[:3], seg.element_size(), _DTYPE_CODE[q.dtype],
-            sm_scale, torch.cuda.current_stream(dev).cuda_stream)
+            VARIANTS.index(variant), sm_scale,
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"masked_attention kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"masked_attention kernel ({variant}) launch "
+                           f"failed: error {err} (CUDA's, or 2xxxx from the "
+                           f"tensor map encode)")
     masked_attention.launches += 1
+    masked_attention.launches_by_variant[variant] += 1
     return out
 
 
 masked_attention.launches = 0
+masked_attention.launches_by_variant = {v: 0 for v in VARIANTS}

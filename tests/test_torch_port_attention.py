@@ -16,8 +16,13 @@ card (tests/test_torch_port_cuda.py, chip_smoke.py phase 10).
 Tolerances: fp32 within 1e-5 abs (same function, sums and exp in another
 order); bf16 within 2e-2 abs (the output is rounded to bf16, ulp 2^-8 near
 1, and the library rounds the unnormalized p to bf16 where the plain
-version rounds the normalized one). Every row is compared, padding rows
-included: a padding query attends to the padding keys (segment 0)."""
+version rounds the normalized one); fp16 within 4e-3 abs (the same at
+fp16's ulp, 2^-9 for |o| in 2..4: two ulps). Every row is compared,
+padding rows included: a padding query attends to the padding keys
+(segment 0). On the card the port's gate also asks for a head dim the
+kernel instantiates (64, 128); other head dims the reference's gate
+admits take the written-out attention there, which only valid rows can
+match."""
 
 import dataclasses
 import functools
@@ -43,9 +48,10 @@ from neighborhoodwatch_tpu_torch.ops import attention_kernel as tak
 NARROW = dict(hidden_size=128, num_layers=2, num_heads=2,
               intermediate_size=256)
 E5_BASE = "intfloat/e5-base-v2"
-ATOL = {"float32": 1e-5, "bfloat16": 2e-2}
+ATOL = {"float32": 1e-5, "bfloat16": 2e-2, "float16": 4e-3}
 DTYPES = {"float32": (np.float32, torch.float32),
-          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+          "bfloat16": (jnp.bfloat16, torch.bfloat16),
+          "float16": (jnp.float16, torch.float16)}
 
 
 def _segments(T, lengths):
@@ -360,3 +366,159 @@ def test_wrapper_refuses_other_devices_and_unknown_impl_raises():
                              0.125)
     with pytest.raises(ValueError, match="attention_impl"):
         tbert.BertEncoder(tbert.BertConfig(attention_impl="sdpa", **NARROW))
+
+
+def test_masked_attention_fp16_matches_library_kernel(plain_calls,
+                                                      interpreted):
+    """float16 operands (the dtype the kernel gained with the gate's
+    repair), ragged masks, H=2, D=64, T=128: every row of the port's plain
+    version against JAX's library kernel."""
+    B, T, H, D = 5, 128, 2, 64
+    rng = np.random.default_rng(T)
+    ops = [np.array(jnp.asarray(rng.standard_normal((B, T, H, D))
+                                .astype(np.float32)).astype(jnp.float16)
+                    .astype(jnp.float32)) for _ in range(3)]
+    seg = _segments(T, [1, 37, T - 1, T, 0])
+    want = _library(*[x.astype(jnp.float16) for x in ops], seg, 0.125)
+    got = tak.masked_attention(
+        *[torch.from_numpy(x).to(torch.float16) for x in ops],
+        torch.from_numpy(seg), 0.125)
+    assert got.dtype == torch.float16 and plain_calls == [(B, T, H, D)]
+    np.testing.assert_allclose(got.float().numpy(), want,
+                               atol=ATOL["float16"], rtol=0)
+
+
+# head dims (hidden 768): 64 and 128 are the kernel's, 192 and 256 are not
+@pytest.mark.parametrize("heads,dtype,on_card", [
+    (12, "bfloat16", True), (12, "float16", True), (12, "float32", True),
+    (6, "float16", True), (4, "bfloat16", False), (3, "float16", False),
+    (24, "bfloat16", False),                    # head dim 32: neither gate
+])
+def test_gate_admits_on_the_card_only_what_the_kernel_takes(heads, dtype,
+                                                            on_card):
+    """The gate on the CPU is the reference's (sequence % 128, head dim %
+    64); on a CUDA device (no card needed: the predicate alone) it also
+    asks for what `masked_attention` takes there, so nothing it admits
+    raises in the wrapper: head dim in HEAD_DIMS, a kernel dtype, the
+    sequence a multiple of the tile up to MAX_SEQ."""
+    cfg = tbert.BertConfig(hidden_size=768, num_heads=heads, dtype=dtype,
+                           attention_impl="flash")
+    head_dim = 768 // heads
+    for seq in (64, 128, 256, 512, tak.MAX_SEQ, tak.MAX_SEQ + 128):
+        ref = seq % 128 == 0 and head_dim % 64 == 0
+        assert tak.use_flash(cfg, seq, "cpu") == ref
+        assert tak.use_flash(cfg, seq, torch.device("cpu")) == ref
+        card = tak.use_flash(cfg, seq, "cuda")
+        assert card == tak.use_flash(cfg, seq, torch.device("cuda", 0))
+        assert card == (ref and on_card and seq <= tak.MAX_SEQ)
+        if card:
+            assert head_dim in tak.HEAD_DIMS and seq % tak.TILE == 0
+            assert getattr(torch, dtype) in tak._DTYPE_CODE
+    off = dataclasses.replace(cfg, attention_impl="auto")
+    assert not tak.use_flash(off, 128, "cpu")
+    assert not tak.use_flash(off, 128, "cuda")
+
+
+def _encoder_pair(kw, dtype, seed):
+    jcfg = bert_flax.BertConfig(dtype=dtype, attention_impl="flash", **kw)
+    tcfg = tbert.BertConfig(dtype=dtype, attention_impl="flash", **kw)
+    params = _flax_params(jcfg, seed=seed)
+    model = tbert.BertEncoder(tcfg)
+    model.load_state_dict(tbert.bert_state_from_flax(params["params"], tcfg))
+    return bert_flax.BertEncoder(jcfg), params, model
+
+
+def test_flash_head_dim_192_follows_the_reference_on_cpu_and_card_path(
+        flash_anywhere, plain_calls, monkeypatch):
+    """Head dim 192 (hidden 384, 2 heads), fp32, weights carried: the
+    reference's gate admits it, so on the CPU the port's plain version
+    runs and every row matches the JAX package's flash path; on the card
+    the port's gate sends it to the written-out attention, whose valid rows
+    (the ones pooling reads) match too."""
+    kw = dict(hidden_size=384, num_layers=2, num_heads=2,
+              intermediate_size=256)
+    jmodel, params, model = _encoder_pair(kw, "float32", seed=21)
+    ids, mask = _ids(22, 128, [128, 70, 1])
+    jh = np.asarray(jmodel.apply(params, jnp.asarray(ids),
+                                 jnp.asarray(mask)))
+    assert len(flash_anywhere) == 2
+    assert not tak.use_flash(model.config, 128, "cuda")
+    with torch.no_grad():
+        th = model(torch.from_numpy(ids).long(), torch.from_numpy(mask))
+    assert plain_calls == [(3, 128, 2, 192)] * 2
+    np.testing.assert_allclose(th.numpy(), jh, atol=1e-4, rtol=0)
+    # the card's decision, taken here on CPU tensors
+    monkeypatch.setattr(tbert, "use_flash",
+                        lambda cfg, seq, device: tak.use_flash(cfg, seq,
+                                                               "cuda"))
+    with torch.no_grad():
+        card = model(torch.from_numpy(ids).long(), torch.from_numpy(mask))
+    assert len(plain_calls) == 2
+    valid = mask.astype(bool)
+    np.testing.assert_allclose(card.numpy()[valid], jh[valid], atol=1e-4,
+                               rtol=0)
+    assert not np.allclose(card.numpy()[~valid], jh[~valid], atol=1e-2)
+
+
+def test_flash_float16_encoder_matches_flax_flash_path(flash_anywhere,
+                                                       plain_calls):
+    """dtype="float16" under "flash" (the card now takes it: the gate
+    admits it on both devices): a 2-layer BERT at T=128, weights carried,
+    every position's hidden state and the pooled embedding against the JAX
+    package's flash path. Tolerances: 2e-3 pooled, 1.6e-2 hidden (4 fp16
+    ulps for |h| in 4..8; the two sides round the activations at other
+    places)."""
+    jmodel, params, model = _encoder_pair(NARROW, "float16", seed=8)
+    ids, mask = _ids(9, 128, [128, 70, 1])
+    jh = jmodel.apply(params, jnp.asarray(ids), jnp.asarray(mask))
+    want = np.asarray(bert_flax.mean_pool_normalize(jh, jnp.asarray(mask)))
+    assert tak.use_flash(model.config, 128, "cuda")
+    with torch.no_grad():
+        th = model(torch.from_numpy(ids).long(), torch.from_numpy(mask))
+        got = tbert.mean_pool_normalize(th, torch.from_numpy(mask))
+    assert model.layers[0].attention.query.weight.dtype == torch.float16
+    assert plain_calls == [(3, 128, 2, 64)] * 2
+    np.testing.assert_allclose(got.float().numpy(), want, atol=2e-3, rtol=0)
+    np.testing.assert_allclose(th.float().numpy(),
+                               np.asarray(jh).astype(np.float32),
+                               atol=1.6e-2, rtol=0)
+
+
+@pytest.mark.parametrize("T,D,dtype,aligned,want", [
+    (128, 64, torch.bfloat16, True, "wgmma"),
+    (512, 64, torch.float16, True, "wgmma"),
+    (384, 128, torch.bfloat16, True, "wgmma"),
+    (8192, 128, torch.float16, True, "wgmma"),
+    (192, 64, torch.bfloat16, True, "mma"),         # T % 128 == 64
+    (128, 64, torch.float32, True, "mma"),          # wgmma's fp32 is TF32
+    (128, 128, torch.float32, True, "mma"),
+    (256, 64, torch.bfloat16, False, "mma"),        # no tensor map
+    (128, 192, torch.float16, True, "mma"),         # not instantiated
+])
+def test_pick_variant_follows_dtype_shape_and_alignment(T, D, dtype,
+                                                        aligned, want):
+    assert tak.pick_variant(T, D, dtype, aligned) == want
+
+
+def test_forced_variant_refuses_unknown_names_and_restores(plain_calls):
+    """An unknown name raises before anything is forced; forcing nests and
+    restores; on CPU tensors a forced variant changes nothing (the plain
+    version runs, no launch is counted)."""
+    with pytest.raises(ValueError, match="variant"):
+        with tak.forced_variant("sdpa"):
+            pass
+    assert tak._forced_variant is None
+    before = dict(tak.masked_attention.launches_by_variant)
+    q = torch.zeros((1, 128, 2, 64))
+    seg = torch.ones((1, 128), dtype=torch.int32)
+    with tak.forced_variant("mma"):
+        assert tak._forced_variant == "mma"
+        with tak.forced_variant("wgmma"):
+            assert tak._forced_variant == "wgmma"
+            tak.masked_attention(q, q, q, seg, 0.125)
+        assert tak._forced_variant == "mma"
+    assert tak._forced_variant is None
+    assert plain_calls == [(1, 128, 2, 64)]
+    assert tak.masked_attention.launches_by_variant == before
+    assert tuple(before) == tak.VARIANTS
+

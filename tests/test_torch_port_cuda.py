@@ -309,8 +309,8 @@ def test_masked_attention_matches_plain(cuda, T, H, D, dtype):
 @pytest.mark.cuda
 def test_masked_attention_reads_strided_operands_and_checks_inputs(cuda):
     """q, k, v as strided views of one (B, T, 3, H, D) tensor (no copy)
-    give the contiguous operands' output; what the kernel does not take
-    raises."""
+    give the contiguous operands' output, on both variants; what the kernel
+    does not take raises (float64: no variant has it)."""
     from neighborhoodwatch_tpu_torch.ops import attention_kernel as tak
     rng = np.random.default_rng(3)
     qkv = torch.from_numpy(rng.standard_normal((5, 128, 3, 12, 64))
@@ -318,14 +318,16 @@ def test_masked_attention_reads_strided_operands_and_checks_inputs(cuda):
     q, k, v = qkv.unbind(2)
     assert not q.is_contiguous()
     seg = _attention_case(rng, 128, 12, 64, torch.bfloat16, cuda)[1]
-    got = tak.masked_attention(q, k, v, seg, 0.125)
-    want = tak.masked_attention(q.contiguous(), k.contiguous(),
-                                v.contiguous(), seg, 0.125)
-    assert torch.equal(got, want)
+    for variant in tak.VARIANTS:
+        with tak.forced_variant(variant):
+            got = tak.masked_attention(q, k, v, seg, 0.125)
+            want = tak.masked_attention(q.contiguous(), k.contiguous(),
+                                        v.contiguous(), seg, 0.125)
+        assert torch.equal(got, want)
     with pytest.raises(TypeError):
         tak.masked_attention(q, k.float(), v, seg, 0.125)
     with pytest.raises(TypeError):
-        tak.masked_attention(q.half(), k.half(), v.half(), seg, 0.125)
+        tak.masked_attention(q.double(), k.double(), v.double(), seg, 0.125)
     with pytest.raises(ValueError, match="head dim"):
         tak.masked_attention(q[..., :32], k[..., :32], v[..., :32], seg,
                              0.125)
@@ -389,3 +391,168 @@ def test_masked_attention_build_failure_raises(cuda, monkeypatch, tmp_path):
         with torch.no_grad():
             model(ids, torch.ones_like(ids))
     assert tak.masked_attention.launches == before
+
+
+# ------------------------------------------- masked attention, two variants
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["mma", "wgmma"])
+@pytest.mark.parametrize("T", [128, 256, 384, 512])
+@pytest.mark.parametrize("H,D", [(12, 64), (16, 64), (16, 128)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_masked_attention_variants_match_plain(cuda, variant, T, H, D,
+                                               dtype):
+    """Each variant against the plain version on every row
+    (outputs_agree: 2 ulps of the row's largest |o| in bf16 and fp16),
+    int32 and bool masks of valid lengths 1, 37, T-1, T and 0, and its
+    launches counted under its own name."""
+    from neighborhoodwatch_tpu_torch.ops import attention_kernel as tak
+    rng = np.random.default_rng(T + H + D + 7)
+    (q, k, v), seg = _attention_case(rng, T, H, D, dtype, cuda)
+    scale = 1.0 / D ** 0.5
+    plain = tak.masked_attention_plain(q, k, v, seg, scale)
+    assert tak.pick_variant(T, D, dtype, True) == "wgmma"
+    for mask in (seg, seg.bool()):
+        before = dict(tak.masked_attention.launches_by_variant)
+        with tak.forced_variant(variant):
+            got = tak.masked_attention(q, k, v, mask, scale)
+        torch.cuda.synchronize()
+        after = tak.masked_attention.launches_by_variant
+        assert {n: after[n] - before[n] for n in after} == {
+            n: int(n == variant) for n in after}
+        assert got.dtype == dtype and got.shape == q.shape
+        tak.outputs_agree(got, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["mma", "wgmma"])
+@pytest.mark.parametrize("seg_dtype", [torch.int32, torch.uint8])
+def test_masked_attention_segment_ids_beyond_31(cuda, variant, seg_dtype):
+    """Segment ids that share (id & 31) (1, 33, 65, 97, 129 and 7, 39):
+    the tile skip's set test is conservative for them, so tiles of other
+    segments are computed and masked, never skipped wrongly; runs of
+    several lengths, every row against the plain version."""
+    from neighborhoodwatch_tpu_torch.ops import attention_kernel as tak
+    rng = np.random.default_rng(31)
+    B, T, H, D = 4, 512, 4, 64
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, T, H, D))
+                                .astype(np.float32)).to(cuda, torch.bfloat16)
+               for _ in range(3))
+    ids = np.array([1, 33, 65, 97, 129, 7, 39, 0])
+    seg = np.zeros((B, T), np.int64)
+    for b in range(B):
+        cuts = np.sort(rng.choice(np.arange(1, T), size=5, replace=False))
+        for i, run in enumerate(np.split(np.arange(T), cuts)):
+            seg[b, run] = ids[(i + b) % len(ids)]
+    seg = torch.from_numpy(seg).to(cuda, seg_dtype)
+    plain = tak.masked_attention_plain(q, k, v, seg.int(), 0.125)
+    with tak.forced_variant(variant):
+        got = tak.masked_attention(q, k, v, seg, 0.125)
+    torch.cuda.synchronize()
+    tak.outputs_agree(got, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,T", [
+    (3, 12, 384),      # 108 items: fewer than the SMs
+    (7, 16, 512),      # 448 items, 4 query tiles a head: a grid of 131
+                       # blocks (prime to 4)
+    (133, 1, 128),     # 133 items: one block takes two
+    (1, 5, 1024),      # 40 items of 8 key tiles
+])
+def test_masked_attention_wgmma_persistent_grid(cuda, B, H, T):
+    """The persistent "wgmma" grid walks B*H*(T/128) items in a static
+    stride: item counts that are not a multiple of the grid, fewer items
+    than SMs, long rows; ragged masks, every row against the plain
+    version, one launch."""
+    from neighborhoodwatch_tpu_torch.ops import attention_kernel as tak
+    rng = np.random.default_rng(B * H + T)
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, T, H, 64))
+                                .astype(np.float32)).to(cuda, torch.float16)
+               for _ in range(3))
+    n = torch.from_numpy(rng.integers(1, T + 1, B)).to(cuda)
+    seg = (torch.arange(T, device=cuda)[None] < n[:, None]).int()
+    before = tak.masked_attention.launches_by_variant["wgmma"]
+    got = tak.masked_attention(q, k, v, seg, 0.125)
+    torch.cuda.synchronize()
+    assert tak.masked_attention.launches_by_variant["wgmma"] == before + 1
+    tak.outputs_agree(got, tak.masked_attention_plain(q, k, v, seg, 0.125))
+
+
+@pytest.mark.cuda
+def test_flash_fp16_encoder_launches_wgmma_per_layer(cuda):
+    """A float16 flash encoder runs on the card (the gate's repair): one
+    "wgmma" launch per layer at T=128 and 256 and none at T=64; the pooled
+    embedding against the CPU's within 2e-3 (fp16 activations, the kernel
+    and the plain version rounding p at other places)."""
+    from neighborhoodwatch_tpu_torch.models import bert as tbert
+    from neighborhoodwatch_tpu_torch.ops import attention_kernel as tak
+    cfg = tbert.BertConfig(hidden_size=256, num_layers=3, num_heads=4,
+                           intermediate_size=512, dtype="float16",
+                           attention_impl="flash")
+    model = tbert.BertEncoder(cfg)
+    tbert.init_params(model, seed=5)
+    rng = np.random.default_rng(5)
+    for T, launches in ((128, 3), (256, 3), (64, 0)):
+        mask = np.zeros((6, T), np.int32)
+        for i, n in enumerate((1, 20, T - 1, T, T // 2, T // 3)):
+            mask[i, :n] = 1
+        ids = torch.from_numpy(rng.integers(999, 30522, (6, T)) * mask)
+        mask = torch.from_numpy(mask)
+        out = {}
+        for dev in ("cpu", cuda):
+            model.to(dev)
+            before = dict(tak.masked_attention.launches_by_variant)
+            with torch.no_grad():
+                h = model(ids.to(dev), mask.to(dev))
+                out[str(dev)] = tbert.mean_pool_normalize(
+                    h, mask.to(dev)).float()
+            torch.cuda.synchronize()
+            after = tak.masked_attention.launches_by_variant
+            want = launches if str(dev) != "cpu" else 0
+            assert after["wgmma"] == before["wgmma"] + want
+            assert after["mma"] == before["mma"]
+        torch.testing.assert_close(out["cuda"].cpu(), out["cpu"], atol=2e-3,
+                                   rtol=0)
+
+
+@pytest.mark.cuda
+def test_nothing_the_gate_admits_raises_in_the_kernel(cuda):
+    """For head dims 32..256 x the config dtypes x sequences 64..1024:
+    wherever the port's gate admits a shape on the card, the wrapper
+    launches and agrees with the plain version; a head-dim-192 flash
+    encoder on the card takes the written-out attention (no launch)."""
+    from neighborhoodwatch_tpu_torch.models import bert as tbert
+    from neighborhoodwatch_tpu_torch.ops import attention_kernel as tak
+    rng = np.random.default_rng(8)
+    admitted = 0
+    for head_dim in (32, 64, 96, 128, 192, 256):
+        for dtype in ("bfloat16", "float16", "float32"):
+            cfg = tbert.BertConfig(hidden_size=2 * head_dim, num_heads=2,
+                                   dtype=dtype, attention_impl="flash")
+            for T in (64, 128, 384, 1024):
+                if not tak.use_flash(cfg, T, cuda):
+                    continue
+                admitted += 1
+                q, k, v = (torch.from_numpy(
+                    rng.standard_normal((2, T, 2, head_dim))
+                    .astype(np.float32)).to(cuda, getattr(torch, dtype))
+                    for _ in range(3))
+                seg = (torch.arange(T, device=cuda)[None]
+                       < torch.tensor([[T], [T // 3]], device=cuda)).int()
+                got = tak.masked_attention(q, k, v, seg, head_dim ** -0.5)
+                torch.cuda.synchronize()
+                tak.outputs_agree(got, tak.masked_attention_plain(
+                    q, k, v, seg, head_dim ** -0.5))
+    assert admitted == 2 * 3 * 3          # head dims 64, 128 x 3 x 3
+    model = tbert.BertEncoder(tbert.BertConfig(
+        hidden_size=384, num_layers=2, num_heads=2, intermediate_size=256,
+        attention_impl="flash")).to(cuda)
+    before = tak.masked_attention.launches
+    ids = torch.ones((2, 128), dtype=torch.long, device=cuda)
+    with torch.no_grad():
+        h = model(ids, torch.ones_like(ids))
+    torch.cuda.synchronize()
+    assert tak.masked_attention.launches == before
+    assert bool(torch.isfinite(h).all())
+
