@@ -79,7 +79,24 @@ Phases, each printing its own lines and seconds:
      events around 10 calls back to back, in turns, beside the bound, the
      plain version, the written-out attention and torch's
      scaled_dot_product_attention with the segment mask (a yardstick the
-     port never calls).
+     port never calls);
+ 11. mesh (parallel/, torch.distributed): (a) at world size 1 over NCCL,
+     ShardedStreamingKNN over phase 3's data in 4 batches of 250,000 rows
+     and sharded_knn (both must launch the "wgmma" screen kernel), ring_knn
+     on 1,000 of its queries, each against phase 3's knn() result
+     (tie-tolerant) with its seconds beside phase 3's; (b)
+     compute_knn_ds(mesh) over phase 4's parquet (export, validate_files_v0,
+     the ivec against phase 4's) and nw_main --mesh 1 over a copy of phase
+     8's embeddings (the ivec against phase 8's); (c)
+     ShardedStreamingMaxSim over phase 6's 200,000 x 16 corpus in 8192-doc
+     tiles against phase 6's StreamingMaxSim, and compute_maxsim_knn(mesh)
+     over phase 7's parquet against phase 7's export; (d) two ranks of this
+     script on the one card over gloo (`--mesh-rank`, a deadline, a failed
+     rank fails the run): sharded_knn and ShardedStreamingKNN at 10,000 x
+     200,000 x 1536 and ShardedStreamingMaxSim over 2 tiles of 2 x 8192
+     docs, each against the world-size-1 result on the same seeded inputs;
+     their seconds are no speed figures. The launches of every mesh path,
+     counted from 0, go into the kernels line as `mesh_launches`.
 The line before the last is one JSON object with the kernels' numbers;
 the last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 without that line; without a CUDA card it exits 2.
@@ -317,19 +334,33 @@ def phase_kernel_vs_plain():
     return worst
 
 
+def unit_rows(n, D, gen, chunk=100_000):
+    """(n, D) unit-norm Gaussian rows from `gen`, on the card."""
+    import torch
+    out = torch.empty(n, D, device="cuda")
+    for s in range(0, n, chunk):
+        x = torch.randn(min(chunk, n - s), D, device="cuda", generator=gen)
+        out[s:s + len(x)] = x / x.norm(dim=1, keepdim=True)
+        del x
+    return out
+
+
+def engine_data(Q=10_000, B=1_000_000, D=1536, seed=2):
+    """Phase 3's queries and base, made anew from the same seed."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(Q, D, device="cuda", generator=g)
+    q /= q.norm(dim=1, keepdim=True)
+    return q, unit_rows(B, D, g)
+
+
 def phase_engine(rec):
+    """Returns phase 3's knn(auto) result and its seconds for phase 11."""
     import torch
     from neighborhoodwatch_tpu_torch.ops import knn as K
     from neighborhoodwatch_tpu_torch.ops import screen_kernel as sk
     Q, B, D, k = 10_000, 1_000_000, 1536, 100
-    g = torch.Generator(device="cuda").manual_seed(2)
-    q = torch.randn(Q, D, device="cuda", generator=g)
-    q /= q.norm(dim=1, keepdim=True)
-    base = torch.empty(B, D, device="cuda")
-    for s in range(0, B, 100_000):
-        x = torch.randn(min(100_000, B - s), D, device="cuda", generator=g)
-        base[s:s + len(x)] = x / x.norm(dim=1, keepdim=True)
-        del x
+    q, base = engine_data(Q, B, D)
     engine = K._select_engine("auto", B, q.device)
     if engine != "screened":
         raise AssertionError(f"auto picked {engine!r}, not 'screened'")
@@ -527,8 +558,11 @@ def phase_engine(rec):
                bound_by="operations" if flops / PEAK_BF16_FLOPS
                >= bytes_ / PEAK_BYTES else "bytes", library_ms=library_ms)
     log(f"  bound (1 pass): {bound_ms:.1f} ms ({rec['bound_by']})")
+    result = {"d": d_s.cpu(), "i": i_s.cpu(), "first_s": first_s,
+              "median_ms": screened_ms}
     del q, base, prep, d_s, i_s, d_e, i_e
     torch.cuda.empty_cache()
+    return result
 
 
 def phase_pipeline(rec, workdir):
@@ -628,6 +662,9 @@ def phase_pipeline(rec, workdir):
     rec["pipeline_launches"] = launches
     rec["pipeline_launches_by_variant"] = by_variant
     rec["pipeline_kernel_ms"] = launch_ms
+    return {"data_dir": data_dir, "qfile": qfile, "bfile": bfile,
+            "files": files, "shape": (Q, B, D, k),
+            "stages": dict(timer.stages)}
 
 
 def unit_tokens(n, t, dim, gen, chunk=20_000):
@@ -882,7 +919,8 @@ def phase_maxsim_engine(rec):
                                                for p in mm_ms},
             "call_ms": call_ms}
         if label == "200k x 16":
-            stream = stream_maxsim(q, qm, d, dm, k, s_s, i_s)
+            stream, stream_result = stream_maxsim(q, qm, d, dm, k, s_s,
+                                                  i_s)
         del d, dm, s_s, i_s, s_e, i_e
         torch.cuda.empty_cache()
 
@@ -898,12 +936,14 @@ def phase_maxsim_engine(rec):
     # phase 7
     rec.update(stream)
     rec["shapes"] = shapes
+    return stream_result
 
 
 def stream_maxsim(q, qm, d, dm, k, s_one, i_one):
     """StreamingMaxSim("auto") over `d` in 8192-doc tiles; returns its
     kernel launches and the share of (query, screened tile) pairs that the
-    exact engine recomputed after a failed certificate."""
+    exact engine recomputed after a failed certificate, and the stream's
+    result and seconds (for phase 11)."""
     import torch
     from neighborhoodwatch_tpu_torch.ops import maxsim as M
     from neighborhoodwatch_tpu_torch.ops import maxsim_kernel as mk
@@ -943,6 +983,8 @@ def stream_maxsim(q, qm, d, dm, k, s_one, i_one):
                              "dim 128")
     check_against_exact(acc.state[0], acc.state[1], s_one, i_one, k,
                         "[stream] streamed vs one-shot")
+    result = {"s": acc.state[0].cpu(), "i": acc.state[1].cpu(),
+              "seconds": wall}
     # where one streamed tile's time goes (3-pass tier with diagnostics,
     # as the adaptive stream runs it), stages run one by one
     tq, tm = d[:tile], dm[:tile]
@@ -962,7 +1004,7 @@ def stream_maxsim(q, qm, d, dm, k, s_one, i_one):
         f"certificate failed); update() adds "
         f"{merge_ms:.1f} ms (running top-k merge)")
     return {"stream_launches": launches,
-            "stream_exact_fallback_share": share}
+            "stream_exact_fallback_share": share}, result
 
 
 def phase_ck(rec, workdir):
@@ -1063,6 +1105,11 @@ def phase_ck(rec, workdir):
     rec["launches_by_variant"] = by_variant
     rec["ck_exact_fallback_share"] = share
     rec["ck_shape"] = ck_kernel_vs_plain(dev_t[0], dev_t[1], lists[1])
+    return {"data_dir": data_dir, "files": files, "seconds": wall,
+            "qfile": f"{data_dir}/{model}_128_query_token{q_tok}_docs_src"
+                     f".parquet",
+            "bfile": f"{data_dir}/{model}_128_base_token{b_tok}_docs_src"
+                     f".parquet"}
 
 
 def ck_kernel_vs_plain(q, qm, base_docs):
@@ -1715,6 +1762,412 @@ def phase_attention(rec):
     attention_timings(rec, batches)
 
 
+# ------------------------------------------------------------ phase 11
+
+# (d): the two gloo ranks on the one card, run as this script with
+# MESH_RANK_FLAG; 100,000 base rows a rank (>= 2 mega-tiles: the screen
+# kernel launches on each rank), and MaxSim tiles of 2 x 8192 docs
+MESH_RANK_FLAG = "--mesh-rank"
+TWO_RANK_KNN = (10_000, 200_000, 1536, 100)         # Q, B, D, k
+TWO_RANK_MAXSIM = (1000, 32, 4 * 8192, 16, 128, 100)  # Q, Tq, docs, Td, dim, k
+TWO_RANK_TILE = 2 * 8192
+TWO_RANK_TIMEOUT_S = 420
+
+
+def knn_agree(d_a, i_a, d_b, i_b, what, tol=1e-5):
+    """Two (Q, k) kNN results, tie-tolerant: every distance within `tol` of
+    the reference's at its position, ids different only where the two
+    distances tie within `tol`."""
+    def host(x):
+        return x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
+    d_a, d_b = host(d_a).astype(np.float64), host(d_b).astype(np.float64)
+    moved = host(i_a) != host(i_b)
+    dd = np.abs(d_a - d_b)
+    log(f"  {what}: identical positions {1 - float(moved.mean()):.5f}, "
+        f"max |d - d_ref| {float(dd.max()):.3g}")
+    if d_a.shape != d_b.shape or float(dd.max()) > tol:
+        raise AssertionError(f"{what}: distances differ from the reference")
+
+
+def maxsim_agree(s_a, i_a, s_b, i_b, k, what):
+    """check_against_exact on host or card arrays."""
+    import torch
+    s_a, i_a, s_b, i_b = (torch.as_tensor(np.asarray(x.cpu()) if
+                                          hasattr(x, "cpu") else x)
+                          for x in (s_a, i_a, s_b, i_b))
+    check_against_exact(s_a, i_a, s_b, i_b, k, what)
+
+
+def counted_run(launches, name, wrapper, fn):
+    """`fn()` with `wrapper`'s launch counts set to 0 just before and read
+    just after into launches[name] (by variant); returns (result,
+    seconds)."""
+    import torch
+    reset_counts(wrapper)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    launches[name] = dict(wrapper.launches_by_variant)
+    return out, time.perf_counter() - t
+
+
+def require_wgmma(launches, name):
+    by = launches[name]
+    if by["wgmma"] < 1 or by["mma"]:
+        raise AssertionError(f"{name} launched {by}: the mesh path must "
+                             f"launch the 'wgmma' kernel")
+
+
+def maxsim_corpus():
+    """Phase 6's first corpus, made anew from its seed: 1,000 query
+    passages x 32 tokens and 200,000 docs x 16 tokens at 128 dims."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    q = unit_tokens(1000, 32, 128, gen)
+    d = unit_tokens(200_000, 16, 128, gen)
+    return (q, torch.ones(q.shape[:2], dtype=torch.bool, device="cuda"), d,
+            torch.ones(d.shape[:2], dtype=torch.bool, device="cuda"))
+
+
+def two_rank_data():
+    """(d)'s inputs, the same on every process: unit rows and tokens."""
+    import torch
+    Q, B, D, _ = TWO_RANK_KNN
+    g = torch.Generator(device="cuda").manual_seed(11)
+    q = unit_rows(Q, D, g)
+    base = unit_rows(B, D, g)
+    mq_n, tq, n_docs, td, dim, _ = TWO_RANK_MAXSIM
+    gm = torch.Generator(device="cuda").manual_seed(12)
+    mq = unit_tokens(mq_n, tq, dim, gm)
+    md = unit_tokens(n_docs, td, dim, gm)
+    return q, base, mq, md
+
+
+def two_rank_paths(mesh, launches):
+    """The three mesh paths of (d) on `mesh`: {name: (result, seconds)}."""
+    import torch
+    from neighborhoodwatch_tpu_torch.ops import maxsim_kernel as mk
+    from neighborhoodwatch_tpu_torch.ops import screen_kernel as sk
+    from neighborhoodwatch_tpu_torch.parallel import sharded_knn as SK
+    from neighborhoodwatch_tpu_torch.parallel import sharded_maxsim as SM
+    q, base, mq, md = two_rank_data()
+    k = TWO_RANK_KNN[3]
+    out = {}
+    out["sharded_knn"] = counted_run(
+        launches, "sharded_knn", sk.screen_keys,
+        lambda: [x.cpu().numpy() for x in SK.sharded_knn(q, base, k, mesh)])
+
+    def stream_knn():
+        acc = SK.ShardedStreamingKNN(q, k, mesh)
+        acc.update(base, 0)
+        return acc.finalize()
+    out["sharded_streaming_knn"] = counted_run(
+        launches, "sharded_streaming_knn", sk.screen_keys, stream_knn)
+    mqm = torch.ones(mq.shape[:2], dtype=torch.bool, device=mq.device)
+    mdm = torch.ones(md.shape[:2], dtype=torch.bool, device=md.device)
+
+    def stream_maxsim_():
+        acc = SM.ShardedStreamingMaxSim(mq, mqm, TWO_RANK_MAXSIM[5], mesh)
+        for s in range(0, md.shape[0], TWO_RANK_TILE):
+            acc.update(md[s:s + TWO_RANK_TILE], mdm[s:s + TWO_RANK_TILE])
+        return acc.finalize()
+    out["sharded_streaming_maxsim"] = counted_run(
+        launches, "sharded_streaming_maxsim", mk.maxsim_keys, stream_maxsim_)
+    del q, base, mq, md
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_rank_main(argv):
+    """One rank of (d): `chip_smoke.py --mesh-rank RANK WORLD PORT OUT`.
+    Joins a gloo group on cuda:0, runs the three mesh paths and writes its
+    results, launches and seconds to OUT/rank<RANK>.npz."""
+    from datetime import timedelta
+    import torch
+    from neighborhoodwatch_tpu_torch import resolve_device
+    from neighborhoodwatch_tpu_torch.parallel.mesh import (
+        init_distributed, make_mesh,
+    )
+    rank, world, port, out = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    resolve_device()
+    init_distributed(coordinator=f"localhost:{port}", num_processes=world,
+                     process_id=rank, device="cuda:0", backend="gloo",
+                     timeout=timedelta(seconds=180))
+    mesh = make_mesh(world, device="cuda:0")
+    assert mesh.backend == "gloo" and mesh.stage
+    launches = {}
+    res = two_rank_paths(mesh, launches)
+    arrays = {f"{name}.{j}": np.asarray(r[j]) for name, (r, _) in res.items()
+              for j in (0, 1)}
+    np.savez(os.path.join(out, f"rank{rank}.npz"), **arrays,
+             launches=json.dumps(launches),
+             seconds=json.dumps({n: sec for n, (_, sec) in res.items()}))
+    torch.distributed.destroy_process_group()
+
+
+def two_rank_run(workdir, reference, rec, mrec):
+    """(d): two ranks of this script on the one card over gloo; each must
+    equal the world-size-1 `reference`. A failed rank fails the run, and a
+    rank still running at the deadline is killed."""
+    import socket
+    out = os.path.join(workdir, "two_rank")
+    os.makedirs(out)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    log(f"  (d) two gloo ranks on cuda:0 (compute mode "
+        f"{smi.stdout.strip() or 'unknown'})")
+    t = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), MESH_RANK_FLAG, str(r),
+         "2", str(port), out], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    deadline = time.monotonic() + TWO_RANK_TIMEOUT_S
+    texts = []
+    try:
+        for p in procs:
+            texts.append(p.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, text) in enumerate(zip(procs, texts)):
+        if p.returncode != 0:
+            raise AssertionError(f"rank {r} of the two-rank run exited "
+                                 f"{p.returncode}:\n{text[-3000:]}")
+    wall = time.perf_counter() - t
+    per_rank = []
+    for r in range(2):
+        with np.load(os.path.join(out, f"rank{r}.npz")) as z:
+            got = {key: z[key] for key in z.files}
+        launches = json.loads(str(got["launches"]))
+        seconds = json.loads(str(got["seconds"]))
+        per_rank.append(launches)
+        for name in ("sharded_knn", "sharded_streaming_knn",
+                     "sharded_streaming_maxsim"):
+            require_wgmma(launches, name)
+            ref = reference[name][0]
+            a, b = got[f"{name}.0"], got[f"{name}.1"]
+            what = (f"(d) rank {r} {name} vs world size 1 (gloo, correctness "
+                    f"only: {seconds[name]:.2f} s is not a speed figure)")
+            if name.endswith("maxsim"):
+                maxsim_agree(a, b, ref[0], ref[1], TWO_RANK_MAXSIM[5], what)
+            else:
+                knn_agree(a, b, ref[0], ref[1], what)
+    rec["mesh_launches"]["two_rank_gloo"] = [
+        {n: v for n, v in rank.items() if n != "sharded_streaming_maxsim"}
+        for rank in per_rank]
+    mrec["mesh_launches"]["two_rank_gloo"] = [
+        rank["sharded_streaming_maxsim"] for rank in per_rank]
+    log(f"  (d) two ranks: {wall:.1f} s wall, processes started included "
+        f"(correctness run; multi-rank speed is not measurable on one "
+        f"card); launches per rank {per_rank}")
+    return wall
+
+
+def mesh_knn(rec, ref, mesh, secs):
+    """(a): the kNN mesh paths at world size 1 over phase 3's data."""
+    import torch
+    from neighborhoodwatch_tpu_torch.ops import screen_kernel as sk
+    from neighborhoodwatch_tpu_torch.parallel import sharded_knn as SK
+    k = 100
+    q, base = engine_data()
+    step = base.shape[0] // 4
+    launches = rec["mesh_launches"]
+
+    def stream():
+        acc = SK.ShardedStreamingKNN(q, k, mesh)
+        for s in range(0, base.shape[0], step):
+            acc.update(base[s:s + step], s)
+        return acc.finalize()
+    with counted_repairs() as diags:
+        (d, i), secs["sharded_streaming_knn"] = counted_run(
+            launches, "sharded_streaming_knn", sk.screen_keys, stream)
+    knn_agree(d, i, ref["d"], ref["i"],
+              f"(a) ShardedStreamingKNN, 4 batches of 250,000 (class-A, "
+              f"class-B, whole-batch repairs per fold {diags}), vs phase 3's "
+              f"knn()")
+    (d, i), secs["sharded_knn"] = counted_run(
+        launches, "sharded_knn", sk.screen_keys,
+        lambda: SK.sharded_knn(q, base, k, mesh))
+    knn_agree(d, i, ref["d"], ref["i"], "(a) sharded_knn vs phase 3's knn()")
+    (d, i), secs["ring_knn"] = counted_run(
+        launches, "ring_knn", sk.screen_keys,
+        lambda: SK.ring_knn(q[:1000], base, k, mesh))
+    knn_agree(d, i, ref["d"][:1000], ref["i"][:1000],
+              "(a) ring_knn on 1,000 queries vs phase 3's knn()")
+    require_wgmma(launches, "sharded_streaming_knn")
+    require_wgmma(launches, "sharded_knn")
+    log(f"  (a) seconds at 10,000 x 1,000,000 x 1536, k=100 (one call each, "
+        f"synchronized): ShardedStreamingKNN {secs['sharded_streaming_knn']:.3f}"
+        f", sharded_knn {secs['sharded_knn']:.3f}, ring_knn (1,000 queries, "
+        f"exact engine) {secs['ring_knn']:.3f}; phase 3's knn(): first call "
+        f"{ref['first_s']:.3f}, median of 3 {ref['median_ms'] / 1e3:.3f}; "
+        f"launches {dict((n, launches[n]) for n in ('sharded_streaming_knn', 'sharded_knn', 'ring_knn'))}")
+    del q, base, d, i
+    torch.cuda.empty_cache()
+
+
+def mesh_pipelines(rec, kept, mesh, secs):
+    """(b): compute_knn_ds(mesh) over phase 4's parquet, then nw_main
+    --mesh 1 over a copy of phase 8's embeddings."""
+    from neighborhoodwatch_tpu_torch.cli import nw_main
+    from neighborhoodwatch_tpu_torch.core.pipeline import compute_knn_ds
+    from neighborhoodwatch_tpu_torch.io import fvec
+    from neighborhoodwatch_tpu_torch.io.export import generate_output_files
+    from neighborhoodwatch_tpu_torch.ops import screen_kernel as sk
+    from neighborhoodwatch_tpu_torch.utils import naming
+    from neighborhoodwatch_tpu_torch.validate import validate_files_v0
+    launches = rec["mesh_launches"]
+    p4 = kept["pipeline"]
+    Q, B, D, k = p4["shape"]
+    files = p4["files"]
+    idx4, dist4 = fvec.read_vectors(files[2]), fvec.read_vectors(files[3])
+    for f in files[2:]:                # written again from the mesh run
+        os.remove(f)
+    _, secs["compute_knn_ds"] = counted_run(
+        launches, "compute_knn_ds", sk.screen_keys,
+        lambda: compute_knn_ds(p4["data_dir"], D, p4["qfile"], Q,
+                               p4["bfile"], B, k=k,
+                               initial_batch_size=100_000, mesh=mesh))
+    model = "text-embedding-ada-002"
+    files = generate_output_files(
+        p4["data_dir"], model, D, p4["bfile"], p4["qfile"], B, Q,
+        naming.get_partial_indices_filename(p4["data_dir"], -1),
+        naming.get_partial_distances_filename(p4["data_dir"], -1), k,
+        output_hdf5=False)
+    mismatches = validate_files_v0(p4["data_dir"], *files)
+    knn_agree(fvec.read_vectors(files[3]), fvec.read_vectors(files[2]),
+              dist4, idx4, f"(b) compute_knn_ds(mesh) ivec vs phase 4's "
+              f"(validate_files_v0 mismatches {mismatches})")
+    if mismatches:
+        raise AssertionError(f"validate_files_v0 found {mismatches}")
+    require_wgmma(launches, "compute_knn_ds")
+
+    # nw_main --mesh 1 over a copy of phase 8's embeddings parquet
+    nw = kept["nw"]
+    Q, B, k, model, D = nw["Q"], nw["B"], nw["k"], nw["model"], nw["D"]
+    root = os.path.join(nw["workdir"], "mesh")
+    src = naming.get_model_data_homedir(nw["workdir"], model + "_synthetic",
+                                        Q, B, k)
+    dst = naming.setup_model_output_folder(root, model + "_synthetic", Q, B,
+                                           k)
+    for name in (naming.get_source_query_dataset_filename(src, model, Q, D),
+                 naming.get_source_base_dataset_filename(src, model, B, D)):
+        shutil.copy2(name, os.path.join(dst, os.path.basename(name)))
+    argv = [str(Q), str(B), "-k", str(k), "-m", model, "--synthetic",
+            "--yes", "--no-gen-hdf5", "--data-dir", root, "--mesh", "1"]
+    _, secs["nw"] = counted_run(launches, "nw", sk.screen_keys,
+                                lambda: nw_main(argv))
+    files8 = nw["files"]
+    files = naming.get_ivec_fvec_filenames(
+        dst, naming.get_model_prefix(model), D, B, Q, k)
+    mismatches = validate_files_v0(dst, *files)
+    knn_agree(fvec.read_vectors(files[3]), fvec.read_vectors(files[2]),
+              fvec.read_vectors(files8[3]), fvec.read_vectors(files8[2]),
+              f"(b) nw --mesh 1 ivec vs phase 8's (validate_files_v0 "
+              f"mismatches {mismatches})")
+    if mismatches:
+        raise AssertionError(f"validate_files_v0 found {mismatches}")
+    require_wgmma(launches, "nw")
+    log(f"  (b) seconds: compute_knn_ds(mesh) {secs['compute_knn_ds']:.2f} "
+        f"(phase 4's compute_knn_ds {p4['stages']}), nw --mesh 1 "
+        f"(generation skipped) {secs['nw']:.2f}; launches "
+        f"{dict((n, launches[n]) for n in ('compute_knn_ds', 'nw'))}")
+
+
+def mesh_maxsim(mrec, kept, mesh, secs):
+    """(c): ShardedStreamingMaxSim over phase 6's corpus, then
+    compute_maxsim_knn(mesh) over phase 7's parquet."""
+    import pyarrow.parquet as pq
+    import torch
+    from neighborhoodwatch_tpu_torch.core.colbert_pipeline import (
+        compute_maxsim_knn,
+    )
+    from neighborhoodwatch_tpu_torch.io import fvec
+    from neighborhoodwatch_tpu_torch.ops import maxsim_kernel as mk
+    from neighborhoodwatch_tpu_torch.parallel import sharded_maxsim as SM
+    from neighborhoodwatch_tpu_torch.utils import naming
+    launches = mrec["mesh_launches"]
+    k = 100
+    q, qm, d, dm = maxsim_corpus()
+    tile = mk.MEGA_DOCS
+
+    def stream():
+        acc = SM.ShardedStreamingMaxSim(q, qm, k, mesh)
+        for s in range(0, d.shape[0], tile):
+            acc.update(d[s:s + tile], dm[s:s + tile])
+        return acc.finalize() + (acc.escalated_tiles, acc.repaired_rows)
+    (s_, i_, escalated, repaired), secs["sharded_streaming_maxsim"] = \
+        counted_run(launches, "sharded_streaming_maxsim", mk.maxsim_keys,
+                    stream)
+    ref = kept["maxsim_stream"]
+    maxsim_agree(s_, i_, ref["s"], ref["i"], k,
+                 f"(c) ShardedStreamingMaxSim, {-(-d.shape[0] // tile)} "
+                 f"tiles of {tile} docs, vs phase 6's StreamingMaxSim")
+    require_wgmma(launches, "sharded_streaming_maxsim")
+    del q, qm, d, dm
+    torch.cuda.empty_cache()
+
+    p7 = kept["ck"]
+    files = p7["files"]
+    idx7, dist7 = fvec.read_vectors(files[2]), fvec.read_vectors(files[3])
+    _, secs["compute_maxsim_knn"] = counted_run(
+        launches, "compute_maxsim_knn", mk.maxsim_keys,
+        lambda: compute_maxsim_knn(p7["data_dir"], p7["qfile"], p7["bfile"],
+                                   k=k, mesh=mesh))
+    idx = pq.read_table(naming.get_partial_indices_filename(
+        p7["data_dir"], -1)).to_pandas().values
+    dist = pq.read_table(naming.get_partial_distances_filename(
+        p7["data_dir"], -1)).to_pandas().values
+    maxsim_agree(-dist, idx, -dist7, idx7, k,
+                 "(c) compute_maxsim_knn(mesh) vs phase 7's exported "
+                 "neighbours")
+    require_wgmma(launches, "compute_maxsim_knn")
+    log(f"  (c) seconds: ShardedStreamingMaxSim "
+        f"{secs['sharded_streaming_maxsim']:.2f} (phase 6's StreamingMaxSim "
+        f"{ref['seconds']:.2f}; {escalated} tiles escalated, {repaired} "
+        f"query rows repaired exactly), compute_maxsim_knn(mesh) "
+        f"{secs['compute_maxsim_knn']:.2f} (phase 7's whole ck run "
+        f"{p7['seconds']:.1f}); launches {launches}")
+
+
+def phase_mesh(rec, mrec, kept, workdir):
+    """Phase 11: the scale-out layer (parallel/) at world size 1 over NCCL
+    through (a)-(c), then (d) two gloo ranks on the card. Returns the
+    seconds of each path."""
+    import torch
+    import torch.distributed as dist
+    from neighborhoodwatch_tpu_torch.parallel.mesh import make_mesh
+    rec["mesh_launches"], mrec["mesh_launches"] = {}, {}
+    secs = {}
+    mesh = make_mesh(1)
+    try:
+        if mesh.backend != "nccl" or mesh.stage:
+            raise AssertionError(f"world size 1 on the card took "
+                                 f"{mesh.backend}, staging {mesh.stage}")
+        log(f"  world size 1: {mesh.backend} on {mesh.device}, mesh "
+            f"{mesh.shape}")
+        mesh_knn(rec, kept["engine"], mesh, secs)
+        mesh_pipelines(rec, kept, mesh, secs)
+        mesh_maxsim(mrec, kept, mesh, secs)
+        # (d)'s world-size-1 reference, on the same seeded inputs
+        reference = two_rank_paths(mesh, {})
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    secs["two_rank_wall"] = two_rank_run(workdir, reference, rec, mrec)
+    rec["mesh_seconds"] = secs
+    return secs
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1730,61 +2183,68 @@ def main():
     rec = {"name": "screen_keys", "route": "cuda",
            "source": "neighborhoodwatch_tpu_torch/csrc/screen_keys.cu",
            "replaces": "neighborhoodwatch_tpu/ops/screen_kernel.py:474"}
+    # what phase 11 reads again: phase 3's result, the data directories of
+    # phases 4, 7 and 8 (kept until the end) and phase 6's stream
+    kept, workdirs = {}, []
 
-    t = time.perf_counter()
-    card = phase_setup()
-    log(f"phase 1 setup: {time.perf_counter() - t:.1f} s")
-    t = time.perf_counter()
-    worst = phase_kernel_vs_plain()
-    log(f"phase 2 kernel vs plain: ok (max |d| {worst:.3g}), "
-        f"{time.perf_counter() - t:.1f} s")
-    t = time.perf_counter()
-    phase_engine(rec)
-    log(f"phase 3 engine 10k x 1M x 1536: ok, "
-        f"{time.perf_counter() - t:.1f} s")
-    t = time.perf_counter()
-    workdir = tempfile.mkdtemp(prefix="nw_smoke_", dir=HERE)
-    try:
-        phase_pipeline(rec, workdir)
-    finally:
-        shutil.rmtree(workdir, ignore_errors=True)
-    log(f"phase 4 pipeline: ok, {time.perf_counter() - t:.1f} s")
-    mrec = {"name": "maxsim_keys", "route": "cuda",
-            "source": "neighborhoodwatch_tpu_torch/csrc/maxsim_keys.cu",
-            "replaces": "neighborhoodwatch_tpu/ops/maxsim_kernel.py:169"}
-    t = time.perf_counter()
-    worst = phase_maxsim_kernel_vs_plain()
-    log(f"phase 5 maxsim kernel vs plain: ok (max |score| {worst:.3g}), "
-        f"{time.perf_counter() - t:.1f} s")
-    t = time.perf_counter()
-    phase_maxsim_engine(mrec)
-    log(f"phase 6 maxsim engine 1k x 32 x 128 vs 200k x 16 and 50k x 64: "
-        f"ok, {time.perf_counter() - t:.1f} s")
-    t = time.perf_counter()
-    workdir = tempfile.mkdtemp(prefix="nw_smoke_", dir=HERE)
-    try:
-        phase_ck(mrec, workdir)
-    finally:
-        shutil.rmtree(workdir, ignore_errors=True)
-    log(f"phase 7 ck --maxsim: ok, {time.perf_counter() - t:.1f} s")
-    workdir = tempfile.mkdtemp(prefix="nw_smoke_", dir=HERE)
+    def workdir():
+        workdirs.append(tempfile.mkdtemp(prefix="nw_smoke_", dir=HERE))
+        return workdirs[-1]
+
     try:
         t = time.perf_counter()
-        files = phase_nw(rec, workdir)
+        card = phase_setup()
+        log(f"phase 1 setup: {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        worst = phase_kernel_vs_plain()
+        log(f"phase 2 kernel vs plain: ok (max |d| {worst:.3g}), "
+            f"{time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        kept["engine"] = phase_engine(rec)
+        log(f"phase 3 engine 10k x 1M x 1536: ok, "
+            f"{time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        kept["pipeline"] = phase_pipeline(rec, workdir())
+        log(f"phase 4 pipeline: ok, {time.perf_counter() - t:.1f} s")
+        mrec = {"name": "maxsim_keys", "route": "cuda",
+                "source": "neighborhoodwatch_tpu_torch/csrc/maxsim_keys.cu",
+                "replaces": "neighborhoodwatch_tpu/ops/maxsim_kernel.py:169"}
+        t = time.perf_counter()
+        worst = phase_maxsim_kernel_vs_plain()
+        log(f"phase 5 maxsim kernel vs plain: ok (max |score| {worst:.3g}), "
+            f"{time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        kept["maxsim_stream"] = phase_maxsim_engine(mrec)
+        log(f"phase 6 maxsim engine 1k x 32 x 128 vs 200k x 16 and 50k x "
+            f"64: ok, {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        kept["ck"] = phase_ck(mrec, workdir())
+        log(f"phase 7 ck --maxsim: ok, {time.perf_counter() - t:.1f} s")
+        nw_dir = workdir()
+        t = time.perf_counter()
+        files = phase_nw(rec, nw_dir)
         log(f"phase 8 nw e5-large-v2 1,000 x 100,000: ok, "
             f"{time.perf_counter() - t:.1f} s")
+        kept["nw"] = {"workdir": nw_dir, "files": files, "k": 100,
+                      "model": "intfloat/e5-large-v2",
+                      **{key: rec["nw_shape"][key] for key in "QBD"}}
         t = time.perf_counter()
-        phase_tools(rec, workdir, files)
+        phase_tools(rec, nw_dir, files)
         log(f"phase 9 nw-tools knn + recall: ok, "
             f"{time.perf_counter() - t:.1f} s")
+        arec = {"name": "masked_attention", "route": "cuda",
+                "source": "neighborhoodwatch_tpu_torch/csrc/"
+                          "masked_attention.cu",
+                "replaces": "neighborhoodwatch_tpu/models/bert_flax.py:110"}
+        t = time.perf_counter()
+        phase_attention(arec)
+        log(f"phase 10 attention: ok, {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        phase_mesh(rec, mrec, kept, workdir())
+        log(f"phase 11 mesh: ok, {time.perf_counter() - t:.1f} s")
     finally:
-        shutil.rmtree(workdir, ignore_errors=True)
-    arec = {"name": "masked_attention", "route": "cuda",
-            "source": "neighborhoodwatch_tpu_torch/csrc/masked_attention.cu",
-            "replaces": "neighborhoodwatch_tpu/models/bert_flax.py:110"}
-    t = time.perf_counter()
-    phase_attention(arec)
-    log(f"phase 10 attention: ok, {time.perf_counter() - t:.1f} s")
+        for w in workdirs:
+            shutil.rmtree(w, ignore_errors=True)
     assert "jax" not in sys.modules
     log(f"total {time.perf_counter() - t0:.1f} s on {card}")
     print(json.dumps({"kernels": [rec, mrec, arec]}))
@@ -1794,4 +2254,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == [MESH_RANK_FLAG]:
+        mesh_rank_main(sys.argv[2:])
+    else:
+        main()

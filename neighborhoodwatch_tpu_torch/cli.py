@@ -3,9 +3,18 @@
 Flag parity with the JAX package's `nw` and `ck` (and so with the
 reference neighborhoodwatch.py:42-61 and colbert_knn.py:155-172), plus
 `--device` (default "cuda": the run raises without a card unless
-`--device cpu` asks for the host). `--mesh N` with N > 0 exits: the
-multi-device path is not ported yet. `nw --trace-dir` records a
+`--device cpu` asks for the host). `nw --trace-dir` records a
 torch.profiler trace of the kNN stage (utils/profiling.device_trace).
+
+`--mesh N` shards the kNN (and `ck --maxsim`'s MaxSim) over N ranks, one
+process and one device each (parallel/mesh.py): start the command under
+`torchrun --nproc-per-node N -m neighborhoodwatch_tpu_torch.cli ...` (rank
+r takes cuda:r, or the CPU under `--device cpu` over gloo); `--mesh 1`
+without a launcher runs a single-rank group in process. N must equal the
+launcher's world size. Rank 0 alone generates the embedding parquets (the
+other ranks wait at a barrier, then find the files) and writes every
+artifact after the kNN stage; every rank joins the kNN. `nw --mesh`
+implies `--use-dataset-api`.
 """
 
 import argparse
@@ -13,7 +22,7 @@ import logging
 import os
 import sys
 import time
-from datetime import datetime
+from datetime import datetime, timedelta
 
 
 class KeepLineBreaksFormatter(argparse.RawTextHelpFormatter):
@@ -52,6 +61,44 @@ def _confirm(prompt: str) -> bool:
     return answer.strip().lower() in ("y", "yes")
 
 
+# hours a rank waits in a collective (the barrier behind rank 0's
+# embedding generation) before the group gives up
+MESH_TIMEOUT_HOURS = 24
+
+
+def _open_mesh(n: int, device):
+    """`--mesh N` -> (mesh or None, this rank's device, whether this call
+    made the process group and must close it). N larger than the world
+    size exits with the reason."""
+    import torch.distributed as dist
+    from neighborhoodwatch_tpu_torch.parallel.mesh import make_mesh
+    if not n:
+        return None, device, False
+    made = not dist.is_initialized()
+    try:
+        # rank 0 generates the embeddings while the others wait at a
+        # barrier: the group's timeout must outlast the generation
+        mesh = make_mesh(n, device=device,
+                         timeout=timedelta(hours=MESH_TIMEOUT_HOURS))
+    except ValueError as e:
+        print(f"--mesh {n}: {e}")
+        sys.exit(2)
+    return mesh, mesh.device, made
+
+
+def _mesh_label(mesh) -> str:
+    if mesh is None:
+        return "none (single device)"
+    return (f"dp={mesh.dp} x mp={mesh.mp}, rank {mesh.rank}, "
+            f"{mesh.backend}")
+
+
+def _close_mesh(made: bool) -> None:
+    import torch.distributed as dist
+    if made and dist.is_initialized():
+        dist.destroy_process_group()
+
+
 def _encoder_rate(generator, section_time):
     """Pipeline-level encoder throughput of one generation section
     (tokenize + encode + parquet write), from the generator's own token
@@ -65,20 +112,9 @@ def _encoder_rate(generator, section_time):
 
 def nw_main(argv=None):
     from neighborhoodwatch_tpu_torch import resolve_device
-    from neighborhoodwatch_tpu_torch.core.colbert_pipeline import MESH_NOT_PORTED
-    from neighborhoodwatch_tpu_torch.core.merge import merge_indices_and_distances
-    from neighborhoodwatch_tpu_torch.core.pipeline import compute_knn, compute_knn_ds
-    from neighborhoodwatch_tpu_torch.data import sources
-    from neighborhoodwatch_tpu_torch.io.export import generate_output_files
-    from neighborhoodwatch_tpu_torch.io.parquet_io import cleanup_partial_parquet
     from neighborhoodwatch_tpu_torch.models.registry import (
-        EmbeddingModelName, get_effective_embedding_size,
-        get_valid_model_names_string, is_valid_model_name,
-        local_weight_status,
+        get_valid_model_names_string,
     )
-    from neighborhoodwatch_tpu_torch.utils import naming
-    from neighborhoodwatch_tpu_torch.utils.profiling import device_trace
-    from neighborhoodwatch_tpu_torch.validate import validate_files_v0
 
     start_time = time.time()
     parser = argparse.ArgumentParser(
@@ -149,19 +185,41 @@ Some example commands:\n
                              "adaptive streaming escalation; every tier is "
                              "exact via the certificate + repair")
     parser.add_argument("--mesh", type=int, default=0, metavar="N",
-                        help="shard the kNN over an N-device mesh; not "
-                             "ported yet: any N > 0 exits. 0 = single device")
+                        help="shard the kNN over an N-device mesh (base "
+                             "batches split over N ranks, one process and "
+                             "one device each: run under torchrun "
+                             "--nproc-per-node N; 1 runs in process); "
+                             "implies --use-dataset-api; 0 = single device")
     parser.add_argument("--device", type=str, default=None,
                         help="torch device of the encoder and the engines "
                              "(default: cuda; raises without a card unless "
                              "'cpu' is asked for)")
     args = parser.parse_args(argv)
-
     if args.mesh:
-        print(f"--mesh {args.mesh}: {MESH_NOT_PORTED}")
-        sys.exit(2)
-    device = resolve_device(args.device)
+        args.use_dataset_api = True
+    mesh, device, made = _open_mesh(args.mesh, resolve_device(args.device))
+    try:
+        _nw(args, device, mesh, start_time)
+    finally:
+        _close_mesh(made)
 
+
+def _nw(args, device, mesh, start_time):
+    from neighborhoodwatch_tpu_torch.core.merge import merge_indices_and_distances
+    from neighborhoodwatch_tpu_torch.core.pipeline import compute_knn, compute_knn_ds
+    from neighborhoodwatch_tpu_torch.data import sources
+    from neighborhoodwatch_tpu_torch.io.export import generate_output_files
+    from neighborhoodwatch_tpu_torch.io.parquet_io import cleanup_partial_parquet
+    from neighborhoodwatch_tpu_torch.models.registry import (
+        EmbeddingModelName, get_effective_embedding_size,
+        get_valid_model_names_string, is_valid_model_name,
+        local_weight_status,
+    )
+    from neighborhoodwatch_tpu_torch.utils import naming
+    from neighborhoodwatch_tpu_torch.utils.profiling import device_trace
+    from neighborhoodwatch_tpu_torch.validate import validate_files_v0
+
+    rank0 = mesh is None or mesh.rank == 0
     assert is_valid_model_name(args.model_name), \
         f"unknown embedding model {args.model_name!r}; supported: {get_valid_model_names_string()}"
     if args.model_name == EmbeddingModelName.COLBERT_V2.value:
@@ -186,6 +244,7 @@ Some example commands:\n
   memory tuning:       {args.enable_memory_tuning}
   metric/precision:    {args.metric}/{args.precision}
   device:              {device}
+  mesh:                {_mesh_label(mesh)}
   model weights:       {local_weight_status(args.model_name)}""")
 
     model_prefix = naming.get_model_prefix(args.model_name)
@@ -203,25 +262,37 @@ Some example commands:\n
         output_dtype = args.output_dtype
         assert output_dtype in ["float", "int8", "uint8", "binary", "ubinary"]
 
-    _section("Generating query dataset")
-    section_time = time.time()
-    qsource = sources.load_query_source(
-        synthetic_rows=args.query_count * 3 if args.synthetic else None)
-    query_filename = sources.generate_query_dataset(
+    if rank0:
+        _section("Generating query dataset")
+        section_time = time.time()
+        qsource = sources.load_query_source(
+            synthetic_rows=args.query_count * 3 if args.synthetic else None)
+        sources.generate_query_dataset(
+            data_dir, args.model_name, args.query_count, output_dimension,
+            output_dtype, source=qsource, device=device)
+        _duration(section_time, start_time)
+
+        _section("Generating base dataset")
+        section_time = time.time()
+        bsource = sources.load_base_source(
+            synthetic_rows=args.base_count * 3 if args.synthetic else None)
+        sources.generate_base_dataset(
+            data_dir, args.model_name, naming.get_source_query_dataset_filename(
+                data_dir, args.model_name, args.query_count,
+                output_dimension, output_dtype),
+            args.base_count, output_dimension, output_dtype, source=bsource,
+            device=device)
+        _duration(section_time, start_time)
+
+        cleanup_partial_parquet(f"{data_dir}/partial")
+    if mesh is not None:
+        mesh.barrier()     # the other ranks read rank 0's parquet files
+    query_filename = naming.get_source_query_dataset_filename(
         data_dir, args.model_name, args.query_count, output_dimension,
-        output_dtype, source=qsource, device=device)
-    _duration(section_time, start_time)
-
-    _section("Generating base dataset")
-    section_time = time.time()
-    bsource = sources.load_base_source(
-        synthetic_rows=args.base_count * 3 if args.synthetic else None)
-    base_filename = sources.generate_base_dataset(
-        data_dir, args.model_name, query_filename, args.base_count,
-        output_dimension, output_dtype, source=bsource, device=device)
-    _duration(section_time, start_time)
-
-    cleanup_partial_parquet(f"{data_dir}/partial")
+        output_dtype)
+    base_filename = naming.get_source_base_dataset_filename(
+        data_dir, args.model_name, args.base_count, output_dimension,
+        output_dtype)
 
     _section("Computing knn")
     section_time = time.time()
@@ -232,7 +303,7 @@ Some example commands:\n
                                    args.base_count, args.enable_memory_tuning,
                                    args.k, metric=args.metric,
                                    precision=args.precision,
-                                   engine=args.engine,
+                                   mesh=mesh, engine=args.engine,
                                    screen_precision=args.screen_precision,
                                    device=device)
         else:
@@ -245,6 +316,8 @@ Some example commands:\n
                                 device=device)
     print(timer.report())
     _duration(section_time, start_time)
+    if not rank0:
+        return          # rank 0 writes every artifact from here on
 
     _section("Merging indices and distances")
     section_time = time.time()
@@ -275,23 +348,7 @@ Some example commands:\n
 
 
 def ck_main(argv=None):
-    from neighborhoodwatch_tpu_torch.core.colbert_pipeline import (
-        compute_maxsim_knn, print_dataset_info, process_knn_computation,
-        process_source_dataset,
-    )
-    from neighborhoodwatch_tpu_torch.core.merge import merge_indices_and_distances
-    from neighborhoodwatch_tpu_torch.data import sources
-    from neighborhoodwatch_tpu_torch.io.export import generate_output_files
-    from neighborhoodwatch_tpu_torch.io.parquet_io import (
-        ParquetStreamer, cleanup_partial_parquet,
-    )
-    from neighborhoodwatch_tpu_torch.core.colbert_pipeline import MESH_NOT_PORTED
-    from neighborhoodwatch_tpu_torch.models.colbert import ColbertEmbeddingGenerator
-    from neighborhoodwatch_tpu_torch.models.registry import (
-        EmbeddingModelName, colbert_weight_status,
-        get_effective_embedding_size,
-    )
-    from neighborhoodwatch_tpu_torch.utils import naming
+    from neighborhoodwatch_tpu_torch import resolve_device
 
     start_time = time.time()
     parser = argparse.ArgumentParser(
@@ -358,9 +415,11 @@ Some example commands:\n
                              "base passage ids and distances are negative "
                              "MaxSim scores")
     parser.add_argument("--mesh", type=int, default=0, metavar="N",
-                        help="shard the kNN/MaxSim over an N-device mesh; "
-                             "not ported yet: any N > 0 exits. "
-                             "0 = single device")
+                        help="shard the kNN/MaxSim over an N-device mesh "
+                             "(token batches / doc tiles split over N ranks, "
+                             "one process and one device each: run under "
+                             "torchrun --nproc-per-node N; 1 runs in "
+                             "process); 0 = single device")
     parser.add_argument("--device", type=str, default=None,
                         help="torch device of the encoder and the engines "
                              "(default: cuda; raises without a card unless "
@@ -382,12 +441,32 @@ Some example commands:\n
         # (ops.maxsim.MaxSimTierController)
         args.screen_precision = "auto"
 
-    if args.mesh:
-        print(f"--mesh {args.mesh}: {MESH_NOT_PORTED}")
-        sys.exit(2)
-    from neighborhoodwatch_tpu_torch import resolve_device
-    device = resolve_device(args.device)
+    mesh, device, made = _open_mesh(args.mesh, resolve_device(args.device))
+    try:
+        _ck(args, device, mesh, start_time)
+    finally:
+        _close_mesh(made)
 
+
+def _ck(args, device, mesh, start_time):
+    from neighborhoodwatch_tpu_torch.core.colbert_pipeline import (
+        compute_maxsim_knn, print_dataset_info, process_knn_computation,
+        process_source_dataset,
+    )
+    from neighborhoodwatch_tpu_torch.core.merge import merge_indices_and_distances
+    from neighborhoodwatch_tpu_torch.data import sources
+    from neighborhoodwatch_tpu_torch.io.export import generate_output_files
+    from neighborhoodwatch_tpu_torch.io.parquet_io import (
+        ParquetStreamer, cleanup_partial_parquet,
+    )
+    from neighborhoodwatch_tpu_torch.models.colbert import ColbertEmbeddingGenerator
+    from neighborhoodwatch_tpu_torch.models.registry import (
+        EmbeddingModelName, colbert_weight_status,
+        get_effective_embedding_size,
+    )
+    from neighborhoodwatch_tpu_torch.utils import naming
+
+    rank0 = mesh is None or mesh.rank == 0
     assert args.model_name == EmbeddingModelName.COLBERT_V2.value, \
         "`ck` program is reserved for the ColBERT model"
 
@@ -416,26 +495,29 @@ Some example commands:\n
         sys.exit(1)
     embedding_chunk_size = scale_map[args.embedding_scale]
 
-    token_generator = ColbertEmbeddingGenerator(
-        chunk_size=embedding_chunk_size, device=device)
     # the reference reports this flag without acting on it
     # (colbert_knn.py:189); the token kNN always streams the base
     print(f"  dataset API:         {args.use_dataset_api} "
           "(token kNN always streams out-of-core)")
-    print("  model weights:       "
-          + colbert_weight_status(token_generator.head_pretrained,
-                                  token_generator.pretrained))
+    print(f"  mesh:                {_mesh_label(mesh)}")
+    token_generator = None
+    if rank0:       # the only rank that encodes
+        token_generator = ColbertEmbeddingGenerator(
+            chunk_size=embedding_chunk_size, device=device)
+        print("  model weights:       "
+              + colbert_weight_status(token_generator.head_pretrained,
+                                      token_generator.pretrained))
 
+    handlers = [logging.StreamHandler()]
+    if rank0:
+        handlers.insert(0, logging.FileHandler(
+            f"{data_dir}/colbert_knn_{datetime.now().strftime('%Y-%m-%d-%H-%M-%S')}.log",
+            mode="w"))
     logging.basicConfig(
         level=logging.INFO,
         format="%(asctime)s [%(filename)s:%(lineno)s - %(funcName)20s() - "
                "%(levelname)s] %(message)s",
-        handlers=[
-            logging.FileHandler(
-                f"{data_dir}/colbert_knn_{datetime.now().strftime('%Y-%m-%d-%H-%M-%S')}.log",
-                mode="w"),
-            logging.StreamHandler(),
-        ])
+        handlers=handlers)
     logger = logging.getLogger(__name__)
 
     token_embed_columns = [f"token_embedding_{i}" for i in range(input_dimensions)]
@@ -447,8 +529,9 @@ Some example commands:\n
     query_file = f"{data_dir}/{model_prefix}_{input_dimensions}_query_token{args.query_token_count}{marker}_src.parquet"
     # footer-validating resume guard (sources._valid_parquet): a killed
     # embedding run leaves a footerless parquet that a bare exists() check
-    # would reuse forever, wedging every later ck run
-    if not sources._valid_parquet(query_file):
+    # would reuse forever, wedging every later ck run. Rank 0 alone
+    # generates; the other ranks find its files after the barrier below
+    if rank0 and not sources._valid_parquet(query_file):
         src = sources.load_query_source(
             synthetic_rows=args.query_token_count if args.synthetic else None)
         streamer = ParquetStreamer(query_file, token_embed_columns)
@@ -469,14 +552,14 @@ Some example commands:\n
         streamer.close()
         print_dataset_info("query", args.query_token_count, *stats)
         _encoder_rate(token_generator, section_time)
-    else:
+    elif rank0:
         print("The source query embed file already exists, skipping.")
     _duration(section_time, start_time)
 
     _section("Generating base dataset with embeddings")
     section_time = time.time()
     base_file = f"{data_dir}/{model_prefix}_{input_dimensions}_base_token{args.base_token_count}{marker}_src.parquet"
-    if not sources._valid_parquet(base_file):     # see query_file note
+    if rank0 and not sources._valid_parquet(base_file):   # see query_file
         src = sources.load_base_source(
             synthetic_rows=args.base_token_count if args.synthetic else None)
         streamer = ParquetStreamer(base_file, token_embed_columns)
@@ -492,18 +575,21 @@ Some example commands:\n
         streamer.close()
         print_dataset_info("base", args.base_token_count, *stats)
         _encoder_rate(token_generator, section_time)
-    else:
+    elif rank0:
         print("The source base embed file already exists, skipping.")
     _duration(section_time, start_time)
 
-    cleanup_partial_parquet(f"{data_dir}/partial")
+    if rank0:
+        cleanup_partial_parquet(f"{data_dir}/partial")
+    if mesh is not None:
+        mesh.barrier()
 
     if args.maxsim:
         _section("Computing doc-level MaxSim ground truth")
         section_time = time.time()
         timer, n_q_docs, n_b_docs = compute_maxsim_knn(
             data_dir, query_file, base_file, k=args.k,
-            precision=args.precision,
+            precision=args.precision, mesh=mesh,
             screen_precision=args.screen_precision, device=device)
         print(timer.report())
         print(f"MaxSim: {n_q_docs} query passages x {n_b_docs} base passages")
@@ -516,11 +602,14 @@ Some example commands:\n
             query_file, args.query_token_count,
             mem_tune=args.enable_memory_tuning,
             k=args.k, metric=args.metric,
-            precision=args.precision, engine=args.engine,
+            precision=args.precision, engine=args.engine, mesh=mesh,
             screen_precision=args.screen_precision, device=device)
         print(timer.report())
         _duration(section_time, start_time)
+    if not rank0:
+        return          # rank 0 writes every artifact from here on
 
+    if not args.maxsim:
         _section("Merging indices and distances")
         section_time = time.time()
         merge_indices_and_distances(data_dir, k=args.k, device=device)
@@ -573,4 +662,9 @@ Some example commands:\n
 
 
 if __name__ == "__main__":
-    nw_main()
+    # python -m neighborhoodwatch_tpu_torch.cli [ck] ARGS: `nw`, or `ck`
+    # (the module form is what torchrun starts under --mesh N)
+    if sys.argv[1:2] == ["ck"]:
+        ck_main(sys.argv[2:])
+    else:
+        nw_main()

@@ -8,7 +8,9 @@ either the token-vs-token kNN (the reference's flat approximation of
 ColBERT retrieval) or the exact late-interaction MaxSim ground truth
 (ops/maxsim.py) over doc-tracked token rows.
 
-The multi-device mesh path is not ported yet: passing a `mesh` raises.
+With a `mesh` (parallel/mesh.make_mesh; every rank runs the call), the
+token kNN batches and the MaxSim doc tiles are split over the mesh's "mp"
+axis, and rank 0 alone writes the checkpoints and the final files.
 """
 
 import os
@@ -22,6 +24,7 @@ from neighborhoodwatch_tpu_torch import resolve_device
 from neighborhoodwatch_tpu_torch.core.pipeline import compute_knn_ds
 from neighborhoodwatch_tpu_torch.data.sources import split_into_sentences
 from neighborhoodwatch_tpu_torch.io.parquet_io import table_to_matrix
+from neighborhoodwatch_tpu_torch.parallel.mesh import check_mesh
 from neighborhoodwatch_tpu_torch.utils.misc import round_up
 
 
@@ -106,23 +109,14 @@ def process_knn_computation(data_dir, base_filename, base_count, query_filename,
     defaults to the torch `1 - matmul` engine — metric='dot' here).
 
     Uses the streaming dataset path: no partial files, device-merged
-    finals."""
-    _reject_mesh(mesh)
+    finals. With `mesh`, token batches split over the mp axis."""
     return compute_knn_ds(data_dir, 128, query_filename, query_count,
                           base_filename, base_count, mem_tune=mem_tune, k=k,
                           initial_batch_size=initial_batch_size,
                           max_memory_threshold=max_memory_threshold,
                           metric=metric, precision=precision, engine=engine,
-                          screen_precision=screen_precision, device=device)
-
-
-MESH_NOT_PORTED = ("the multi-device mesh path is not ported to the "
-                   "PyTorch/CUDA package yet (ROADMAP.md queue 1 item 5)")
-
-
-def _reject_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
+                          mesh=mesh, screen_precision=screen_precision,
+                          device=device)
 
 
 def _split_by_doc(tokens: np.ndarray, doc_ids: np.ndarray):
@@ -155,6 +149,10 @@ def compute_maxsim_knn(data_dir, query_filename, base_filename, k,
     device through StreamingMaxSim (tiles of 8192 docs: one mega-tile of
     the screen kernel; the last tile's doc axis is padded to the same
     8192 rows with masked docs, so on a card every tile launches it).
+    With `mesh`, through ShardedStreamingMaxSim in tiles of 8192 x mp docs
+    (one mega-tile per shard, else every shard would run the exact
+    scorer); every rank reads the parquet and builds the tile, and ships
+    only its own docs to its device (the mesh's device, not `device`).
 
     Every `checkpoint_every` parquet batches the running (score, idx,
     docs_seen) state checkpoints to partial/stream_state.npz (the same
@@ -183,26 +181,40 @@ def compute_maxsim_knn(data_dir, query_filename, base_filename, k,
     from neighborhoodwatch_tpu_torch.utils import naming
     from neighborhoodwatch_tpu_torch.utils.profiling import StageTimer
 
-    _reject_mesh(mesh)
-    dev = resolve_device(device)
+    check_mesh(mesh)
+    dev = resolve_device(device) if mesh is None else mesh.device
+    writer = mesh is None or mesh.rank == 0
     timer = StageTimer()
     if tile_docs is None:
-        tile_docs = 8192
+        tile_docs = 8192 * (1 if mesh is None else mesh.mp)
     with timer.stage("load_queries"):
         q_mat, q_ids = _read_doc_tokens(query_filename)
         q_docs = _split_by_doc(q_mat, q_ids)
         dim = q_mat.shape[1]
         queries, q_mask = pad_token_lists(q_docs, dim)
 
-    engine = StreamingMaxSim(queries, q_mask, k=k, precision=precision,
-                             screen_precision=screen_precision, device=dev)
+    if mesh is None:
+        engine = StreamingMaxSim(queries, q_mask, k=k, precision=precision,
+                                 screen_precision=screen_precision,
+                                 device=dev)
+        q_pad = engine.state[0].shape[0]
+    else:
+        from neighborhoodwatch_tpu_torch.parallel.sharded_maxsim import (
+            ShardedStreamingMaxSim,
+        )
+        engine = ShardedStreamingMaxSim(queries, q_mask, k=k, mesh=mesh,
+                                        precision=precision,
+                                        screen_precision=screen_precision)
+        q_pad = engine.q_pad
 
     ckpt_path = _stream_ckpt_path(data_dir)
     st = os.stat(base_filename)
     stq = os.stat(query_filename)
     fingerprint = {"f_mode": "maxsim", "f_k": k, "f_base": base_filename,
                    "f_q": len(q_docs), "f_dims": dim,
-                   "f_qpad": engine.state[0].shape[0],
+                   # a mesh pads the query rows to dp: only a run of
+                   # the same padded shape can restore
+                   "f_qpad": q_pad,
                    # precision changes the scoring arithmetic
                    "f_prec": precision,
                    # content identity of the base and query files
@@ -302,24 +314,32 @@ def compute_maxsim_knn(data_dir, query_filename, base_filename, k,
                 prev_event = event
             if checkpoint_every and (b + 1) % checkpoint_every == 0 \
                     and engine.docs_seen > done_docs:
-                # docs still pending/leftover are simply re-read on resume
-                _save_stream_ckpt(ckpt_path, engine, fingerprint)
+                # docs still pending/leftover are simply re-read on
+                # resume; state_arrays gathers over the mesh, so every
+                # rank calls it and rank 0 writes
+                if writer:
+                    _save_stream_ckpt(ckpt_path, engine, fingerprint)
+                else:
+                    engine.state_arrays()
         if leftover is not None:
             pending_docs.append(leftover)
         emit_tiles(pending_docs, final=True)
 
     with timer.stage("finalize"):
-        scores, idx = engine.finalize()
+        scores, idx = engine.finalize()      # a collective on a mesh
         n_docs = engine.docs_seen
         assert k <= n_docs, f"k={k} exceeds base doc count {n_docs}"
-        write_matrix_to_parquet(
-            naming.get_partial_indices_filename(data_dir, -1), idx)
-        write_matrix_to_parquet(
-            naming.get_partial_distances_filename(data_dir, -1), -scores)
-        if checkpoint_every and os.path.exists(ckpt_path):
-            # consume the checkpoint on success: a stale one would make a
-            # rerun over regenerated embeddings resume as "complete"
-            os.remove(ckpt_path)
+        if writer:
+            write_matrix_to_parquet(
+                naming.get_partial_indices_filename(data_dir, -1), idx)
+            write_matrix_to_parquet(
+                naming.get_partial_distances_filename(data_dir, -1),
+                -scores)
+            if checkpoint_every and os.path.exists(ckpt_path):
+                # consume the checkpoint on success: a stale one would
+                # make a rerun over regenerated embeddings resume as
+                # "complete"
+                os.remove(ckpt_path)
     return timer, len(q_docs), n_docs
 
 

@@ -6,10 +6,12 @@
   `partial/distances{i}.parquet`), merged later by core/merge.py.
 - `compute_knn_ds` (dataset path): streams base batches from disk with a
   background prefetch thread, folds them into a device-resident running
-  top-k (ops/knn.StreamingKNN) and writes the final results directly.
-  Every `checkpoint_every` batches the running state is saved to
+  top-k (ops/knn.StreamingKNN, or parallel/sharded_knn.ShardedStreamingKNN
+  over a mesh) and writes the final results directly. Every
+  `checkpoint_every` batches the running state is saved to
   `partial/stream_state.npz` in the JAX package's format, so a run
-  started by either package resumes in the other.
+  started by either package resumes in the other, with or without a mesh
+  of the same padded shape.
 
 Host batches are decoded column-major (sequential writes on the host) and
 transposed on the device: `.to(device).T.contiguous()`.
@@ -32,6 +34,7 @@ from neighborhoodwatch_tpu_torch.io.parquet_io import (
 )
 from neighborhoodwatch_tpu_torch.ops.knn import knn, StreamingKNN
 from neighborhoodwatch_tpu_torch.ops.topk import check_monotonic
+from neighborhoodwatch_tpu_torch.parallel.mesh import check_mesh
 from neighborhoodwatch_tpu_torch.utils.naming import (
     get_partial_indices_filename, get_partial_distances_filename,
     get_full_filename,
@@ -199,12 +202,20 @@ def compute_knn_ds(data_dir: str,
                    max_memory_threshold: float = 0.2,
                    metric: str = "sqeuclidean",
                    precision: str = "highest",
+                   mesh=None,
                    checkpoint_every: int = 10,
                    engine: str = "auto",
                    screen_precision: str = "auto",
                    device=None) -> StageTimer:
     """Dataset path: out-of-core streaming + device-resident running top-k;
-    writes final_{indices,distances}.parquet directly. Every
+    writes final_{indices,distances}.parquet directly.
+
+    With `mesh` (parallel/mesh.make_mesh), every rank runs this function:
+    each streamed batch is row-split over the mesh's "mp" axis, each rank
+    ships only its own column range of the col-major batch to its device
+    (the mesh's device, not `device`), and the per-shard top-k lists merge
+    over the mp line. Checkpoints and the final files are written by rank 0
+    alone; every rank joins the collectives that gather them. Every
     `checkpoint_every` batches the running (dist, idx, rows_seen) state is
     checkpointed; an interrupted run resumes from it, re-reading only the
     unseen base rows (0 disables).
@@ -213,7 +224,9 @@ def compute_knn_ds(data_dir: str,
     the host waits on the PREVIOUS batch's event before decoding further,
     so at most one batch is in flight on the device while the prefetch
     thread decodes the next one."""
-    dev = resolve_device(device)
+    check_mesh(mesh)
+    dev = resolve_device(device) if mesh is None else mesh.device
+    writer = mesh is None or mesh.rank == 0
     timer = StageTimer()
     with timer.stage("load_query"):
         query = read_embeddings(data_dir, query_filename, query_count,
@@ -222,15 +235,31 @@ def compute_knn_ds(data_dir: str,
     n_base = min(base_count, parquet_row_count(data_dir, base_filename))
     assert k <= n_base, f"k={k} exceeds base row count {n_base}"
     threshold = max_memory_threshold if mem_tune else 0.5
+    # batches split over the mp axis only: scaling by dp * mp would over-
+    # fill each device by dp
+    mp = 1 if mesh is None else mesh.mp
     plan = plan_knn(query.shape[0], query.shape[1], k, base_count=n_base,
                     max_memory_threshold=threshold,
-                    initial_batch_size=initial_batch_size, device=dev)
+                    initial_batch_size=initial_batch_size * mp, device=dev)
     batch_size = min(plan.batch_size, n_base)
 
     with timer.stage("knn_stream"):
-        acc = StreamingKNN(query, k=k, metric=metric, precision=precision,
-                           tile_size=plan.tile_size, engine=engine,
-                           screen_precision=screen_precision, device=dev)
+        if mesh is None:
+            acc = StreamingKNN(query, k=k, metric=metric,
+                               precision=precision, tile_size=plan.tile_size,
+                               engine=engine,
+                               screen_precision=screen_precision, device=dev)
+            q_pad = query.shape[0]
+        else:
+            from neighborhoodwatch_tpu_torch.parallel.sharded_knn import (
+                ShardedStreamingKNN,
+            )
+            acc = ShardedStreamingKNN(query, k=k, mesh=mesh, metric=metric,
+                                      precision=precision,
+                                      tile_size=plan.tile_size,
+                                      engine=engine,
+                                      screen_precision=screen_precision)
+            q_pad = acc.q_pad
         ckpt_path = _stream_ckpt_path(data_dir)
         st = os.stat(get_full_filename(data_dir, base_filename))
         stq = os.stat(get_full_filename(data_dir, query_filename))
@@ -244,7 +273,9 @@ def compute_knn_ds(data_dir: str,
                        "f_bmtime": round(st.st_mtime, 3),
                        "f_qsize": stq.st_size,
                        "f_qmtime": round(stq.st_mtime, 3),
-                       "f_qpad": acc.state[0].shape[0]}
+                       # a mesh pads the state's query rows to dp: only a
+                       # run of the same padded shape can restore
+                       "f_qpad": q_pad}
         if checkpoint_every:
             saved = _load_stream_ckpt(ckpt_path, fingerprint)
             if saved is not None:
@@ -265,7 +296,12 @@ def compute_knn_ds(data_dir: str,
                 chunk_t = chunk_t[:, done - offset:]
                 offset = done
             n_batch = chunk_t.shape[1]
-            acc.update(_colmajor_to_device(chunk_t, dev), offset)
+            if mesh is None:
+                acc.update(_colmajor_to_device(chunk_t, dev), offset)
+            else:
+                lo, hi = acc.local_update_range(n_batch)
+                acc.update_colmajor(chunk_t[:, lo:hi], offset,
+                                    global_rows=n_batch)
             t_f = time.time()
             if dev.type == "cuda":
                 event = torch.cuda.Event()
@@ -277,15 +313,20 @@ def compute_knn_ds(data_dir: str,
                   f"({time.time() - t_start:.0f}s, wait "
                   f"{time.time() - t_f:.2f}s)", flush=True)
             if checkpoint_every and (b + 1) % checkpoint_every == 0:
-                _save_stream_ckpt(ckpt_path, acc, fingerprint)
+                # state_arrays gathers over the mesh: every rank calls it
+                if writer:
+                    _save_stream_ckpt(ckpt_path, acc, fingerprint)
+                else:
+                    acc.state_arrays()
         dist, idx = acc.finalize()
 
     with timer.stage("write_final"):
         assert check_monotonic(dist)
-        write_matrix_to_parquet(get_partial_distances_filename(data_dir, -1),
-                                dist)
-        write_matrix_to_parquet(get_partial_indices_filename(data_dir, -1),
-                                idx.astype(np.int32))
-        if checkpoint_every and os.path.exists(ckpt_path):
-            os.remove(ckpt_path)
+        if writer:
+            write_matrix_to_parquet(
+                get_partial_distances_filename(data_dir, -1), dist)
+            write_matrix_to_parquet(get_partial_indices_filename(data_dir, -1),
+                                    idx.astype(np.int32))
+            if checkpoint_every and os.path.exists(ckpt_path):
+                os.remove(ckpt_path)
     return timer

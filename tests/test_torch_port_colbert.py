@@ -192,10 +192,11 @@ def test_compute_maxsim_knn_rejects_untracked_base_and_mesh(tmp_path):
             rng.standard_normal((30, DIM)).astype(np.float32))
     with pytest.raises(AssertionError, match="doc_id"):
         tcp.compute_maxsim_knn(root, qf, flat, k=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+    # a value that is no mesh is refused
+    with pytest.raises(TypeError, match="Mesh from make_mesh"):
         tcp.compute_maxsim_knn(root, qf, bf, k=2, mesh=object(),
                                device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+    with pytest.raises(TypeError, match="Mesh from make_mesh"):
         tcp.process_knn_computation(root, bf, 10, qf, 5, mesh=object(),
                                     device="cpu")
 
@@ -628,7 +629,8 @@ def test_ck_refuses_mesh_bad_scale_and_missing_card(tmp_path, capsys):
     with pytest.raises(SystemExit) as e:
         ck_main(base + ["--mesh", "2", "--device", "cpu"])
     assert e.value.code == 2
-    assert "not ported" in capsys.readouterr().out
+    # 2 ranks asked for, a world of 1 without a launcher
+    assert "torchrun --nproc-per-node 2" in capsys.readouterr().out
     with pytest.raises(SystemExit):
         ck_main(base + ["-es", "huge", "--device", "cpu"])
     with pytest.raises(AssertionError, match="reserved for the ColBERT"):

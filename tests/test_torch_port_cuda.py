@@ -556,3 +556,56 @@ def test_nothing_the_gate_admits_raises_in_the_kernel(cuda):
     assert tak.masked_attention.launches == before
     assert bool(torch.isfinite(h).all())
 
+
+
+@pytest.mark.cuda
+def test_mesh_world_size_1_nccl_matches_single_device(cuda):
+    """A single-rank NCCL group on the card (parallel/mesh.make_mesh(1)):
+    sharded_knn over a base of 2 mega-tiles takes the screened engine and
+    launches the screen kernel, ShardedStreamingMaxSim over one 8192-doc
+    tile launches the MaxSim kernel, and both equal the single-device
+    engines on unit rows and tokens: distances within 1e-5 and scores
+    within 1e-3 (the tolerances of chip_smoke.py's phases 3 and 6), ids
+    different only where those values tie."""
+    import torch.distributed as dist
+    from neighborhoodwatch_tpu_torch.ops import maxsim as tm
+    from neighborhoodwatch_tpu_torch.ops import maxsim_kernel as tmk
+    from neighborhoodwatch_tpu_torch.parallel import mesh as pm
+    from neighborhoodwatch_tpu_torch.parallel import sharded_knn as psk
+    from neighborhoodwatch_tpu_torch.parallel import sharded_maxsim as psm
+    made = not dist.is_initialized()
+    mesh = pm.make_mesh(1, device=cuda)
+    try:
+        assert mesh.backend == "nccl" and not mesh.stage
+        g = torch.Generator(device=cuda).manual_seed(5)
+        q = torch.nn.functional.normalize(
+            torch.randn(256, 64, device=cuda, generator=g), dim=1)
+        b = torch.nn.functional.normalize(
+            torch.randn(2 * MEGA, 64, device=cuda, generator=g), dim=1)
+        before = tsk.screen_keys.launches
+        d, i = psk.sharded_knn(q, b, 10, mesh)
+        assert tsk.screen_keys.launches > before
+        d1, i1 = tknn.knn(q, b, 10, engine="exact")
+        torch.testing.assert_close(d, d1, atol=1e-5, rtol=0)
+        assert bool(((i == i1) | ((d - d1).abs() <= 1e-5)).all())
+
+        qq = torch.nn.functional.normalize(
+            torch.randn(64, 32, 128, device=cuda, generator=g), dim=2)
+        docs = torch.nn.functional.normalize(
+            torch.randn(tmk.MEGA_DOCS, 16, 128, device=cuda, generator=g),
+            dim=2)
+        qm = torch.ones(qq.shape[:2], dtype=torch.bool, device=cuda)
+        dm = torch.ones(docs.shape[:2], dtype=torch.bool, device=cuda)
+        before = tmk.maxsim_keys.launches
+        acc = psm.ShardedStreamingMaxSim(qq, qm, 10, mesh)
+        acc.update(docs, dm)
+        s, ids = acc.finalize()
+        assert tmk.maxsim_keys.launches > before
+        s1, i1 = tm.maxsim_topk(qq, qm, docs, dm, 10, engine="exact",
+                                tile_docs=2048)
+        s1, i1 = s1.cpu().numpy(), i1.cpu().numpy()
+        np.testing.assert_allclose(s, s1, atol=1e-3)
+        assert bool(((ids == i1) | (np.abs(s - s1) <= 1e-3)).all())
+    finally:
+        if made:
+            dist.destroy_process_group()

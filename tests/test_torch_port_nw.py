@@ -734,7 +734,8 @@ def test_nw_refuses_mesh_colbert_and_a_missing_card(tmp_path, capsys,
     with pytest.raises(SystemExit) as e:
         nw_main(base + ["--mesh", "2", "--device", "cpu"])
     assert e.value.code == 2
-    assert "not ported" in capsys.readouterr().out
+    # 2 ranks asked for, a world of 1 without a launcher
+    assert "torchrun --nproc-per-node 2" in capsys.readouterr().out
     with pytest.raises(SystemExit, match="use the `ck` program"):
         nw_main(base[:4] + ["-m", "colbertv2.0", "--synthetic",
                             "--device", "cpu"])

@@ -1,4 +1,10 @@
-"""Shared helper of the tests/test_torch_port_*.py files."""
+"""Shared helpers of the tests/test_torch_port_*.py files."""
+
+import os
+import socket
+import subprocess
+import sys
+import time
 
 import numpy as np
 
@@ -41,3 +47,48 @@ def maxsim_oracle_wide(q, qm, d, dm, k):
     from neighborhoodwatch_tpu.ops.maxsim import maxsim_oracle
     wide, idx = maxsim_oracle(q, qm, d, dm, min(k + 1, len(d)))
     return wide[:, :k], idx[:, :k], wide
+
+
+WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                      "torch_port_mesh_worker.py")
+
+
+def start_mesh_ranks(suite, world, dp, out_dir):
+    """Start `world` gloo ranks of tests/torch_port_mesh_worker.py on the
+    CPU; returns the processes (see wait_mesh_ranks)."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, OMP_NUM_THREADS="1", GLOO_SOCKET_IFNAME="lo")
+    return [subprocess.Popen(
+        [sys.executable, WORKER, suite, str(rank), str(world), str(dp),
+         str(port), str(out_dir)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, env=env)
+        for rank in range(world)]
+
+
+def wait_mesh_ranks(procs, timeout=400):
+    """Wait for every rank; a rank that fails or outlives `timeout`
+    seconds fails the caller, and no rank is left running."""
+    deadline = time.monotonic() + timeout
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {rank} failed:\n{out[-4000:]}"
+
+
+def load_rank_results(out_dir, name, world):
+    """[dict of arrays per rank] of one case."""
+    res = []
+    for rank in range(world):
+        with np.load(os.path.join(str(out_dir), f"{name}.r{rank}.npz")) as z:
+            res.append({k: z[k] for k in z.files})
+    return res
