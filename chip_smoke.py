@@ -97,12 +97,29 @@ Phases, each printing its own lines and seconds:
      docs, each against the world-size-1 result on the same seeded inputs;
      their seconds are no speed figures. The launches of every mesh path,
      counted from 0, go into the kernels line as `mesh_launches`.
+ 12. the port's last modules: (a) phase 3's first 250,000 base rows
+     (1536 wide) and 1,000 of its queries written as fvec by the native
+     engine (native/nwio.cpp, built at first use; codec() must say
+     "native") and by the numpy codec (NW_TPU_NATIVE=0), the files equal
+     byte for byte, read back (from the page cache) and streamed by both,
+     the arrays equal; (b) nw-tools knn --batch-rows 100000 over them,
+     native stream and numpy codec in turns after an untimed first run
+     (numpy): 2 "wgmma" launches a run (the 50,000-row tail takes the
+     exact engine), ivecs and distances equal;
+     (c) screened_knn, the host-repair engine, at phase 3's 10,000 x
+     1,000,000 x 1536, k=100: 1 "wgmma" launch, held against phase 3's
+     knn() (tie-tolerant), its ms; (d) the encoder probe
+     (probes/encoder_probe.py): e5-large-v2 at seq 256 and 512, e5-base-v2
+     at 512, "auto" and "flash", ~131,072 tokens a forward: "flash" 1
+     "wgmma" launch a layer a forward, "auto" none. The launches go into
+     the kernels line as `port_launches` and `probe_launches`.
 The line before the last is one JSON object with the kernels' numbers;
 the last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 without that line; without a CUDA card it exits 2.
 """
 
 import contextlib
+import filecmp
 import importlib.util
 import io
 import json
@@ -2168,6 +2185,196 @@ def phase_mesh(rec, mrec, kept, workdir):
     return secs
 
 
+# ------------------------------------------------------------ phase 12
+
+
+@contextlib.contextmanager
+def fvec_codec(name):
+    """The fvec codec of the wrapped region: "native" (the C++ engine) or
+    "numpy" (NW_TPU_NATIVE=0, read by the engine at every call)."""
+    from neighborhoodwatch_tpu_torch.io import fvec
+    old = os.environ.pop("NW_TPU_NATIVE", None)
+    if name == "numpy":
+        os.environ["NW_TPU_NATIVE"] = "0"
+    try:
+        if fvec.codec() != name:
+            raise AssertionError(f"asked for the {name} codec, got "
+                                 f"{fvec.codec()}")
+        yield
+    finally:
+        os.environ.pop("NW_TPU_NATIVE", None)
+        if old is not None:
+            os.environ["NW_TPU_NATIVE"] = old
+
+
+def port_fvec(rec, q, base, workdir, n_base=250_000, n_q=1_000):
+    """(a): phase 3's first 250,000 base rows and 1,000 queries written and
+    read back by both codecs, byte for byte. Returns the native files."""
+    from neighborhoodwatch_tpu_torch.io import fvec
+    from neighborhoodwatch_tpu_torch.native import build
+    with fvec_codec("native"):
+        lib = build.library_path()
+    B, Q = base[:n_base].cpu().numpy(), q[:n_q].cpu().numpy()
+    secs, files = {}, {}
+    for name in ("native", "numpy"):
+        files[name] = (os.path.join(workdir, f"query_{name}.fvec"),
+                       os.path.join(workdir, f"base_{name}.fvec"))
+        with fvec_codec(name):
+            fvec.write_vectors(files[name][0], Q)
+            t = time.perf_counter()
+            fvec.write_vectors(files[name][1], B)
+            secs[f"write_{name}"] = time.perf_counter() - t
+    for i in (0, 1):
+        if not filecmp.cmp(files["native"][i], files["numpy"][i],
+                           shallow=False):
+            raise AssertionError(f"the codecs wrote different bytes: "
+                                 f"{files['native'][i]}")
+    # the files were just written: both reads come from the page cache.
+    # Timed to contiguous arrays, the form a copy to the card reads (the
+    # numpy codec returns a strided view past the row headers, the native
+    # engine contiguous rows)
+    for name in ("native", "numpy", "numpy", "native"):
+        with fvec_codec(name):
+            t = time.perf_counter()
+            got = np.ascontiguousarray(fvec.read_vectors(files["native"][1]))
+            secs.setdefault(f"read_{name}", []).append(
+                time.perf_counter() - t)
+            if not np.array_equal(got, B):
+                raise AssertionError(f"the {name} codec read other values")
+            t = time.perf_counter()
+            n = sum(len(np.ascontiguousarray(b)) for _, b in
+                    fvec.iter_vector_batches(files["native"][1], 100_000))
+            secs.setdefault(f"stream_{name}", []).append(
+                time.perf_counter() - t)
+            if n != n_base:
+                raise AssertionError(f"the {name} stream gave {n} rows")
+        del got
+    gb = os.path.getsize(files["native"][1]) / 1e9
+    log(f"  (a) {n_base:,} x {B.shape[1]} base ({gb:.2f} GB) and {n_q:,} "
+        f"queries: native engine {os.path.basename(lib)}; bytes equal; "
+        f"write native {secs['write_native']:.2f} s, numpy "
+        f"{secs['write_numpy']:.2f} s; read to contiguous arrays (page "
+        f"cache, in turns) native "
+        f"{np.mean(secs['read_native']):.3f} s, numpy "
+        f"{np.mean(secs['read_numpy']):.3f} s; stream alone (100,000-row "
+        f"batches) native {np.mean(secs['stream_native']):.3f} s, numpy "
+        f"{np.mean(secs['stream_numpy']):.3f} s")
+    rec["fvec_codec_seconds"] = {
+        key: float(np.mean(v)) for key, v in secs.items()}
+    return files["native"]
+
+
+def port_tools(rec, files, workdir, k=100):
+    """(b): nw-tools knn --batch-rows 100000 over (a)'s files, native stream
+    and numpy codec in turns after an untimed first run; the ivecs and
+    distances must be equal."""
+    from neighborhoodwatch_tpu_torch import tools
+    from neighborhoodwatch_tpu_torch.ops import screen_kernel as sk
+    launches, secs, outs = {}, {}, {}
+    for turn, name in enumerate(("numpy", "native", "numpy", "numpy",
+                                 "native")):
+        out_dir = os.path.join(workdir, f"tools_{turn}")
+        os.makedirs(out_dir)
+        tee = Tee(sys.stdout)
+        with fvec_codec(name), contextlib.redirect_stdout(tee):
+            _, wall = counted_run(launches, f"{name}_{turn}", sk.screen_keys,
+                                  lambda: tools.main([
+                                      "knn", files[0], files[1], "-k",
+                                      str(k), "--batch-rows", "100000",
+                                      "--out-dir", out_dir]))
+        if turn:
+            secs.setdefault(name, []).append(wall)
+        by = launches[f"{name}_{turn}"]
+        # batches of 100,000, 100,000 and 50,000 rows: the last is below
+        # two mega-tiles and takes the exact engine
+        if by["wgmma"] != 2 or by["mma"]:
+            raise AssertionError(f"nw-tools knn ({name}) launched {by}")
+        report = json.loads(tee.kept.getvalue().strip().splitlines()[-1])
+        outs[turn] = (report["indices"], report["distances"])
+    for turn in (1, 2, 3, 4):
+        for i in (0, 1):
+            if not filecmp.cmp(outs[0][i], outs[turn][i], shallow=False):
+                raise AssertionError(f"nw-tools knn wrote other results "
+                                     f"in turn {turn}: {outs[turn][i]}")
+    log(f"  (b) nw-tools knn --batch-rows 100000, 1,000 queries x 250,000 "
+        f"rows from the page cache, in turns: native stream "
+        f"{secs['native'][0]:.2f} / {secs['native'][1]:.2f} s, numpy "
+        f"{secs['numpy'][0]:.2f} / {secs['numpy'][1]:.2f} s; ivec and "
+        f"distances equal in all 5 runs; kernel launches per run "
+        f"{launches['native_1']}")
+    rec["port_launches"]["nw_tools_knn_native"] = launches["native_1"]
+    rec["port_launches"]["nw_tools_knn_numpy"] = launches["numpy_2"]
+    rec["nw_tools_knn_seconds"] = {n: float(np.mean(v))
+                                   for n, v in secs.items()}
+
+
+def port_screened(rec, q, base, ref, k=100):
+    """(c): the host-repair engine at phase 3's shapes against phase 3's
+    knn()."""
+    import torch
+    from neighborhoodwatch_tpu_torch.ops import knn as K
+    from neighborhoodwatch_tpu_torch.ops import screen_kernel as sk
+    real, rescanned = K._knn_scan, []
+
+    def counted_scan(query, *a, **kw):
+        rescanned.append(query.shape[0])
+        return real(query, *a, **kw)
+    K._knn_scan = counted_scan
+    try:
+        (d, i), first = counted_run(rec["port_launches"], "screened_knn",
+                                    sk.screen_keys,
+                                    lambda: K.screened_knn(q, base, k))
+    finally:
+        K._knn_scan = real
+    by = rec["port_launches"]["screened_knn"]
+    if by["wgmma"] != 1 or by["mma"]:
+        raise AssertionError(f"screened_knn launched {by}")
+    ms = median_ms(lambda: K.screened_knn(q, base, k))
+    log(f"  (c) screened_knn {q.shape[0]:,} x {base.shape[0]:,} x "
+        f"{base.shape[1]}, k={k}: launches {by}, first call {first:.3f} s, "
+        f"median of 3 {ms:.1f} ms (phase 3's knn() {ref['median_ms']:.1f} "
+        f"ms); rows rescanned on the host {sum(rescanned)}")
+    knn_agree(d, i, ref["d"], ref["i"], "(c) screened_knn vs phase 3's knn()")
+    rec["screened_knn_ms"] = ms
+    rec["screened_knn_rescanned"] = int(sum(rescanned))
+    del d, i
+    torch.cuda.empty_cache()
+
+
+def port_probe(arec):
+    """(d): the encoder probe's rows; "flash" must launch the "wgmma"
+    attention kernel once a layer a forward, "auto" never."""
+    from neighborhoodwatch_tpu_torch.ops import attention_kernel as ak
+    from neighborhoodwatch_tpu_torch.probes import encoder_probe as ep
+    iters = 3
+    reset_counts(ak.masked_attention)
+    rows = ep.run(iters=iters)
+    by = dict(ak.masked_attention.launches_by_variant)
+    for r in rows:
+        want = 0 if r["impl"] == "auto" else \
+            ep.E5_CONFIGS[r["model"]].num_layers * (iters + 1)
+        if r["launches"] != want:
+            raise AssertionError(f"probe row {r}: {want} launches expected")
+    if by["mma"] or by["wgmma"] != sum(r["launches"] for r in rows):
+        raise AssertionError(f"the probe launched {by}")
+    arec["probe_launches"] = by
+    arec["probe"] = rows
+
+
+def phase_port(rec, arec, ref, workdir):
+    """Phase 12: the native fvec engine (a), nw-tools knn over its stream
+    (b), screened_knn (c) and the encoder probe (d)."""
+    import torch
+    rec["port_launches"] = {}
+    q, base = engine_data()
+    files = port_fvec(rec, q, base, workdir)
+    port_tools(rec, files, workdir)
+    port_screened(rec, q, base, ref)
+    del q, base
+    torch.cuda.empty_cache()
+    port_probe(arec)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2183,8 +2390,9 @@ def main():
     rec = {"name": "screen_keys", "route": "cuda",
            "source": "neighborhoodwatch_tpu_torch/csrc/screen_keys.cu",
            "replaces": "neighborhoodwatch_tpu/ops/screen_kernel.py:474"}
-    # what phase 11 reads again: phase 3's result, the data directories of
-    # phases 4, 7 and 8 (kept until the end) and phase 6's stream
+    # what phases 11 and 12 read again: phase 3's result, the data
+    # directories of phases 4, 7 and 8 (kept until the end) and phase 6's
+    # stream
     kept, workdirs = {}, []
 
     def workdir():
@@ -2242,6 +2450,10 @@ def main():
         t = time.perf_counter()
         phase_mesh(rec, mrec, kept, workdir())
         log(f"phase 11 mesh: ok, {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        phase_port(rec, arec, kept["engine"], workdir())
+        log(f"phase 12 native fvec engine, nw-tools knn, screened_knn, "
+            f"encoder probe: ok, {time.perf_counter() - t:.1f} s")
     finally:
         for w in workdirs:
             shutil.rmtree(w, ignore_errors=True)

@@ -96,3 +96,14 @@ def plan_knn(query_count: int, dimensions: int, k: int,
     return KnnPlan(batch_size=batch_size, tile_size=tile_size,
                    query_block=query_count, bytes_limit=bytes_limit,
                    est_bytes=est)
+
+
+def tune_memory(num_rows: int, query_count: int, dimensions: int, k: int,
+                initial_batch_size: int, max_memory_threshold: float,
+                device=None) -> int:
+    """The batch size of plan_knn (base rows per host-to-device step) for a
+    base of `num_rows`, on `device` (None = "cuda")."""
+    plan = plan_knn(query_count, dimensions, k, base_count=num_rows,
+                    max_memory_threshold=max_memory_threshold,
+                    initial_batch_size=initial_batch_size, device=device)
+    return min(plan.batch_size, num_rows) if num_rows else plan.batch_size

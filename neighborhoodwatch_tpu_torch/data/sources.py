@@ -312,6 +312,13 @@ def generate_query_dataset(data_dir, model_name, row_count,
     return filename
 
 
+def _filter_dataset_by_title(dataset, query_titles, keep_in: bool):
+    """One side of `_split_dataset_by_title`: the rows whose title is in
+    `query_titles` (keep_in) or those whose title is not."""
+    kept, dropped = _split_dataset_by_title(dataset, query_titles)
+    return kept if keep_in else dropped
+
+
 def _split_dataset_by_title(dataset, query_titles):
     """(title-in-set view, title-not-in-set view), from ONE normalize +
     set-lookup pass over the corpus; both views keep the source's row

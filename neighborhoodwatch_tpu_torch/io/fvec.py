@@ -1,9 +1,17 @@
-"""fvec / ivec binary codecs (numpy; counterpart of io/fvec.py without its
-optional native C++ engine).
+"""fvec / ivec binary codecs (counterpart of io/fvec.py).
 
 Byte layout (little-endian), per vector: int32 dim | dim * 4-byte payload
-(float32 for fvec, int32 for ivec). Reading and writing go through one
-numpy buffer view, byte-identical to a per-row struct loop.
+(float32 for fvec, int32 for ivec). Two codecs write the same bytes and
+read the same arrays:
+- "native": the C++ engine of native/nwio.cpp (built at first use) takes
+  whole-file writes and appends, bulk reads spread over threads, and the
+  batch stream, whose producer thread reads the next batch while the
+  consumer works on this one;
+- "numpy": one numpy buffer view per call, byte-identical to a per-row
+  struct loop; it runs where the engine is off (`NW_TPU_NATIVE=0`, no C++
+  compiler) and for files the engine cannot probe (truncated or
+  heterogeneous), where it reports what is wrong.
+`codec()` says which one this process takes.
 """
 
 import os
@@ -11,7 +19,14 @@ import struct
 
 import numpy as np
 
+from neighborhoodwatch_tpu_torch.native import nwio
 from neighborhoodwatch_tpu_torch.utils.naming import get_full_filename
+
+
+def codec() -> str:
+    """"native" where the C++ engine serves this process's reads and
+    writes, "numpy" where it is off."""
+    return "native" if nwio.available() else "numpy"
 
 
 def _type_char_for(filename: str) -> str:
@@ -23,10 +38,8 @@ def _payload_dtype(type_char: str) -> np.dtype:
     return np.dtype("<i4") if type_char == "i" else np.dtype("<f4")
 
 
-def _rows_buffer(data: np.ndarray, type_char: str) -> np.ndarray:
+def _rows_buffer(data: np.ndarray) -> np.ndarray:
     n, dim = data.shape
-    data = np.ascontiguousarray(data.astype(_payload_dtype(type_char),
-                                            copy=False))
     buf = np.empty((n, dim + 1), dtype=np.dtype("<i4"))
     buf[:, 0] = np.int32(dim)
     # reinterpret the payload as raw int32 words: one contiguous write
@@ -34,25 +47,30 @@ def _rows_buffer(data: np.ndarray, type_char: str) -> np.ndarray:
     return buf
 
 
+def _write(filename: str, data, type_char: str | None, append: bool):
+    if type_char is None:
+        type_char = _type_char_for(filename)
+    data = np.ascontiguousarray(
+        np.asarray(data).astype(_payload_dtype(type_char), copy=False))
+    if len(data) and nwio.available():
+        nwio.write_rows(filename, data, append=append)
+        return
+    with open(filename, "ab" if append else "wb") as f:
+        _rows_buffer(data).tofile(f)
+
+
 def write_vectors(filename: str, data: np.ndarray,
                   type_char: str | None = None) -> None:
     """Write a (n, dim) array as fvec/ivec."""
     data = np.asarray(data)
     assert data.ndim == 2, f"expected (n, dim) array, got shape {data.shape}"
-    if type_char is None:
-        type_char = _type_char_for(filename)
-    with open(filename, "wb") as f:
-        _rows_buffer(data, type_char).tofile(f)
+    _write(filename, data, type_char, append=False)
 
 
 def append_vectors(filename: str, data: np.ndarray,
                    type_char: str | None = None) -> None:
     """Append rows to an existing fvec/ivec file (streamed export)."""
-    data = np.asarray(data)
-    if type_char is None:
-        type_char = _type_char_for(filename)
-    with open(filename, "ab") as f:
-        _rows_buffer(data, type_char).tofile(f)
+    _write(filename, data, type_char, append=True)
 
 
 def read_vectors(filename: str, dtype=None) -> np.ndarray:
@@ -62,6 +80,10 @@ def read_vectors(filename: str, dtype=None) -> np.ndarray:
     size = os.path.getsize(filename)
     if size == 0:
         return np.empty((0, 0), dtype=payload_dtype)
+    info = nwio.probe(filename) if nwio.available() else None
+    if info is not None:
+        out = nwio.read_rows(filename, 0, info[0], info[1], payload_dtype)
+        return out.astype(dtype) if dtype is not None else out
     with open(filename, "rb") as f:
         dim = struct.unpack("<i", f.read(4))[0]
         f.seek(0)
@@ -79,9 +101,20 @@ def read_vectors(filename: str, dtype=None) -> np.ndarray:
 def iter_vector_batches(filename: str, batch_rows: int,
                         count: int | None = None):
     """Yield (offset, (rows, dim) ndarray) batches of the first `count`
-    rows (all when None) of an fvec/ivec file, out of core: one sequential
-    read of `batch_rows` rows at a time, never the whole file."""
+    rows (all when None) of an fvec/ivec file, out of core: `batch_rows`
+    rows at a time, never the whole file. The native stream reads the next
+    batch on its own thread while the caller works on this one; the numpy
+    codec reads each batch when it is asked for."""
     payload_dtype = _payload_dtype(_type_char_for(filename))
+    if nwio.available() and nwio.probe(filename) is not None:
+        with nwio.FvecStream(filename, batch_rows, payload_dtype) as stream:
+            for offset, batch in stream:
+                if count is not None and offset >= count:
+                    break
+                if count is not None and offset + len(batch) > count:
+                    batch = batch[:count - offset]
+                yield offset, batch
+        return
     size = os.path.getsize(filename)
     if size == 0:
         return

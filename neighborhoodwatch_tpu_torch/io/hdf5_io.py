@@ -118,3 +118,32 @@ def hdf5_group_exists(data_dir, filename, group) -> bool:
             return group in f and "_streaming" not in f[group].attrs
     except OSError:
         return False
+
+
+def read_hdf5_group(data_dir, filename, group) -> np.ndarray:
+    """One dataset of the file as an array."""
+    import h5py
+    full_filename = get_full_filename(data_dir, filename)
+    with h5py.File(full_filename, "r") as f:
+        return np.asarray(f[group])
+
+
+def find_duplicates(filename, groups=("train", "test")) -> dict:
+    """Duplicate rows per group present in the file: {group: {"rows",
+    "duplicate_groups" (distinct rows seen more than once),
+    "duplicate_rows" (copies beyond the first)}}."""
+    import h5py
+    report = {}
+    with h5py.File(filename, "r") as f:
+        for group in groups:
+            if group not in f:
+                continue
+            data = np.asarray(f[group])
+            _, counts = np.unique(data, axis=0, return_counts=True)
+            dupes = int((counts > 1).sum())
+            report[group] = {
+                "rows": int(data.shape[0]),
+                "duplicate_groups": dupes,
+                "duplicate_rows": int(counts[counts > 1].sum() - dupes),
+            }
+    return report

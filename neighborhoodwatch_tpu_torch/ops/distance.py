@@ -36,3 +36,13 @@ def pairwise_distance(query, base, metric: str = "sqeuclidean"):
     else:
         d = 1.0 - dots
     return torch.where(torch.isfinite(d), d, torch.full_like(d, float("inf")))
+
+
+def similarity_from_distance(distance, metric: str):
+    """Invert a distance back to dot/cosine similarity, where defined (the
+    validators' convention); `distance` is an array or a tensor."""
+    if metric == "sqeuclidean":
+        return 1.0 - distance / 2.0  # valid for normalized vectors
+    if metric in ("cosine", "dot"):
+        return 1.0 - distance
+    raise ValueError(f"no similarity inversion for metric {metric!r}")

@@ -10,6 +10,8 @@
   recomputed exactly). The eps math is a line-for-line port of the JAX
   engine, and the TPU-measured constants (_BIN_FLAG_RATE, the merge
   widths, _gather_block) are kept as they are for parity.
+- `screened_knn` is the host-repair form of "screened": the same screen,
+  select and certificate, then every failed query rescanned exactly.
 - "verified" rests on a TPU operation (approximate min-k) with no PyTorch
   counterpart and maps to "exact" here.
 - "auto" picks "screened" for CUDA tensors when the base holds at least
@@ -582,6 +584,52 @@ def screened_knn_traced(query, base, n_valid, base_offset, k: int,
     return _out(dist, idx, (n_bin, n_full, int(n_full > nb)))
 
 
+def screened_knn(query, base, k: int, metric: str = "sqeuclidean",
+                 screen_precision: str = "auto", m: int | None = None,
+                 base_offset: int = 0, device=None):
+    """Exact kNN through the screen kernel, the certified re-rank and a
+    host-side repair: every query whose certificate fails is rescanned by
+    the exact engine and written back (the repair of screened_knn_traced
+    without its class-A/B budgets). Returns (distances f32, indices int32)
+    tensors of shape (Q, k) on `device` (None = "cuda"), indices +
+    `base_offset`.
+
+    A base below one mega-tile, or a k the screen cannot hold (k > cap),
+    goes to the exact engine without a screen. `m` (the merge width) is
+    clamped to [k, cap]. One host sync reads the failed rows."""
+    dev = resolve_device(device)
+    query = _as_tensor(query, dev)
+    base = _as_tensor(base, dev)
+    n_base = base.shape[0]
+    assert k <= n_base, f"k={k} exceeds base row count {n_base}"
+    screen_precision, lean = resolve_screen_tier(screen_precision)
+    passes = screen_kernel.PASSES[screen_precision]
+    sub_width = screen_kernel.pick_sub(n_base, k)
+    cap, _, _ = _screen_plan(n_base, k, query.shape[1], sub_width, passes,
+                             lean=lean)
+    if n_base < screen_kernel.MEGA or k > cap:
+        return knn(query, base, k, metric=metric, base_offset=base_offset,
+                   engine="exact", device=dev)
+    bn_row, base_stats, bhi = _prepare_arrays(base)
+    cand_d, cand_i, _ = screen_kernel.screen_candidates(
+        query, base, n_rows=n_base, epilogue=_EPILOGUE_FOR_METRIC[metric],
+        screen_precision=screen_precision, bn_row=bn_row, bhi=bhi,
+        sub=sub_width)
+    m = _merge_width(k, passes, cap, lean=lean) if m is None \
+        else min(max(m, k), cap)
+    dist, idx, ok, _, _ = _screened_select(
+        query, base, cand_d, cand_i, k, m, metric, passes,
+        block=_gather_block(m, query.shape[1]), base_stats=base_stats)
+    bad = torch.nonzero(~ok).flatten()
+    if len(bad):
+        # n_base >= MEGA > DEFAULT_TILE: the rescan always scans tiles
+        d_f, i_f = _knn_scan(query[bad], base, n_base, 0, k, metric,
+                             DEFAULT_TILE)
+        dist[bad] = d_f
+        idx[bad] = i_f.to(idx.dtype)
+    return dist, (idx + base_offset).to(torch.int32)
+
+
 def knn(query, base, k: int, metric: str = "sqeuclidean",
         precision: str = "highest", tile_size: int | None = None,
         base_offset: int = 0, engine: str = "auto",
@@ -696,6 +744,11 @@ class StreamingKNN:
     @property
     def rows_seen(self) -> int:
         return self._seen
+
+    def force_state(self, state) -> None:
+        """Backpressure sync: read 4 bytes of the running state (one
+        device-to-host copy), which waits for the work queued before it."""
+        state[0][0, 0].item()
 
     def state_arrays(self):
         """(dist, idx, seen) as host arrays — the streaming checkpoint, in

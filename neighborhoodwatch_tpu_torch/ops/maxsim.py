@@ -671,6 +671,10 @@ class StreamingMaxSim:
         fixed tier was requested."""
         return self._ctrl.tier_idx if self._adaptive else 0
 
+    def force_state(self, state) -> None:
+        """Backpressure sync (see ops.knn.StreamingKNN.force_state)."""
+        state[0][0, 0].item()
+
     def state_arrays(self):
         """(scores, idx, seen) as host arrays: the streaming checkpoint,
         in the same layout as the JAX accumulator's."""

@@ -351,3 +351,9 @@ def validate_maxsim_files(data_dir, query_vector_fvec, base_vector_fvec,
         total_mismatch += opt_viol
     print(f"Total mismatch count: {total_mismatch}")
     return total_mismatch
+
+
+def dot_product(a, b) -> float:
+    """Dot product of two vectors in float64."""
+    return float(np.dot(np.asarray(a, dtype=np.float64),
+                        np.asarray(b, dtype=np.float64)))
