@@ -5,10 +5,11 @@
 Phases, each printing its own lines and seconds:
   1. setup: the card's name and power limit, torch/CUDA versions, and the
      build of the hand-written kernels (csrc/screen_keys.cu and
-     csrc/maxsim_keys.cu, both on csrc/wgmma_mainloop.cuh, and
-     csrc/masked_attention.cu, one nvcc each, started together, into
-     neighborhoodwatch_tpu_torch/_build/) with ptxas' registers and spills
-     per kernel variant (a spill fails the run);
+     csrc/maxsim_keys.cu, both on csrc/wgmma_mainloop.cuh,
+     csrc/masked_attention.cu and csrc/verified_select.cu, one nvcc each,
+     started together, into neighborhoodwatch_tpu_torch/_build/) with
+     ptxas' registers and spills per kernel variant (a spill fails the
+     run);
   2. kernel against plain: the screen kernel and its plain PyTorch version
      on the same bf16 operands, passes 1/2/3 x l2/dot/rdot, on ragged
      shapes (D=200 and D=45, padded nowhere; a query count that leaves a
@@ -105,7 +106,7 @@ Phases, each printing its own lines and seconds:
      the arrays equal; (b) nw-tools knn --batch-rows 100000 over them,
      native stream and numpy codec in turns after an untimed first run
      (numpy): 2 "wgmma" launches a run (the 50,000-row tail takes the
-     exact engine), ivecs and distances equal;
+     verified engine), ivecs and distances equal;
      (c) screened_knn, the host-repair engine, at phase 3's 10,000 x
      1,000,000 x 1536, k=100: 1 "wgmma" launch, held against phase 3's
      knn() (tie-tolerant), its ms; (d) the encoder probe
@@ -113,6 +114,25 @@ Phases, each printing its own lines and seconds:
      at 512, "auto" and "flash", ~131,072 tokens a forward: "flash" 1
      "wgmma" launch a layer a forward, "auto" none. The launches go into
      the kernels line as `port_launches` and `probe_launches`.
+ 13. the verified engine's select (csrc/verified_select.cu, K7, through
+     ops/verified_kernel.py): (a) the kernel against its plain version on
+     fp32 distance tiles of unit Gaussian rows at 1536 dims, 1,000 x 8,192
+     and 128 x 32,768 and 512 x 8,192 with every base row three times
+     (planted ties), k 1/100/1024: ids equal as sets and distances equal
+     bit for bit, rows that failed the proof counted (0), and a planted
+     candidate set (column 0 dropped, every row's minimum) whose every row
+     must fail and fall back to the exact selection; the kernel's time
+     beside the plain version, torch.topk (library_ms), the exact engine's
+     stable sort and the bytes bound; (b) knn(engine="verified") against
+     "exact" at phase 3's data on 512 queries (tie-tolerant), their ms and
+     the exact engine with torch.topk as its select, beside the fp32
+     product's bound; (c) phase 8's 1,000 x 100,000 x 1024 screened call
+     with its exact fallback on the stable sort and on K7, in turns, and
+     the K7 launches of that call; K7's launches in phase 8's nw_main (the
+     kernels line's `launches`, which must be at least 1) and on every
+     other path that runs it (`launches_by_path`); (d) precision
+     "default" and "high" on the exact engine at (b)'s shape: ms and max
+     |d - d_highest|.
 The line before the last is one JSON object with the kernels' numbers;
 the last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 without that line; without a CUDA card it exits 2.
@@ -136,8 +156,10 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
-# published H100 SXM peaks: dense bf16 tensor-core rate, HBM3 bandwidth
+# published H100 SXM peaks: dense bf16 tensor-core rate, fp32 outside the
+# tensor cores, HBM3 bandwidth
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 # calls per CUDA-event timing where one call is a fraction of a millisecond
 REPS = 10
@@ -209,7 +231,9 @@ def ptxas_report(name, report):
     for line in report.splitlines():
         if "Compiling entry function" in line:
             sym = line.split("'")[1]
-            if "masked_attention" in sym:
+            if "verified_select" in sym:
+                entry = "verified_select"
+            elif "masked_attention" in sym:
                 # the kernel's name, then the mangled template arguments:
                 # dtype, head dim
                 dim = re.search(r"Li(\d+)E", sym).group(1)
@@ -242,6 +266,19 @@ def reset_counts(wrapper):
     if hasattr(wrapper, "launches_by_variant"):
         wrapper.launches_by_variant = {
             v: 0 for v in wrapper.launches_by_variant}
+
+
+# the verified select's launches on each path that runs it, by path: the
+# count is set to 0 just before the path and read just after
+VERIFIED_LAUNCHES = {}
+
+
+@contextlib.contextmanager
+def verified_counted(path):
+    from neighborhoodwatch_tpu_torch.ops import verified_kernel as vk
+    reset_counts(vk.verified_select)
+    yield
+    VERIFIED_LAUNCHES[path] = vk.verified_select.launches
 
 
 def screen_operands(q, b):
@@ -297,15 +334,18 @@ def phase_setup():
     from neighborhoodwatch_tpu_torch.ops import attention_kernel as ak
     from neighborhoodwatch_tpu_torch.ops import maxsim_kernel as mk
     from neighborhoodwatch_tpu_torch.ops import screen_kernel as sk
+    from neighborhoodwatch_tpu_torch.ops import verified_kernel as vk
     # one nvcc per source, all started together
     shutil.rmtree(cuda_build.BUILD_DIR, ignore_errors=True)
-    names = ("screen_keys", "maxsim_keys", "masked_attention")
+    names = ("screen_keys", "maxsim_keys", "masked_attention",
+             "verified_select")
     t = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         reports = [r for _, r in pool.map(cuda_build.build, names)]
     sk.load_library()
     mk.load_library()
     ak.load_library()
+    vk.load_library()
     log(f"kernel builds ({', '.join(names)}): "
         f"{time.perf_counter() - t:.2f} s "
         f"(nvcc {' '.join(cuda_build.NVCC_FLAGS)})")
@@ -637,8 +677,9 @@ def phase_pipeline(rec, workdir):
     lib.screen_keys_launch = timed_launch
     t = time.perf_counter()
     try:
-        timer = compute_knn_ds(data_dir, D, qfile, Q, bfile, B, k=k,
-                               initial_batch_size=100_000)
+        with verified_counted("pipeline"):
+            timer = compute_knn_ds(data_dir, D, qfile, Q, bfile, B, k=k,
+                                   initial_batch_size=100_000)
     finally:
         lib.screen_keys_launch = real_launch
     torch.cuda.synchronize()
@@ -1270,7 +1311,8 @@ def phase_nw(rec, workdir, Q=1000, B=100_000, k=100,
     reset_counts(sk.screen_keys)
     tee = Tee(sys.stdout)
     t = time.perf_counter()
-    with counted_repairs() as diags, contextlib.redirect_stdout(tee):
+    with counted_repairs() as diags, contextlib.redirect_stdout(tee), \
+            verified_counted("nw"):
         nw_main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
@@ -1419,7 +1461,8 @@ def phase_tools(rec, workdir, files, k=100):
     reset_counts(sk.screen_keys)
     tee = Tee(sys.stdout)
     t = time.perf_counter()
-    with counted_repairs() as diags, contextlib.redirect_stdout(tee):
+    with counted_repairs() as diags, contextlib.redirect_stdout(tee), \
+            verified_counted("nw_tools"):
         tools.main(["knn", files[0], files[1], "-k", str(k), "--out-dir",
                     out_dir])
     wall = time.perf_counter() - t
@@ -1817,13 +1860,14 @@ def maxsim_agree(s_a, i_a, s_b, i_b, k, what):
 
 def counted_run(launches, name, wrapper, fn):
     """`fn()` with `wrapper`'s launch counts set to 0 just before and read
-    just after into launches[name] (by variant); returns (result,
-    seconds)."""
+    just after into launches[name] (by variant), and the verified select's
+    into VERIFIED_LAUNCHES[name]; returns (result, seconds)."""
     import torch
     reset_counts(wrapper)
     torch.cuda.synchronize()
     t = time.perf_counter()
-    out = fn()
+    with verified_counted(name):
+        out = fn()
     torch.cuda.synchronize()
     launches[name] = dict(wrapper.launches_by_variant)
     return out, time.perf_counter() - t
@@ -2286,7 +2330,7 @@ def port_tools(rec, files, workdir, k=100):
             secs.setdefault(name, []).append(wall)
         by = launches[f"{name}_{turn}"]
         # batches of 100,000, 100,000 and 50,000 rows: the last is below
-        # two mega-tiles and takes the exact engine
+        # two mega-tiles and takes the verified engine
         if by["wgmma"] != 2 or by["mma"]:
             raise AssertionError(f"nw-tools knn ({name}) launched {by}")
         report = json.loads(tee.kept.getvalue().strip().splitlines()[-1])
@@ -2375,6 +2419,244 @@ def phase_port(rec, arec, ref, workdir):
     port_probe(arec)
 
 
+# ------------------------------------------------------------ phase 13
+
+
+def verified_tiles():
+    """Phase 13(a)'s fp32 distance tiles on the card, from unit Gaussian
+    rows at 1536 dims: {name: (Q, N) tile}."""
+    import torch
+    from neighborhoodwatch_tpu_torch.ops.distance import pairwise_distance
+    g = torch.Generator(device="cuda").manual_seed(13)
+    q = unit_rows(1000, 1536, g)
+    b = unit_rows(32768, 1536, g)
+    # every base row three times over: exact ties at and around the k-th
+    tripled = b[:2731].repeat(3, 1)[:8192]
+    return {"1000x8192": pairwise_distance(q, b[:8192]),
+            "128x32768": pairwise_distance(q[:128], b),
+            "512x8192_ties": pairwise_distance(q[:512], tripled)}
+
+
+def per_call_ms(fn):
+    """Milliseconds of one call of `fn` by CUDA events around REPS calls
+    back to back, after one untimed call."""
+    fn()
+    return event_ms(lambda: [fn() for _ in range(REPS)]) / REPS
+
+
+def select_bound_ms(q_rows, n, k):
+    """One read of the tile, one write of (dist f32, position int64) and of
+    the proof's byte per row, at the card's memory rate."""
+    return (q_rows * n * 4 + q_rows * k * 12 + q_rows) / PEAK_BYTES * 1e3
+
+
+def verified_vs_plain(tiles):
+    """(a): the kernel against its plain version on every tile and k; the
+    kernel, plain version, torch.topk and the exact engine's stable sort
+    timed; then the planted candidate set. Returns {case: {k: numbers}}."""
+    import torch
+    from neighborhoodwatch_tpu_torch.ops import verified_kernel as vk
+    from neighborhoodwatch_tpu_torch.ops.topk import smallest_k
+    out = {}
+    for name, d in tiles.items():
+        q_rows, n = d.shape
+        for k in (1, 100, 1024):
+            vk.reset_failed_rows()
+            got = vk.verified_select(d, k)
+            torch.cuda.synchronize()
+            failed = vk.failed_rows()
+            want = vk.verified_select_plain(d, k)
+            sets_equal = torch.equal(got[1].sort(1).values,
+                                     want[1].sort(1).values)
+            bits_equal = torch.equal(got[0].view(torch.int32),
+                                     want[0].view(torch.int32))
+            same = float((got[1] == want[1]).float().mean())
+            err = float((got[0] - want[0]).abs().nan_to_num(0.0).max())
+            if not (sets_equal and bits_equal and bool(got[2].all())) \
+                    or failed:
+                raise AssertionError(
+                    f"verified_select {name} k={k}: sets equal "
+                    f"{sets_equal}, distances bit-equal {bits_equal}, proof "
+                    f"held on {int(got[2].sum())} of {q_rows} rows, "
+                    f"{failed} rows fell back")
+            ms = per_call_ms(lambda: vk.verified_select(d, k))
+            plain_ms = event_ms(lambda: vk.verified_select_plain(d, k))
+            topk_ms = per_call_ms(lambda: torch.topk(d, k, largest=False))
+            sort_ms = per_call_ms(lambda: smallest_k(d, k))
+            bound = select_bound_ms(q_rows, n, k)
+            out.setdefault(name, {})[str(k)] = {
+                "ms": ms, "plain_ms": plain_ms, "library_ms": topk_ms,
+                "sort_ms": sort_ms, "bound_ms": bound, "max_abs_err": err,
+                "identical_positions": same, "failed_rows": failed}
+            log(f"  (a) {name} k={k}: kernel {ms:.4f} ms ({ms / bound:.1f}x "
+                f"the bytes bound {bound:.4f} ms), torch.topk {topk_ms:.4f} "
+                f"ms, stable sort (the exact select) {sort_ms:.4f} ms, plain "
+                f"{plain_ms:.3f} ms; vs plain: ids equal as sets, "
+                f"identical positions {same:.5f}, distances bit-equal, rows "
+                f"fallen back {failed}")
+    # a planted candidate set: column 0 holds every row's minimum and is
+    # dropped from the candidates, so every row must fail and fall back
+    d = tiles["1000x8192"].clone()
+    d[:, 0] = -1.0
+    vk.reset_failed_rows()
+    dist, pos, ok = vk.verified_select(d, 100, exclude=0)
+    failed = vk.failed_rows()
+    want_d, want_i = smallest_k(d, 100)
+    if ok.any() or failed != d.shape[0] or not torch.equal(pos, want_i) \
+            or not torch.equal(dist, want_d):
+        raise AssertionError(f"planted failure: proof held on "
+                             f"{int(ok.sum())} rows, {failed} fell back, "
+                             f"result equals the exact selection "
+                             f"{torch.equal(pos, want_i)}")
+    log(f"  (a) planted candidate set (1000x8192, k=100, column 0 dropped): "
+        f"proof failed on {failed} of {d.shape[0]} rows, all selected again "
+        f"exactly in the kernel")
+    return out
+
+
+def verified_engine(rec, n_q=512, k=100):
+    """(b) and (d): knn(engine="verified") against "exact" at phase 3's
+    data on `n_q` queries, the exact engine with torch.topk as its select,
+    and the exact engine at precision "default" and "high"."""
+    import torch
+    from neighborhoodwatch_tpu_torch.ops import knn as K
+    from neighborhoodwatch_tpu_torch.ops import verified_kernel as vk
+    q, base = engine_data()
+    q = q[:n_q].contiguous()
+    B, D = base.shape
+    d_e, i_e = K.knn(q, base, k, engine="exact")
+    vk.reset_failed_rows()
+    with verified_counted("engine_verified"):
+        d_v, i_v = K.knn(q, base, k, engine="verified")
+    torch.cuda.synchronize()
+    knn_agree(d_v, i_v, d_e, i_e, f"(b) knn(engine='verified') vs 'exact', "
+              f"{n_q} x {B} x {D}, k={k}")
+    exact_ms = median_ms(lambda: K.knn(q, base, k, engine="exact"))
+    verified_ms = median_ms(lambda: K.knn(q, base, k, engine="verified"))
+
+    def topk_select(d, kk):
+        return torch.topk(d, kk, largest=False)
+    real = K._select
+    K._select = lambda engine: topk_select
+    try:
+        d_t, i_t = K.knn(q, base, k, engine="exact")
+        topk_ms = median_ms(lambda: K.knn(q, base, k, engine="exact"))
+    finally:
+        K._select = real
+    knn_agree(d_t, i_t, d_e, i_e, "(b) the exact engine with torch.topk as "
+              "its select vs 'exact'")
+    flops = 2.0 * n_q * B * D
+    bytes_ = (n_q + B) * D * 4 + n_q * k * 8
+    bound = max(flops / PEAK_FP32_FLOPS, bytes_ / PEAK_BYTES) * 1e3
+    tiles = VERIFIED_LAUNCHES["engine_verified"]
+    log(f"  (b) medians of 3: exact (stable sort per tile) {exact_ms:.1f} ms, "
+        f"verified (K7 per tile, {tiles} launches, {vk.failed_rows()} rows "
+        f"fell back) {verified_ms:.1f} ms, exact with torch.topk "
+        f"{topk_ms:.1f} ms; bound (the fp32 product at "
+        f"{PEAK_FP32_FLOPS / 1e12:.0f} TFLOP/s) {bound:.1f} ms")
+    rec["engine"] = {"Q": n_q, "B": B, "D": D, "k": k, "exact_ms": exact_ms,
+                     "verified_ms": verified_ms, "topk_ms": topk_ms,
+                     "bound_ms": bound, "launches": tiles}
+    prec = {}
+    for p in ("default", "high"):
+        d_p, i_p = K.knn(q, base, k, engine="exact", precision=p)
+        ms = median_ms(lambda p=p: K.knn(q, base, k, engine="exact",
+                                         precision=p))
+        err = float((d_p - d_e).abs().max())
+        same = float((i_p == i_e).float().mean())
+        prec[p] = {"ms": ms, "max_abs_d_vs_highest": err,
+                   "identical_positions": same}
+        log(f"  (d) precision {p!r}, exact engine at (b)'s shape: {ms:.1f} "
+            f"ms (highest {exact_ms:.1f} ms), max |d - d_highest| "
+            f"{err:.3g}, identical positions {same:.5f}")
+    rec["precision"] = prec
+    del q, base, d_e, i_e, d_v, i_v, d_t, i_t
+    torch.cuda.empty_cache()
+
+
+def verified_nw_batch(rec, nw):
+    """(c): phase 8's screened kNN call with its exact fallback on the
+    stable sort ("exact") and on K7 ("verified"), in turns, and K7's
+    launches of one call."""
+    import torch
+    from neighborhoodwatch_tpu_torch.io.parquet_io import read_embeddings
+    from neighborhoodwatch_tpu_torch.ops import knn as K
+    from neighborhoodwatch_tpu_torch.ops import verified_kernel as vk
+    from neighborhoodwatch_tpu_torch.utils import naming
+    Q, B, D, k, model = nw["Q"], nw["B"], nw["D"], nw["k"], nw["model"]
+    data_dir = naming.get_model_data_homedir(nw["workdir"],
+                                             model + "_synthetic", Q, B, k)
+    qfile = naming.get_source_query_dataset_filename(data_dir, model, Q, D)
+    bfile = naming.get_source_base_dataset_filename(data_dir, model, B, D)
+    q = torch.as_tensor(read_embeddings(data_dir, qfile, Q, D), device="cuda")
+    base = torch.as_tensor(read_embeddings(data_dir, bfile, B, D),
+                           device="cuda")
+
+    def call():
+        return K.screened_knn_traced(q, base, B, 0, k, "sqeuclidean",
+                                     with_diagnostics=True)
+    real = K._fallback_engine
+    got, ms = {}, {"exact": [], "verified": []}
+    try:
+        for name in ("exact", "verified", "verified", "exact"):
+            K._fallback_engine = lambda device, name=name: name
+            got[name] = call()
+            ms[name].append(median_ms(call))
+    finally:
+        K._fallback_engine = real
+    vk.reset_failed_rows()
+    reset_counts(vk.verified_select)
+    torch.cuda.synchronize()
+    d, i, diag = call()
+    torch.cuda.synchronize()
+    launches = vk.verified_select.launches
+    failed = vk.failed_rows()
+    if launches < 1:
+        raise AssertionError("the screened call's fallback never launched "
+                             "the verified select")
+    knn_agree(d, i, got["exact"][0], got["exact"][1],
+              "(c) fallback on K7 vs on the stable sort")
+    before, after = float(np.mean(ms["exact"])), float(np.mean(ms["verified"]))
+    log(f"  (c) nw's screened call {Q} x {B} x {D}, k={k} (class-A "
+        f"{diag[0]}, class-B {diag[1]}, whole-batch fallback {diag[2]}), "
+        f"medians of 3 in turns (exact, verified, verified, exact): fallback "
+        f"on the stable sort {ms['exact'][0]:.2f} / {ms['exact'][1]:.2f} ms, "
+        f"on K7 {ms['verified'][0]:.2f} / {ms['verified'][1]:.2f} ms; K7 "
+        f"launches of the call {launches}, rows fallen back {failed}")
+    rec["nw_batch"] = {"Q": Q, "B": B, "D": D, "k": k, "ms_before": before,
+                       "ms": after, "launches": launches,
+                       "repairs": list(diag)}
+    del q, base, got, d, i
+    torch.cuda.empty_cache()
+
+
+def phase_verified(rec, nw):
+    """Phase 13: the verified select K7 against its plain version (a), the
+    verified engine (b) and the precisions (d) at phase 3's shape, and
+    phase 8's screened call with its fallback on K7 (c). The kernel's
+    main-path count is phase 8's: nw_main's launches."""
+    import torch
+    tiles = verified_tiles()
+    shapes = verified_vs_plain(tiles)
+    del tiles
+    torch.cuda.empty_cache()
+    verified_engine(rec)
+    verified_nw_batch(rec, nw)
+    # the main path: phase 8's nw_main, whose screened call falls back on
+    # K7 for every query that fails the certificate
+    launches = VERIFIED_LAUNCHES["nw"]
+    if launches < 1:
+        raise AssertionError("nw_main never launched the verified select")
+    main = shapes["1000x8192"]["100"]
+    rec.update(launches=launches, max_abs_err=max(
+        v["max_abs_err"] for case in shapes.values() for v in case.values()),
+        ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+        bound_by="bytes", library_ms=main["library_ms"],
+        sort_ms=main["sort_ms"], shapes=shapes,
+        launches_by_path=dict(VERIFIED_LAUNCHES))
+    log(f"  K7 launches by path (each counted from 0): {VERIFIED_LAUNCHES}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2454,12 +2736,19 @@ def main():
         phase_port(rec, arec, kept["engine"], workdir())
         log(f"phase 12 native fvec engine, nw-tools knn, screened_knn, "
             f"encoder probe: ok, {time.perf_counter() - t:.1f} s")
+        vrec = {"name": "verified_select", "route": "cuda",
+                "source": "neighborhoodwatch_tpu_torch/csrc/"
+                          "verified_select.cu",
+                "replaces": "neighborhoodwatch_tpu/ops/knn.py:59"}
+        t = time.perf_counter()
+        phase_verified(vrec, kept["nw"])
+        log(f"phase 13 verified select: ok, {time.perf_counter() - t:.1f} s")
     finally:
         for w in workdirs:
             shutil.rmtree(w, ignore_errors=True)
     assert "jax" not in sys.modules
     log(f"total {time.perf_counter() - t0:.1f} s on {card}")
-    print(json.dumps({"kernels": [rec, mrec, arec]}))
+    print(json.dumps({"kernels": [rec, mrec, arec, vrec]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

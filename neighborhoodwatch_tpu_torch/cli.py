@@ -161,8 +161,10 @@ Some example commands:\n
                              "reference raft engine)")
     parser.add_argument("--precision", type=str, default="highest",
                         choices=["default", "high", "highest"],
-                        help="exact engine's matmul precision (highest = "
-                             "full fp32)")
+                        help="exact and verified engines' product "
+                             "precision: default = bf16 operands, high = "
+                             "bf16x3, highest = full fp32 (the screened "
+                             "engine re-ranks in fp32 at every setting)")
     parser.add_argument("--synthetic", action="store_true",
                         help="use synthetic source text (hermetic, no network)")
     parser.add_argument("--yes", action="store_true",
@@ -173,10 +175,12 @@ Some example commands:\n
     parser.add_argument("--engine", type=str, default="auto",
                         choices=["auto", "exact", "verified", "screened"],
                         help="kNN engine: exact (the oracle), verified (the "
-                             "exact engine here), screened (the hand-written "
-                             "screen kernel + certificate + repair), auto "
-                             "(screened for CUDA bases of >= 2 mega-tiles, "
-                             "exact otherwise)")
+                             "exact tiles with the hand-written verified "
+                             "select: candidates, count proof, exact "
+                             "fallback), screened (the hand-written screen "
+                             "kernel + certificate + repair), auto (on the "
+                             "card screened for bases of >= 2 mega-tiles, "
+                             "verified below; exact on the CPU)")
     parser.add_argument("--screen-precision", type=str, default="auto",
                         choices=["auto", "default", "medium", "high"],
                         help="screened engine's tensor-core pass count: "

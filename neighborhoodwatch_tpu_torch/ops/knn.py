@@ -12,10 +12,17 @@
   widths, _gather_block) are kept as they are for parity.
 - `screened_knn` is the host-repair form of "screened": the same screen,
   select and certificate, then every failed query rescanned exactly.
-- "verified" rests on a TPU operation (approximate min-k) with no PyTorch
-  counterpart and maps to "exact" here.
-- "auto" picks "screened" for CUDA tensors when the base holds at least
-  _SCREEN_MIN_BASE rows, "exact" otherwise (and always on the CPU).
+- "verified": the exact engine's tiles with the per-tile select of
+  ops/verified_kernel.py (the hand-written csrc/verified_select.cu on the
+  card: candidates, k best, count proof and per-row exact fallback in one
+  launch) in place of the stable sort. It returns the exact engine's sets.
+- "auto" picks, for CUDA tensors, "screened" when the base holds at least
+  _SCREEN_MIN_BASE rows and "verified" below that, and "verified" is the
+  fallback engine of the screened paths there, as on the TPU; on the CPU
+  "auto" and the fallbacks are "exact", as in the JAX package off the TPU.
+- precision ("default", "high", "highest") is the exact and verified
+  engines' product precision (ops/distance.py); the screened engines
+  re-rank in full fp32 whatever it is.
 
 Host syncs: the JAX engine's lazy `lax.cond` branches become Python `if`s
 on host values. screened_knn_traced reads the class-A and class-B counts
@@ -30,8 +37,10 @@ import numpy as np
 import torch
 
 from neighborhoodwatch_tpu_torch import resolve_device
-from neighborhoodwatch_tpu_torch.ops import screen_kernel
-from neighborhoodwatch_tpu_torch.ops.distance import pairwise_distance
+from neighborhoodwatch_tpu_torch.ops import screen_kernel, verified_kernel
+from neighborhoodwatch_tpu_torch.ops.distance import (
+    PRECISIONS, pairwise_distance,
+)
 from neighborhoodwatch_tpu_torch.ops.topk import merge_topk, smallest_k
 from neighborhoodwatch_tpu_torch.utils.misc import cdiv, round_up
 
@@ -49,14 +58,19 @@ def _select_engine(engine: str, n_base: int | None,
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; expected one of "
                          f"{'/'.join(ENGINES)}")
-    if engine == "verified":
-        return "exact"
     if engine != "auto":
         return engine
-    if (device.type == "cuda" and n_base is not None
-            and n_base >= _SCREEN_MIN_BASE):
+    if device.type != "cuda":
+        return "exact"
+    if n_base is not None and n_base >= _SCREEN_MIN_BASE:
         return "screened"
-    return "exact"
+    return "verified"
+
+
+def _fallback_engine(device: torch.device) -> str:
+    """The scan engine of the screened paths' exact fallbacks: "verified"
+    on the card (the JAX package's choice on the TPU), "exact" elsewhere."""
+    return "verified" if device.type == "cuda" else "exact"
 
 
 def _as_tensor(x, device) -> torch.Tensor:
@@ -66,16 +80,33 @@ def _as_tensor(x, device) -> torch.Tensor:
 
 
 def _check_precision(precision: str) -> None:
-    if precision != "highest":
-        raise ValueError(f"precision={precision!r}: the exact engine runs "
-                         f"full fp32 only ('highest')")
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r}; expected one of "
+                         f"{'/'.join(PRECISIONS)}")
+
+
+def _verified_smallest_k(d, k: int):
+    """The verified engine's per-tile select (ops/verified_kernel.py):
+    ((Q, k) ascending, (Q, k) int64 positions). A k the kernel cannot
+    sort in shared memory takes the exact select."""
+    if d.device.type == "cuda" and not verified_kernel.supports(d.shape[1],
+                                                                k):
+        return smallest_k(d, k)
+    dist, pos, _ = verified_kernel.verified_select(d, k)
+    return dist, pos
+
+
+def _select(engine: str):
+    return _verified_smallest_k if engine == "verified" else smallest_k
 
 
 def _knn_scan(query, base, n_valid, base_offset, k: int, metric: str,
-              tile_size: int):
+              tile_size: int, engine: str = "exact",
+              precision: str = "highest"):
     """Scan base tiles with a running top-k. Pad-free: the last tile starts
     at B - tile_size (overlapping the previous one) and masks the rows the
-    previous tile already covered. Rows >= n_valid are masked."""
+    previous tile already covered. Rows >= n_valid are masked. `engine`
+    "verified" selects each tile's top-k with the verified select."""
     q_count = query.shape[0]
     b_count = base.shape[0]
     assert b_count >= tile_size
@@ -85,24 +116,27 @@ def _knn_scan(query, base, n_valid, base_offset, k: int, metric: str,
     local = torch.arange(tile_size, device=dev)
     run_d = torch.full((q_count, k), _INF, device=dev)
     run_i = torch.zeros((q_count, k), dtype=torch.int32, device=dev)
+    select = _select(engine)
     for t in range(n_tiles):
         start = min(t * tile_size, b_count - tile_size)
         fresh = t * tile_size - start
-        d = pairwise_distance(query, base[start:start + tile_size], metric)
+        d = pairwise_distance(query, base[start:start + tile_size], metric,
+                              precision)
         valid = (local >= fresh) & (start + local < n_valid)
         d = torch.where(valid[None, :], d, _INF)
-        td, ti = smallest_k(d, k_tile)
+        td, ti = select(d, k_tile)
         ti = (ti + start + base_offset).to(torch.int32)
         run_d, run_i = merge_topk(run_d, run_i, td, ti, k)
     return run_d, run_i
 
 
-def _knn_full(query, base, n_valid, base_offset, k: int, metric: str):
+def _knn_full(query, base, n_valid, base_offset, k: int, metric: str,
+              engine: str = "exact", precision: str = "highest"):
     """Single-tile variant: full (Q, B) distance matrix + one top-k."""
-    d = pairwise_distance(query, base, metric)
+    d = pairwise_distance(query, base, metric, precision)
     valid = torch.arange(base.shape[0], device=d.device) < n_valid
     d = torch.where(valid[None, :], d, _INF)
-    dist, idx = smallest_k(d, k)
+    dist, idx = _select(engine)(d, k)
     return dist, (idx + base_offset).to(torch.int32)
 
 
@@ -481,15 +515,17 @@ def screened_knn_traced(query, base, n_valid, base_offset, k: int,
         i = (i + base_offset).to(torch.int32)
         return (d, i, diag) if with_diagnostics else (d, i)
 
+    fb_engine = _fallback_engine(query.device)
+
     def _verified(q, n_rows: int):
-        """Exact fallback for `q`; the tile scales with a 16 MB (q rows x
-        tile) distance-matrix budget."""
+        """Exact fallback for `q` on the fallback engine; the tile scales
+        with a 16 MB (q rows x tile) distance-matrix budget."""
         if n_base <= DEFAULT_TILE:
-            return _knn_full(q, base, n_valid, 0, k, metric)
+            return _knn_full(q, base, n_valid, 0, k, metric, fb_engine)
         budget_rows = (1 << 24) // (4 * max(n_rows, 1))
         tile = max(DEFAULT_TILE, (budget_rows // 1024) * 1024)
         tile = min(tile, (n_base // 1024) * 1024 or DEFAULT_TILE)
-        return _knn_scan(q, base, n_valid, 0, k, metric, tile)
+        return _knn_scan(q, base, n_valid, 0, k, metric, tile, fb_engine)
 
     sub_width = screen_kernel.pick_sub(n_base, k, q_rows=q_count)
     cap, m, block = _screen_plan(n_base, k, dim, sub_width, passes,
@@ -594,9 +630,11 @@ def screened_knn(query, base, k: int, metric: str = "sqeuclidean",
     tensors of shape (Q, k) on `device` (None = "cuda"), indices +
     `base_offset`.
 
-    A base below one mega-tile, or a k the screen cannot hold (k > cap),
-    goes to the exact engine without a screen. `m` (the merge width) is
-    clamped to [k, cap]. One host sync reads the failed rows."""
+    A base below one mega-tile goes to the exact engine without a screen,
+    a k the screen cannot hold (k > cap) to the fallback engine ("verified"
+    on the card, as on the TPU); the failed rows' rescan runs on it too.
+    `m` (the merge width) is clamped to [k, cap]. One host sync reads the
+    failed rows."""
     dev = resolve_device(device)
     query = _as_tensor(query, dev)
     base = _as_tensor(base, dev)
@@ -607,9 +645,11 @@ def screened_knn(query, base, k: int, metric: str = "sqeuclidean",
     sub_width = screen_kernel.pick_sub(n_base, k)
     cap, _, _ = _screen_plan(n_base, k, query.shape[1], sub_width, passes,
                              lean=lean)
+    fb_engine = _fallback_engine(dev)
     if n_base < screen_kernel.MEGA or k > cap:
         return knn(query, base, k, metric=metric, base_offset=base_offset,
-                   engine="exact", device=dev)
+                   engine="exact" if n_base < screen_kernel.MEGA
+                   else fb_engine, device=dev)
     bn_row, base_stats, bhi = _prepare_arrays(base)
     cand_d, cand_i, _ = screen_kernel.screen_candidates(
         query, base, n_rows=n_base, epilogue=_EPILOGUE_FOR_METRIC[metric],
@@ -624,7 +664,7 @@ def screened_knn(query, base, k: int, metric: str = "sqeuclidean",
     if len(bad):
         # n_base >= MEGA > DEFAULT_TILE: the rescan always scans tiles
         d_f, i_f = _knn_scan(query[bad], base, n_base, 0, k, metric,
-                             DEFAULT_TILE)
+                             DEFAULT_TILE, fb_engine)
         dist[bad] = d_f
         idx[bad] = i_f.to(idx.dtype)
     return dist, (idx + base_offset).to(torch.int32)
@@ -642,10 +682,14 @@ def knn(query, base, k: int, metric: str = "sqeuclidean",
     distances ascending per row, indices global (+ `base_offset`).
 
     engine: "exact", "screened" (the fused screen kernel + certified fp32
-    re-rank + repair), "verified" (= "exact" here: it rests on a TPU
-    operation with no PyTorch counterpart) or "auto" (screened for CUDA
-    tensors on bases of >= 2 mega-tiles, exact otherwise). Every engine is
-    exact. `base` may be a PreparedBase (see prepare_base)."""
+    re-rank + repair), "verified" (the exact tiles with the verified
+    select: candidates, count proof and per-row exact fallback, the
+    hand-written kernel on the card) or "auto" (for CUDA tensors screened
+    on bases of >= 2 mega-tiles and verified below; exact on the CPU).
+    Every engine is exact. `precision` ("default": bf16 operands, "high":
+    bf16x3, "highest": fp32) sets the exact and verified engines' products;
+    the screened engine ignores it. `base` may be a PreparedBase (see
+    prepare_base)."""
     dev = resolve_device(device)
     _check_precision(precision)
     query = _as_tensor(query, dev)
@@ -668,8 +712,10 @@ def knn(query, base, k: int, metric: str = "sqeuclidean",
     if tile_size is None:
         tile_size = DEFAULT_TILE
     if n_base <= tile_size:
-        return _knn_full(query, base, n_base, base_offset, k, metric)
-    return _knn_scan(query, base, n_base, base_offset, k, metric, tile_size)
+        return _knn_full(query, base, n_base, base_offset, k, metric, engine,
+                         precision)
+    return _knn_scan(query, base, n_base, base_offset, k, metric, tile_size,
+                     engine, precision)
 
 
 class StreamingKNN:

@@ -33,6 +33,7 @@ import torch
 
 from neighborhoodwatch_tpu_torch import resolve_device
 from neighborhoodwatch_tpu_torch.ops import maxsim_kernel as mk
+from neighborhoodwatch_tpu_torch.ops.distance import products
 from neighborhoodwatch_tpu_torch.ops.knn import (
     REPAIR_BINS, _chernoff_budget, _first_rows, _merge_select,
     _check_precision,
@@ -69,15 +70,16 @@ def _scalar(value, like):
     return torch.full((), value, device=like.device, dtype=like.dtype)
 
 
-def maxsim_scores(queries, q_mask, docs, d_mask):
-    """Dense MaxSim scores (Q, D) of tensors on one device, full fp32.
+def maxsim_scores(queries, q_mask, docs, d_mask, precision: str = "highest"):
+    """Dense MaxSim scores (Q, D) of tensors on one device, the token
+    products at `precision` (ops/distance.py), fp32 sums and maxima.
     A doc whose score is NaN (inf/NaN garbage tokens) scores NEG, so it
     loses in every engine, like the screen's NaN -> +inf key."""
     q_n, tq = queries.shape[:2]
     d_n, td = docs.shape[:2]
     q2 = queries.reshape(q_n * tq, queries.shape[-1])
     d2 = docs.reshape(d_n * td, docs.shape[-1])
-    sims = q2 @ d2.T                                        # (Qt, D*Td)
+    sims = products(q2, d2, precision)                      # (Qt, D*Td)
     sims = torch.where(d_mask.reshape(1, d_n * td), sims, _scalar(NEG, sims))
     per_qtok = sims.view(q_n * tq, d_n, td).amax(dim=2)     # (Qt, D)
     per_qtok = torch.where(q_mask.reshape(q_n * tq, 1), per_qtok,
@@ -103,11 +105,11 @@ def pad_token_lists(token_lists, dim, max_tokens=None):
 
 
 def _maxsim_tile_step(run_s, run_i, queries, q_mask, tile, tmask, start: int,
-                      n_docs: int, k: int):
+                      n_docs: int, k: int, precision: str = "highest"):
     """Fold one doc tile into the running (scores desc, ids) top-k; tile
     rows at or past n_docs - start are padding."""
     tile_docs = tile.shape[0]
-    scores = maxsim_scores(queries, q_mask, tile, tmask)
+    scores = maxsim_scores(queries, q_mask, tile, tmask, precision)
     valid = torch.arange(tile_docs, device=tile.device) + start < n_docs
     scores = torch.where(valid[None, :], scores, _scalar(-_INF, scores))
     # larger score is better: negate into the smaller-is-better selection
@@ -142,7 +144,8 @@ def _maxsim_engine(engine: str, n_docs: int, tq: int, dim: int,
     return "exact"
 
 
-def _exact_topk(queries, q_mask, docs, d_mask, k: int, tile_docs: int):
+def _exact_topk(queries, q_mask, docs, d_mask, k: int, tile_docs: int,
+                precision: str = "highest"):
     n_docs = docs.shape[0]
     q_n = queries.shape[0]
     run_s = torch.full((q_n, k), -_INF, device=queries.device)
@@ -150,7 +153,7 @@ def _exact_topk(queries, q_mask, docs, d_mask, k: int, tile_docs: int):
     for start in range(0, n_docs, tile_docs):
         run_s, run_i = _maxsim_tile_step(
             run_s, run_i, queries, q_mask, docs[start:start + tile_docs],
-            d_mask[start:start + tile_docs], start, n_docs, k)
+            d_mask[start:start + tile_docs], start, n_docs, k, precision)
     return run_s, run_i
 
 
@@ -163,7 +166,9 @@ def maxsim_topk(queries, q_mask, docs, d_mask, k: int,
     device="cpu"), exact with every engine. engine="auto" takes the fused
     screen kernel for CUDA tensors when the shape fits; `screen_precision`
     then picks its pass tier (see maxsim_topk_screened). The exact path
-    walks `tile_docs`-doc tiles with a running top-k."""
+    walks `tile_docs`-doc tiles with a running top-k, its products at
+    `precision` ("default", "high" or "highest"; ops/distance.py); the
+    screened engine re-ranks in fp32 whatever it is."""
     dev = resolve_device(device)
     _check_precision(precision)
     queries, docs = _f32(queries, dev), _f32(docs, dev)
@@ -175,7 +180,8 @@ def maxsim_topk(queries, q_mask, docs, d_mask, k: int,
                                     screen_precision=screen_precision,
                                     device=dev)
     assert k <= docs.shape[0]
-    return _exact_topk(queries, q_mask, docs, d_mask, k, tile_docs)
+    return _exact_topk(queries, q_mask, docs, d_mask, k, tile_docs,
+                       precision)
 
 
 def _maxsim_tier_eps(queries, q_mask, q_scale, d_max, dlo_max, rerank_acc,
@@ -658,7 +664,7 @@ class StreamingMaxSim:
         else:
             self.state = _maxsim_tile_step(
                 run_s, run_i, self.queries, self.q_mask, doc_tile, tile_mask,
-                offset, offset + n, self.k)
+                offset, offset + n, self.k, self.precision)
         self._seen += n
 
     @property

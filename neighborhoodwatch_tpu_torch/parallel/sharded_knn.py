@@ -16,10 +16,12 @@ every rank (gathered over dp).
 
 Engine per shard: ops/knn._select_engine on the shard's row count and
 device. "auto" takes the screened engine (the hand-written screen kernel,
-csrc/screen_keys.cu) on CUDA shards of >= 2 mega-tiles; a screened request
-on a shard below one mega-tile runs the exact scan. The JAX package's
-`_trace_safe_engine` and `_small_shard_engine` pick the kernel only on a
-TPU, which would never launch it here.
+csrc/screen_keys.cu) on CUDA shards of >= 2 mega-tiles and the verified
+engine (csrc/verified_select.cu) below; an "auto" or screened request on a
+shard below one mega-tile scans on the verified engine on the card and
+the exact one on the CPU (`_small_shard_engine`, the JAX package's choice
+on a TPU and off it). `precision` sets the exact and verified scans'
+products, as in ops/knn.knn.
 
 `ring_knn` rotates the base shards around the mp line with send and recv,
 folding each visiting shard into a running top-k; every fold merges
@@ -66,9 +68,18 @@ def _host_or_tensor(x, dtype=np.float32):
     return x if isinstance(x, torch.Tensor) else np.asarray(x, dtype=dtype)
 
 
+def _small_shard_engine(engine: str, device) -> str:
+    """The scan engine of a shard the screen does not take (or of an
+    exact/verified request)."""
+    if engine in ("exact", "verified"):
+        return engine
+    return K._fallback_engine(device)
+
+
 def _shard_topk(q_local, b_local, local_valid: int, shard_off: int, k: int,
                 metric: str, engine: str, tile_size: int,
-                screen_precision: str, with_diagnostics: bool):
+                screen_precision: str, with_diagnostics: bool,
+                precision: str = "highest"):
     """Exact top-k of this rank's queries against its shard, global ids;
     diag = (class-A, class-B, whole-batch) of the screened engine."""
     shard_rows = b_local.shape[0]
@@ -83,17 +94,22 @@ def _shard_topk(q_local, b_local, local_valid: int, shard_off: int, k: int,
             diag = out[2]
     elif shard_rows > tile_size:
         d, i = K._knn_scan(q_local, b_local, local_valid, shard_off, k,
-                           metric, tile_size)
+                           metric, tile_size,
+                           _small_shard_engine(engine, q_local.device),
+                           precision)
     else:
         d, i = K._knn_full(q_local, b_local, local_valid, shard_off, k,
-                           metric)
+                           metric, _small_shard_engine(engine,
+                                                       q_local.device),
+                           precision)
     return d, i, diag
 
 
 def _sharded_fold(mesh, run_d, run_i, q_local, b_local, offset: int,
                   n_valid: int, k: int, metric: str, engine: str,
                   tile_size: int, screen_precision: str = "auto",
-                  with_diagnostics: bool = False):
+                  with_diagnostics: bool = False,
+                  precision: str = "highest"):
     """One sharded step: fold this rank's shard of an mp-split base batch
     into its dp slice of the running top-k. `offset` is the global row id
     of the batch's row 0, `n_valid` the batch's real rows. With
@@ -107,7 +123,7 @@ def _sharded_fold(mesh, run_d, run_i, q_local, b_local, offset: int,
     kk = min(k, shard_rows)
     d, i, diag = _shard_topk(q_local, b_local, local_valid, offset + start,
                              kk, metric, engine, tile_size, screen_precision,
-                             with_diagnostics)
+                             with_diagnostics, precision)
     all_d = all_gather(mesh, d, MP_AXIS)          # (mp, q_local, kk)
     all_i = all_gather(mesh, i, MP_AXIS)
     md, mi = merge_topk_many(all_d, all_i, min(k, mesh.mp * kk))
@@ -159,7 +175,8 @@ def sharded_knn(query, base, k: int, mesh, metric: str = "sqeuclidean",
     run_d = torch.full((q_hi - q_lo, k), _INF, device=dev)
     run_i = torch.zeros((q_hi - q_lo, k), dtype=torch.int32, device=dev)
     d, i = _sharded_fold(mesh, run_d, run_i, q_local, b_local, 0, n_valid, k,
-                         metric, engine, tile_size, screen_precision)
+                         metric, engine, tile_size, screen_precision,
+                         precision=precision)
     return _gather_rows(mesh, d), _gather_rows(mesh, i)
 
 
@@ -291,7 +308,8 @@ class ShardedStreamingKNN:
                 else self.screen_precision)
         out = _sharded_fold(self.mesh, *self.state, self.query, local, offset,
                             n, self.k, self.metric, engine, self.tile_size,
-                            tier, with_diagnostics=adaptive)
+                            tier, with_diagnostics=adaptive,
+                            precision=self.precision)
         self.state = out[:2]
         new_diag = None
         if adaptive:
@@ -394,7 +412,8 @@ def ring_knn(query, base, k: int, mesh, metric: str = "sqeuclidean",
         start = ((mesh.mp_rank - step) % mp) * shard_rows
         valid = min(max(n_valid - start, 0), shard_rows)
         d, i, _ = _shard_topk(q_local, held, valid, start, k, metric,
-                              "exact", K.DEFAULT_TILE, "auto", False)
+                              "exact", K.DEFAULT_TILE, "auto", False,
+                              precision)
         run_d, run_i = _lex_merge(run_d, run_i, d, i, k)
         if shift is not None:
             held = shift.wait()

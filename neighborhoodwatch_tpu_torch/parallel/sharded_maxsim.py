@@ -43,7 +43,8 @@ ENGINES = ("auto", "exact", "screened")
 def _sharded_maxsim_tile(mesh, q_local, qm_local, t_local, m_local,
                          offset: int, n_valid: int, k: int, engine: str,
                          m: int, block: int, screen_precision: str = "high",
-                         with_diagnostics: bool = False):
+                         with_diagnostics: bool = False,
+                         precision: str = "highest"):
     """One sharded tile: this rank's queries against its shard of the
     tile, merged over the mp line. Returns (scores desc, global doc ids,
     fail) for this rank's queries, fail any-reduced over the mp shards;
@@ -77,7 +78,8 @@ def _sharded_maxsim_tile(mesh, q_local, qm_local, t_local, m_local,
         if with_diagnostics:
             pf = out[3].to(dev)
     else:
-        scores = M.maxsim_scores(q_local, qm_local, t_local, m_local)
+        scores = M.maxsim_scores(q_local, qm_local, t_local, m_local,
+                                 precision)
         scores = torch.where(valid[None, :], scores, -_INF)
         neg, i = smallest_k(-scores, kk)
         s = -neg
@@ -229,7 +231,7 @@ class ShardedStreamingMaxSim:
         out = _sharded_maxsim_tile(
             self.mesh, self.queries, self.q_mask, t_local, m_local, offset,
             n, self.k, engine, m, block, screen_precision=used_tier,
-            with_diagnostics=want_diag)
+            with_diagnostics=want_diag, precision=self.precision)
         ts, ti, fail = out[:3]
         if engine == "screened":
             fail_h = self._gather_q(fail)
@@ -289,7 +291,8 @@ class ShardedStreamingMaxSim:
         if local_real:
             s_l, i_l = M._exact_topk(self.queries[bad], self.q_mask[bad],
                                      t_local[:local_real],
-                                     m_local[:local_real], kk_p, 2048)
+                                     m_local[:local_real], kk_p, 2048,
+                                     self.precision)
             s_p[:, :kk_p] = s_l
             i_p[:, :kk_p] = i_l + offset + lo
         s_f, i_f = merge_partial_topk_desc(

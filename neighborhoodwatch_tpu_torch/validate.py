@@ -139,8 +139,9 @@ def validate_files(data_dir, query_vector_fvec, base_vector_fvec, indices_ivec,
     counterparts here: exact device rebuild (engine="exact", full fp32),
     screened device engine (engine="screened" — the screen kernel plus the
     certified re-rank, a different device code path; it stands in for the
-    JAX package's approximate-min-k "verified" engine, which rests on a
-    TPU operation), float64 numpy brute force (host, no torch), and
+    JAX package's "verified" engine, which here shares the exact engine's
+    products and returns its selection), float64 numpy brute force (host,
+    no torch), and
     pairwise distance on the mismatching neighbor vectors.
     Returns mismatch count."""
     dev = resolve_device(device)
