@@ -115,24 +115,31 @@ Phases, each printing its own lines and seconds:
      "wgmma" launch a layer a forward, "auto" none. The launches go into
      the kernels line as `port_launches` and `probe_launches`.
  13. the verified engine's select (csrc/verified_select.cu, K7, through
-     ops/verified_kernel.py): (a) the kernel against its plain version on
-     fp32 distance tiles of unit Gaussian rows at 1536 dims, 1,000 x 8,192
-     and 128 x 32,768 and 512 x 8,192 with every base row three times
-     (planted ties), k 1/100/1024: ids equal as sets and distances equal
-     bit for bit, rows that failed the proof counted (0), and a planted
-     candidate set (column 0 dropped, every row's minimum) whose every row
-     must fail and fall back to the exact selection; the kernel's time
-     beside the plain version, torch.topk (library_ms), the exact engine's
-     stable sort and the bytes bound; (b) knn(engine="verified") against
+     ops/verified_kernel.py; variants "adaptive", the default: rows in
+     registers, an adaptive first digit, a persistent grid prefetching the
+     next row by bulk copies, clusters for wide or few rows, and "radix",
+     the first version): (a) both variants against the plain version on
+     fp32 distance tiles of unit Gaussian rows at 1536 dims, 1,000 x 8,192,
+     128 x 32,768 (the class-B repair's tile), 512 x 8,192 with every base
+     row three times (planted ties) and 16 x 262,144 (an escalation's
+     tile), k 1/100/1024: positions, distance bits and proof verdicts
+     equal, no row fallen back, and a planted candidate set (column 0
+     dropped, every row's minimum) on the persistent path and on both
+     cluster paths, whose every row must fail and fall back to the exact
+     selection; the variants timed in turns (radix, adaptive, adaptive,
+     radix), each a CUDA graph of 10 calls (the card's time alone) and
+     one call through the wrapper (the host's share included), beside the
+     plain version, torch.topk (library_ms), the exact engine's stable
+     sort and the bytes bound; (b) knn(engine="verified") against
      "exact" at phase 3's data on 512 queries (tie-tolerant), their ms and
      the exact engine with torch.topk as its select, beside the fp32
      product's bound; (c) phase 8's 1,000 x 100,000 x 1024 screened call
      with its exact fallback on the stable sort and on K7, in turns, and
      the K7 launches of that call; K7's launches in phase 8's nw_main (the
-     kernels line's `launches`, which must be at least 1) and on every
-     other path that runs it (`launches_by_path`); (d) precision
-     "default" and "high" on the exact engine at (b)'s shape: ms and max
-     |d - d_highest|.
+     kernels line's `launches`, all of them "adaptive") and on every other
+     path that runs it (`launches_by_path`, `launches_by_path_variant`);
+     (d) precision "default" and "high" on the exact engine at (b)'s
+     shape: ms and max |d - d_highest|.
 The line before the last is one JSON object with the kernels' numbers;
 the last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 without that line; without a CUDA card it exits 2.
@@ -232,7 +239,12 @@ def ptxas_report(name, report):
         if "Compiling entry function" in line:
             sym = line.split("'")[1]
             if "verified_select" in sym:
-                entry = "verified_select"
+                # the adaptive variant's template arguments: resident keys,
+                # cluster
+                targs = re.search(r"ILb(\d)ELb(\d)E", sym)
+                entry = ("radix" if targs is None else
+                         f"adaptive<registers={targs.group(1)}, "
+                         f"cluster={targs.group(2)}>")
             elif "masked_attention" in sym:
                 # the kernel's name, then the mangled template arguments:
                 # dtype, head dim
@@ -268,9 +280,11 @@ def reset_counts(wrapper):
             v: 0 for v in wrapper.launches_by_variant}
 
 
-# the verified select's launches on each path that runs it, by path: the
-# count is set to 0 just before the path and read just after
+# the verified select's launches on each path that runs it, by path, in
+# all and per variant: the counts are set to 0 just before the path and
+# read just after
 VERIFIED_LAUNCHES = {}
+VERIFIED_BY_VARIANT = {}
 
 
 @contextlib.contextmanager
@@ -279,6 +293,7 @@ def verified_counted(path):
     reset_counts(vk.verified_select)
     yield
     VERIFIED_LAUNCHES[path] = vk.verified_select.launches
+    VERIFIED_BY_VARIANT[path] = dict(vk.verified_select.launches_by_variant)
 
 
 def screen_operands(q, b):
@@ -2432,9 +2447,13 @@ def verified_tiles():
     b = unit_rows(32768, 1536, g)
     # every base row three times over: exact ties at and around the k-th
     tripled = b[:2731].repeat(3, 1)[:8192]
-    return {"1000x8192": pairwise_distance(q, b[:8192]),
-            "128x32768": pairwise_distance(q[:128], b),
-            "512x8192_ties": pairwise_distance(q[:512], tripled)}
+    tiles = {"1000x8192": pairwise_distance(q, b[:8192]),
+             "128x32768": pairwise_distance(q[:128], b),
+             "512x8192_ties": pairwise_distance(q[:512], tripled)}
+    # the escalation's tile of few wide rows
+    wide = unit_rows(262144, 1536, g)
+    tiles["16x262144"] = pairwise_distance(q[:16], wide)
+    return tiles
 
 
 def per_call_ms(fn):
@@ -2444,16 +2463,83 @@ def per_call_ms(fn):
     return event_ms(lambda: [fn() for _ in range(REPS)]) / REPS
 
 
+def graph_ms(fn):
+    """Milliseconds of one call of `fn` on the card alone: REPS calls
+    captured in a CUDA graph, its replay timed by CUDA events (median of
+    3), so that no host time lies between the calls."""
+    import torch
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(REPS):
+            fn()
+    graph.replay()
+    ms = event_ms(graph.replay) / REPS
+    del graph
+    return ms
+
+
 def select_bound_ms(q_rows, n, k):
     """One read of the tile, one write of (dist f32, position int64) and of
     the proof's byte per row, at the card's memory rate."""
     return (q_rows * n * 4 + q_rows * k * 12 + q_rows) / PEAK_BYTES * 1e3
 
 
+def verified_path(vk, variant):
+    """The path the last launch took: "radix", or the "adaptive" plan's
+    path, cluster size and where its keys live."""
+    if variant == "radix":
+        return "radix"
+    pl, active = vk.verified_select.last_plan
+    return (f"{pl.path} C={pl.cluster} {pl.clusters} clusters (card holds "
+            f"{active}), keys in {pl.keys_in}, {pl.buffers} buffers, "
+            f"{pl.smem_bytes} B")
+
+
+def verified_check(vk, d, k, want, name, exclude=-1):
+    """Both variants on tile `d` against `want` (the plain version's
+    result): positions equal, distances equal bit for bit, proof verdicts
+    equal, and the rows that fell back (all of them when a column is
+    excluded, else none). Returns ({variant: path}, the largest |distance
+    - plain| over both variants)."""
+    import torch
+    paths, err = {}, 0.0
+    for variant in vk.VARIANTS:
+        vk.reset_failed_rows()
+        with vk.forced_variant(variant):
+            got = vk.verified_select(d, k, exclude=exclude)
+        torch.cuda.synchronize()
+        failed = vk.failed_rows()
+        paths[variant] = verified_path(vk, variant)
+        diff = (got[0] - want[0]).abs().nan_to_num(0.0)
+        err = max(err, float(diff.max()))
+        same_i = torch.equal(got[1], want[1])
+        same_d = torch.equal(got[0].view(torch.int32),
+                             want[0].view(torch.int32))
+        same_ok = torch.equal(got[2], want[2])
+        same = same_i and same_d and same_ok
+        expected = d.shape[0] if exclude >= 0 else 0
+        if not same or failed != expected:
+            raise AssertionError(
+                f"verified_select [{variant}] {name} k={k} exclude="
+                f"{exclude}: positions equal {same_i}, distances bit-equal "
+                f"{same_d}, proof verdicts equal {same_ok}, "
+                f"{failed} rows fell back ({expected} expected); path "
+                f"{paths[variant]}")
+    return paths, err
+
+
 def verified_vs_plain(tiles):
-    """(a): the kernel against its plain version on every tile and k; the
-    kernel, plain version, torch.topk and the exact engine's stable sort
-    timed; then the planted candidate set. Returns {case: {k: numbers}}."""
+    """(a): both variants against the plain version on every tile and k,
+    bit for bit; the variants timed in turns (radix, adaptive, adaptive,
+    radix) beside the plain version, torch.topk, the exact engine's stable
+    sort and the bytes bound; then a planted candidate set on every path.
+    Returns {case: {k: numbers}}."""
     import torch
     from neighborhoodwatch_tpu_torch.ops import verified_kernel as vk
     from neighborhoodwatch_tpu_torch.ops.topk import smallest_k
@@ -2461,56 +2547,59 @@ def verified_vs_plain(tiles):
     for name, d in tiles.items():
         q_rows, n = d.shape
         for k in (1, 100, 1024):
-            vk.reset_failed_rows()
-            got = vk.verified_select(d, k)
-            torch.cuda.synchronize()
-            failed = vk.failed_rows()
             want = vk.verified_select_plain(d, k)
-            sets_equal = torch.equal(got[1].sort(1).values,
-                                     want[1].sort(1).values)
-            bits_equal = torch.equal(got[0].view(torch.int32),
-                                     want[0].view(torch.int32))
-            same = float((got[1] == want[1]).float().mean())
-            err = float((got[0] - want[0]).abs().nan_to_num(0.0).max())
-            if not (sets_equal and bits_equal and bool(got[2].all())) \
-                    or failed:
-                raise AssertionError(
-                    f"verified_select {name} k={k}: sets equal "
-                    f"{sets_equal}, distances bit-equal {bits_equal}, proof "
-                    f"held on {int(got[2].sum())} of {q_rows} rows, "
-                    f"{failed} rows fell back")
-            ms = per_call_ms(lambda: vk.verified_select(d, k))
+            if not bool(want[2].all()):
+                raise AssertionError(f"plain {name} k={k}: the proof failed")
+            paths, err = verified_check(vk, d, k, want, name)
+            # the card's time of each variant in turns, and of one call
+            # through the wrapper (the host's share included)
+            turns = {v: [] for v in vk.VARIANTS}
+            call = {}
+            for variant in ("radix", "adaptive", "adaptive", "radix"):
+                with vk.forced_variant(variant):
+                    turns[variant].append(
+                        graph_ms(lambda: vk.verified_select(d, k)))
+                    call.setdefault(variant, per_call_ms(
+                        lambda: vk.verified_select(d, k)))
+            ms = float(np.mean(turns["adaptive"]))
+            before = float(np.mean(turns["radix"]))
             plain_ms = event_ms(lambda: vk.verified_select_plain(d, k))
-            topk_ms = per_call_ms(lambda: torch.topk(d, k, largest=False))
-            sort_ms = per_call_ms(lambda: smallest_k(d, k))
+            topk_ms = graph_ms(lambda: torch.topk(d, k, largest=False))
+            sort_ms = graph_ms(lambda: smallest_k(d, k))
             bound = select_bound_ms(q_rows, n, k)
             out.setdefault(name, {})[str(k)] = {
-                "ms": ms, "plain_ms": plain_ms, "library_ms": topk_ms,
-                "sort_ms": sort_ms, "bound_ms": bound, "max_abs_err": err,
-                "identical_positions": same, "failed_rows": failed}
-            log(f"  (a) {name} k={k}: kernel {ms:.4f} ms ({ms / bound:.1f}x "
-                f"the bytes bound {bound:.4f} ms), torch.topk {topk_ms:.4f} "
-                f"ms, stable sort (the exact select) {sort_ms:.4f} ms, plain "
-                f"{plain_ms:.3f} ms; vs plain: ids equal as sets, "
-                f"identical positions {same:.5f}, distances bit-equal, rows "
-                f"fallen back {failed}")
-    # a planted candidate set: column 0 holds every row's minimum and is
-    # dropped from the candidates, so every row must fail and fall back
-    d = tiles["1000x8192"].clone()
-    d[:, 0] = -1.0
-    vk.reset_failed_rows()
-    dist, pos, ok = vk.verified_select(d, 100, exclude=0)
-    failed = vk.failed_rows()
-    want_d, want_i = smallest_k(d, 100)
-    if ok.any() or failed != d.shape[0] or not torch.equal(pos, want_i) \
-            or not torch.equal(dist, want_d):
-        raise AssertionError(f"planted failure: proof held on "
-                             f"{int(ok.sum())} rows, {failed} fell back, "
-                             f"result equals the exact selection "
-                             f"{torch.equal(pos, want_i)}")
-    log(f"  (a) planted candidate set (1000x8192, k=100, column 0 dropped): "
-        f"proof failed on {failed} of {d.shape[0]} rows, all selected again "
-        f"exactly in the kernel")
+                "ms": ms, "before_ms": before, "turns_ms": turns,
+                "call_ms": call, "plain_ms": plain_ms,
+                "library_ms": topk_ms, "sort_ms": sort_ms,
+                "bound_ms": bound, "max_abs_err": err, "failed_rows": 0,
+                "path": paths["adaptive"]}
+            log(f"  (a) {name} k={k}: adaptive {ms:.4f} ms "
+                f"({ms / bound:.2f}x the bytes bound {bound:.4f} ms; "
+                f"{ms / topk_ms:.2f}x torch.topk {topk_ms:.4f} ms), radix "
+                f"{before:.4f} ms ({before / bound:.2f}x), turns (radix, "
+                f"adaptive, adaptive, radix) {turns['radix'][0]:.4f} / "
+                f"{turns['adaptive'][0]:.4f} / {turns['adaptive'][1]:.4f} / "
+                f"{turns['radix'][1]:.4f}; one call through the wrapper "
+                f"(host included) radix {call['radix']:.4f} / adaptive "
+                f"{call['adaptive']:.4f} ms; stable sort (the exact select) "
+                f"{sort_ms:.4f} ms, plain {plain_ms:.3f} ms; both variants "
+                f"equal the plain version bit for bit, no row fell back; "
+                f"path {paths['adaptive']}")
+    # a planted candidate set on every path: column 0 holds every row's
+    # minimum and is dropped from the candidates, so every row must fail
+    # and fall back to the exact selection
+    for name in ("1000x8192", "128x32768", "16x262144"):
+        d = tiles[name].clone()
+        d[:, 0] = -1.0
+        want_d, want_i = smallest_k(d, 100)
+        want = (want_d, want_i, torch.zeros(d.shape[0], dtype=torch.bool,
+                                            device=d.device))
+        paths, _ = verified_check(vk, d, 100, want, name, exclude=0)
+        log(f"  (a) planted candidate set ({name}, k=100, column 0 "
+            f"dropped): every row failed the proof and was selected again "
+            f"exactly in the kernel, on both variants; adaptive path "
+            f"{paths['adaptive']}")
+        del d
     return out
 
 
@@ -2643,18 +2732,25 @@ def phase_verified(rec, nw):
     verified_engine(rec)
     verified_nw_batch(rec, nw)
     # the main path: phase 8's nw_main, whose screened call falls back on
-    # K7 for every query that fails the certificate
+    # K7 for every query that fails the certificate, on the default variant
     launches = VERIFIED_LAUNCHES["nw"]
-    if launches < 1:
-        raise AssertionError("nw_main never launched the verified select")
+    by_variant = VERIFIED_BY_VARIANT["nw"]
+    if launches < 1 or by_variant["adaptive"] != launches:
+        raise AssertionError(f"nw_main launched the verified select "
+                             f"{launches} times, by variant {by_variant}")
     main = shapes["1000x8192"]["100"]
-    rec.update(launches=launches, max_abs_err=max(
-        v["max_abs_err"] for case in shapes.values() for v in case.values()),
-        ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
-        bound_by="bytes", library_ms=main["library_ms"],
-        sort_ms=main["sort_ms"], shapes=shapes,
-        launches_by_path=dict(VERIFIED_LAUNCHES))
-    log(f"  K7 launches by path (each counted from 0): {VERIFIED_LAUNCHES}")
+    rec.update(variant="adaptive", launches=launches,
+               launches_by_variant=by_variant, max_abs_err=max(
+                   v["max_abs_err"] for case in shapes.values()
+                   for v in case.values()),
+               ms=main["ms"], before_ms=main["before_ms"],
+               plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+               bound_by="bytes", library_ms=main["library_ms"],
+               sort_ms=main["sort_ms"], shapes=shapes,
+               launches_by_path=dict(VERIFIED_LAUNCHES),
+               launches_by_path_variant=dict(VERIFIED_BY_VARIANT))
+    log(f"  K7 launches by path (each counted from 0): {VERIFIED_LAUNCHES}; "
+        f"by variant {VERIFIED_BY_VARIANT}")
 
 
 def main():

@@ -30,7 +30,18 @@ def cuda():
 
 def _tile(rng, q, n, kind):
     d = rng.standard_normal((q, n)).astype(np.float32) ** 2
-    if kind == "ties":
+    if kind == "crowded":
+        # every distance in [1.30, 1.34]: the top bits of every key agree
+        d = (1.30 + 0.04 * rng.random((q, n))).astype(np.float32)
+    elif kind == "dot":
+        # "dot" distances: both signs, the range across the sign fold
+        d = (0.1 * rng.standard_normal((q, n))).astype(np.float32)
+    elif kind == "nan":
+        d[:, 5::11] = np.nan                # NaN sorts after +inf
+        d[:, 7::13] = np.inf
+        d[:, 2::17] = -0.0
+        d[-1] = np.nan                      # an all-NaN row
+    elif kind == "ties":
         # every value three times over: ties at and around the k-th
         d = np.repeat(d[:, : n // 3 + 1], 3, axis=1)[:, :n].copy()
     elif kind == "tail":
@@ -52,7 +63,19 @@ def _same(got, want):
     assert torch.equal(got[2].cpu(), want[2])
 
 
+def _plan_of(variant, q, n, k):
+    """The path the launch took: "radix", or the "adaptive" plan's path and
+    where its keys live."""
+    if variant == "radix":
+        return "radix"
+    pl, active = vk.verified_select.last_plan
+    assert active >= 1
+    assert pl == vk.plan(q, n, k, vk._sm_count(torch.device("cuda")))
+    return f"{pl.path}/{pl.keys_in}"
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("variant", vk.VARIANTS)
 @pytest.mark.parametrize("q,n,k,kind", [
     (7, 100, 1, "random"),
     (64, 8192, 100, "random"),
@@ -60,17 +83,33 @@ def _same(got, want):
     (20, 5000, 100, "tail"),
     (12, 3000, 64, "zeros"),
     (40, 4096, 100, "coarse"),
-    # the repair plan's widest tile: 128 rows x 32,768 columns
+    # a persistent tile of many narrow rows: about two blocks an SM walk
+    # 600 rows, the next row in flight
+    (600, 2000, 10, "random"),
+    (300, 8192, 100, "crowded"),
+    (300, 8192, 100, "dot"),
+    (300, 4096, 100, "nan"),
+    (300, 8192, 1024, "tail"),
+    # the repair plan's widest tile: 128 rows x 32,768 columns, clusters
     (128, 32768, 100, "random"),
+    (128, 32768, 100, "crowded"),
     (16, 32768, 1024, "ties"),
-    # wider than shared memory: every pass reads device memory
+    # the escalation's 16 x 262,144: 8 blocks a row, slices in shared
+    # memory
+    (16, 262144, 100, "random"),
+    (16, 262144, 1024, "dot"),
+    # N % 4 != 0: no bulk copies (a base of 4,099 rows in one tile)
+    (4, 4099, 100, "random"),
+    # wider than a cluster's shared memory: every sweep reads L2
     (3, 70001, 100, "random"),
-    # margin > N: the margin is clamped to the row
+    (2, 1000448, 100, "crowded"),
+    # margin > N: the margin is clamped to the row; k = N
     (9, 50, 40, "random"),
     (5, 64, 64, "ties"),
+    (3, 300, 300, "nan"),
     # the largest k the kernel sorts in shared memory
     (2, 9000, 6553, "random")])
-def test_verified_select_matches_plain(cuda, q, n, k, kind):
+def test_verified_select_matches_plain(cuda, variant, q, n, k, kind):
     """The kernel returns what the plain version returns, position for
     position and bit for bit (both keep the lowest positions among equal
     values), the proof holds on every row and no row falls back."""
@@ -79,31 +118,60 @@ def test_verified_select_matches_plain(cuda, q, n, k, kind):
     vk.reset_failed_rows()
     want = vk.verified_select_plain(d, k)
     launches = vk.verified_select.launches
-    got = vk.verified_select(d.to(cuda), k)
+    with vk.forced_variant(variant):
+        got = vk.verified_select(d.to(cuda), k)
     torch.cuda.synchronize()
     assert vk.verified_select.launches == launches + 1
+    _plan_of(variant, q, n, k)
     _same(got, want)
     assert bool(want[2].all())
     assert vk.failed_rows() == 0
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,k", [(8192, 100), (32768, 1024), (70001, 10)])
-def test_planted_failure_falls_back_in_kernel(cuda, n, k):
+@pytest.mark.parametrize("variant", vk.VARIANTS)
+@pytest.mark.parametrize("q,n,k,path", [
+    (200, 8192, 100, "persistent/registers"),
+    (6, 32768, 1024, "cluster/registers"),
+    (3, 262144, 100, "cluster/shared"),
+    (6, 70001, 10, "cluster/device")])
+def test_planted_failure_falls_back_in_kernel(cuda, variant, q, n, k, path):
     """Column 0 holds each row's minimum and is kept out of the candidate
     stage: every row fails the proof, is counted, and is selected again
-    exactly inside the kernel."""
+    exactly inside the kernel, on every path of the plan."""
     rng = np.random.default_rng(n)
-    d = torch.from_numpy(_tile(rng, 6, n, "random"))
+    d = torch.from_numpy(_tile(rng, q, n, "random"))
     d[:, 0] = -1.0
     vk.reset_failed_rows()
-    dist, pos, ok = vk.verified_select(d.to(cuda), k, exclude=0)
+    with vk.forced_variant(variant):
+        dist, pos, ok = vk.verified_select(d.to(cuda), k, exclude=0)
+    torch.cuda.synchronize()
+    assert _plan_of(variant, q, n, k) in ("radix", path)
     assert not bool(ok.any())
-    assert vk.failed_rows() == 6
+    assert vk.failed_rows() == q
     want_d, want_i = smallest_k(d, k)
     assert torch.equal(pos.cpu(), want_i)
     assert torch.equal(dist.cpu(), want_d)
     _same((dist, pos, ok), vk.verified_select(d, k, exclude=0))
+
+
+@pytest.mark.cuda
+def test_forced_variant_counts_launches_per_variant(cuda):
+    """The default is "adaptive"; forced_variant launches the other one,
+    and each launch is counted in all and under its variant."""
+    d = torch.rand((50, 3000), device=cuda)
+    before = dict(vk.verified_select.launches_by_variant)
+    launches = vk.verified_select.launches
+    vk.verified_select(d, 10)
+    with vk.forced_variant("radix"):
+        vk.verified_select(d, 10)
+        vk.verified_select(d, 10)
+    with vk.forced_variant("adaptive"):
+        vk.verified_select(d, 10)
+    after = vk.verified_select.launches_by_variant
+    assert after["adaptive"] - before["adaptive"] == 2
+    assert after["radix"] - before["radix"] == 2
+    assert vk.verified_select.launches - launches == 4
 
 
 @pytest.mark.cuda
