@@ -41,16 +41,27 @@ Phases, each printing its own lines and seconds:
      bound, the plain version, a product-only torch.mm yardstick (the
      whole tile loop, measured), the call's stages; then
      StreamingMaxSim over the first corpus in 8192-doc tiles;
-  7. ck: the port's ck_main --maxsim --synthetic --post-validation at
-     BERT-base width with seeded random weights (bf16 activations) over
-     17,408 base passages (2 full 8192-doc tiles + a padded tail), then
+  7. ck: (a) measured once, the ColBERT encoder loop as ck's source loop
+     runs it (one passage a generate_embedding call) op by op ("eager"):
+     host ms a forward split into tokenize, launch and copy, and the
+     card's idle share and kernels a forward from a device_trace; then the
+     port's ck_main --maxsim --synthetic --post-validation at BERT-base
+     width with seeded random weights (bf16 activations) over 17,408 base
+     passages (2 full 8192-doc tiles + a padded tail), every forward a
+     CUDA graph replay (models/graphed.py; captures within the bound), 512
+     of its base calls traced for the graphed idle share, the sections'
+     seconds and the encoder's tokens/s, then
      validate_maxsim_files, the exported neighbours against the exact
      MaxSim engine on the same parquet, and both kernel variants against
      the plain version on the run's own queries and first tile at 3/2/1
      passes;
-  8. nw: the port's nw_main --synthetic --post-validation --trace-dir at
+  8. nw: (a) measured once, the e5 encoder loop as nw's base set runs it
+     (10,000 of its sentences a call) op by op ("eager"), as in 7(a); then
+     the port's nw_main --synthetic --post-validation --trace-dir at
      e5-large-v2's full width (1024 hidden, 24 layers, 16 heads, FFN 4096,
-     bf16, seeded random weights, hash tokenizer) over 1,000 queries and
+     bf16, seeded random weights, hash tokenizer), every forward a CUDA
+     graph replay, one 10,000-sentence base call traced for the graphed
+     idle share, over 1,000 queries and
      100,000 base sentences, k=100, through the table path (compute_knn ->
      partial files -> merge): the screened engine must launch the "wgmma"
      kernel at D=1024; the ivec is held against the exact engine on the
@@ -72,10 +83,12 @@ Phases, each printing its own lines and seconds:
      generator at its published width (24 layers, bf16, seeded random
      weights, hash tokenizer) with the flash config and with "auto" on one
      state, ~131,072 ragged tokens per forward in buckets 128, 256 and
-     512: 24 "wgmma" launches per forward, 0 in bucket 64, tokens/s of
-     both, the pooled embeddings against each other; (c) the ColBERT
-     generator at bert-base width, flash against "auto" on one state over
-     passages in bucket 128 (12 "wgmma" launches per forward); (d) at
+     512: 24 "wgmma" launches per forward (a graph replay, counted at
+     replay), 0 in bucket 64, tokens/s of both, the pooled embeddings
+     against each other; (c) the ColBERT generator at bert-base width,
+     flash against "auto" on one state over passages in bucket 128 (12
+     "wgmma" launches per forward, replays after a first, capturing
+     call); (d) at
      e5-large's shapes (B = 131072/T, H=16, D=64) the two variants by CUDA
      events around 10 calls back to back, in turns, beside the bound, the
      plain version, the written-out attention and torch's
@@ -140,6 +153,20 @@ Phases, each printing its own lines and seconds:
      path that runs it (`launches_by_path`, `launches_by_path_variant`);
      (d) precision "default" and "high" on the exact engine at (b)'s
      shape: ms and max |d - d_highest|.
+ 14. the encoders' compiled forward (models/graphed.py: a CUDA graph per
+     padded shape), at published widths with seeded random weights: (b)
+     e5-large-v2 at (64, 32), (64, 128), (64, 512) and a 37-row tail padded
+     to 64, the ColBERT generator at (1, 32), a 5-row batch padded to 8 in
+     bucket 64 and 64 passages in bucket 220, and the e5-large flash
+     config in buckets 128, 256 and 512: each graph against the eager
+     forward at the same padded shape bit for bit, padded against unpadded
+     (max |d| <= 5e-2, cosine >= 0.999), eager and graph in turns: host ms
+     a forward over a synced loop, device ms by CUDA events, tokens/s, the
+     tensor-core bound (FLOPs / 989 TFLOP/s); (c) every shape replayed out
+     of its capture order, bit for bit; (d) K6 launches per replay under
+     "flash" (24, all "wgmma"); (e) generate_embedding over 10,000 base
+     sentences and encode_passages under set_sync_debug_mode("error"),
+     the readback alone exempt; (f) phase 8(a)'s loop, graphed.
 The line before the last is one JSON object with the kernels' numbers;
 the last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 without that line; without a CUDA card it exits 2.
@@ -1087,6 +1114,10 @@ def phase_ck(rec, workdir):
         _read_doc_tokens, _split_by_doc,
     )
     from neighborhoodwatch_tpu_torch.io import fvec
+    from neighborhoodwatch_tpu_torch.models import graphed
+    from neighborhoodwatch_tpu_torch.models.colbert import (
+        ColbertEmbeddingGenerator,
+    )
     from neighborhoodwatch_tpu_torch.ops import maxsim as M
     from neighborhoodwatch_tpu_torch.ops import maxsim_kernel as mk
     from neighborhoodwatch_tpu_torch.utils import naming
@@ -1103,12 +1134,39 @@ def phase_ck(rec, workdir):
     if not output_hdf5:
         argv.append("--no-gen-hdf5")
         log("  hdf5 export skipped: h5py is not installed on this machine")
+    # (a) measured once: the encoder loop as ck's source loop runs it (one
+    # passage a call), op by op, on a generator of ck's configuration
+    col = ColbertEmbeddingGenerator(device="cuda")
+    calls = [[p] for p in base_texts(512)]
+    with graphed.forced_variant("eager"):
+        eager = encoder_loop(col, calls, workdir, "ColBERT eager",
+                             calls[:256])
+    del col
     reset_counts(mk.maxsim_keys)
     M.counts.repaired = M.counts.escalated = M.counts.exact_fallbacks = 0
+    tee = Tee(sys.stdout)
+    # base passages 489 .. 1,000 of the run (calls 1,001 .. 1,512 after
+    # the 512 query passages) traced
     t = time.perf_counter()
-    ck_main(argv)
+    with graph_forwards() as forwards, contextlib.redirect_stdout(tee), \
+            traced_window(ColbertEmbeddingGenerator, 1001, 512,
+                          os.path.join(workdir, "ck_trace")) as window:
+        ck_main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
+    require_graphed(forwards, "ck_main")
+    sections, tokens = nw_sections(tee.kept.getvalue())
+    rates = {name: toks / secs for name, (toks, secs) in tokens.items()
+             if secs > 0}
+    graph = trace_share(os.path.join(workdir, "ck_trace"),
+                        window["forwards"])
+    log(f"  ck_main sections (s) {sections}; encoder tokens/s "
+        f"{({n: round(r) for n, r in rates.items()})}; base encode, "
+        f"{window['forwards']} one-passage forwards traced: graphed "
+        f"{share_text(graph)}; eager (a) {share_text(eager)}")
+    rec["ck_encoder"] = {"sections_s": sections,
+                         "encoder_tokens_per_s": rates, "eager": eager,
+                         "graph_trace": graph, "forwards": forwards}
     launches = mk.maxsim_keys.launches
     by_variant = dict(mk.maxsim_keys.launches_by_variant)
     if by_variant["mma"]:
@@ -1285,9 +1343,10 @@ def trace_top_kernels(trace_dir, n=5):
 
 
 def nw_sections(text):
-    """From nw_main's printed output: {section title: seconds} and
-    {section title: (tokens, seconds)} summed over the section's
-    `embedding pipeline:` lines."""
+    """From nw_main's or ck_main's printed output: {section title:
+    seconds} and {section title: (tokens, seconds)} summed over the
+    section's `embedding pipeline:` (nw) or `encoder pipeline:` (ck)
+    lines."""
     seconds, tokens, title = {}, {}, None
     for line in text.splitlines():
         m = re.match(r"\W*=== (.+) ===", line)
@@ -1296,7 +1355,8 @@ def nw_sections(text):
         m = re.match(r"\(Duration: ([\d.]+) s of", line)
         if m and title:
             seconds[title] = float(m.group(1))
-        m = re.search(r"embedding pipeline: (\d+) tokens in ([\d.]+)s", line)
+        m = re.search(r"(?:embedding|encoder) pipeline: (\d+) tokens in "
+                      r"([\d.]+) ?s", line)
         if m and title:
             toks, secs = tokens.get(title, (0, 0.0))
             tokens[title] = (toks + int(m.group(1)), secs + float(m.group(2)))
@@ -1304,10 +1364,13 @@ def nw_sections(text):
 
 
 def phase_nw(rec, workdir, Q=1000, B=100_000, k=100,
-             model="intfloat/e5-large-v2"):
+             model="intfloat/e5-large-v2", keep=None):
+    """Phase 8; `keep["e5"]` gets (a)'s e5 generator, for phase 14."""
     import torch
     from neighborhoodwatch_tpu_torch.cli import nw_main
     from neighborhoodwatch_tpu_torch.io import fvec
+    from neighborhoodwatch_tpu_torch.models import graphed
+    from neighborhoodwatch_tpu_torch.models.e5 import E5EmbeddingGenerator
     from neighborhoodwatch_tpu_torch.io.parquet_io import read_embeddings
     from neighborhoodwatch_tpu_torch.models.bert import E5_CONFIGS
     from neighborhoodwatch_tpu_torch.ops import knn as K
@@ -1323,14 +1386,34 @@ def phase_nw(rec, workdir, Q=1000, B=100_000, k=100,
     log(f"  nw_main {' '.join(argv[:6])} ... ({cfg.num_layers} layers, "
         f"{D} hidden, {cfg.num_heads} heads, FFN {cfg.intermediate_size}, "
         f"{cfg.dtype}; seeded random weights)")
+    # (a) measured once: the base encode as nw's base set calls it (10,000
+    # sentences a call), op by op, on a generator of nw's (seed 0)
+    e5 = E5EmbeddingGenerator(model, seed=0, device="cuda")
+    texts = base_texts(10_000)
+    with graphed.forced_variant("eager"):
+        eager = encoder_loop(e5, [texts], workdir, "e5 eager",
+                             [texts[:2048]])
+    if keep is not None:
+        keep["e5"] = e5
+    del e5
     reset_counts(sk.screen_keys)
     tee = Tee(sys.stdout)
+    # the query set is call 1 and the base set's first phase call 2; call
+    # 4, the base set's second 10,000 sentences, is traced
     t = time.perf_counter()
     with counted_repairs() as diags, contextlib.redirect_stdout(tee), \
-            verified_counted("nw"):
+            verified_counted("nw"), graph_forwards() as forwards, \
+            traced_window(E5EmbeddingGenerator, 4, 1, os.path.join(
+                workdir, "encode_trace")) as window:
         nw_main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
+    require_graphed(forwards, "nw_main")
+    graph = trace_share(os.path.join(workdir, "encode_trace"),
+                        window["forwards"])
+    log(f"  nw_main base encode, call 4 ({window['texts']} sentences, "
+        f"{window['forwards']} forwards) traced: graphed {share_text(graph)}"
+        f"; eager (a) {share_text(eager)}")
     launches = sk.screen_keys.launches
     by_variant = dict(sk.screen_keys.launches_by_variant)
     text = tee.kept.getvalue()
@@ -1463,7 +1546,9 @@ def phase_nw(rec, workdir, Q=1000, B=100_000, k=100,
         "exact_ms": exact_ms, "tiers": tiers,
         "sections_s": sections, "encoder_tokens_per_s": rates,
         "knn_stages_s": stages, "wall_s": wall,
-        "trace_top_kernels": top}
+        "trace_top_kernels": top,
+        "encoder": {"eager": eager, "graph_trace": graph,
+                    "forwards": forwards}}
     return files
 
 
@@ -1580,6 +1665,7 @@ def attention_e5(rec, tokens=131_072, model="intfloat/e5-large-v2"):
     import dataclasses
     import torch
     from neighborhoodwatch_tpu_torch.models import bert as bert_mod
+    from neighborhoodwatch_tpu_torch.models import graphed
     from neighborhoodwatch_tpu_torch.models.e5 import E5EmbeddingGenerator
     from neighborhoodwatch_tpu_torch.ops import attention_kernel as ak
     cfg = bert_mod.E5_CONFIGS[model]
@@ -1607,7 +1693,9 @@ def attention_e5(rec, tokens=131_072, model="intfloat/e5-large-v2"):
         ids = torch.from_numpy(ids).to("cuda", torch.long)
         mask = torch.from_numpy(mask).to("cuda")
         batches[T] = (ids, mask)
-        # the main path: the generator's own encode of one chunk
+        # the main path: the generator's own encode of one chunk, a replay
+        # of the graph that its first encode captured
+        flash._encode(texts)
         reset_counts(ak.masked_attention)
         got = flash._encode(texts)
         torch.cuda.synchronize()
@@ -1620,7 +1708,8 @@ def attention_e5(rec, tokens=131_072, model="intfloat/e5-large-v2"):
             raise AssertionError(f"bucket {T}: {n} launches per forward "
                                  f"({n_wgmma} wgmma), expected "
                                  f"{cfg.num_layers}, all wgmma")
-        want = auto._encode(texts)
+        with graphed.forced_variant("eager"):
+            want = auto._encode(texts)
         d, cos = embeddings_agree(got.cpu(), want.cpu())
         worst_d, worst_cos = max(worst_d, d), min(worst_cos, cos)
 
@@ -1695,6 +1784,7 @@ def attention_colbert(rec, n=512):
              for L in rng.integers(65, 129, size=n)]
     out, wall = {}, {}
     for impl in ("flash", "auto"):
+        gens[impl].encode_passages(texts, batch_size=64)    # captures
         reset_counts(ak.masked_attention)
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -2753,6 +2843,494 @@ def phase_verified(rec, nw):
         f"by variant {VERIFIED_BY_VARIANT}")
 
 
+# ------------------------------------------------------------ phase 14
+
+
+def base_texts(n, seed=0):
+    """The first n sentences of nw's synthetic base source, sentencized as
+    nw does (one 12-word sentence a row: 19 hash tokens, bucket 32)."""
+    from neighborhoodwatch_tpu_torch.data.sources import (
+        split_into_sentences, synthetic_dataset,
+    )
+    rows = synthetic_dataset("document", n, seed=seed)
+    return [s for r in rows for s in split_into_sentences(r["text"])][:n]
+
+
+@contextlib.contextmanager
+def host_split(gen, encode="_encode"):
+    """Host seconds of a generator's encode loop by part, filled into the
+    yielded dict on exit: "tokenize" (the tokenizer's calls), "launch"
+    (the model's forward calls where it runs op by op, the CUDA graphs'
+    replays where it replays) and "copy" (the rest of each batch's
+    `encode` method: the input copies, which wait for the card where they
+    synchronize, padding, pooling's launches and the output's copy)."""
+    import torch
+    got = {"tokenize": 0.0, "launch": 0.0, "copy": 0.0, "encode": 0.0}
+    tok, enc = gen.tokenizer, getattr(gen, encode)
+    replay = torch.cuda.CUDAGraph.replay
+    starts = []
+
+    def timed(fn, key):
+        def call(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                got[key] += time.perf_counter() - t
+        return call
+
+    def pre(*_):
+        starts.append(time.perf_counter())
+
+    def post(*_):
+        got["launch"] += time.perf_counter() - starts.pop()
+    hooks = [gen.model.register_forward_pre_hook(pre),
+             gen.model.register_forward_hook(post)]
+    gen.tokenizer = timed(tok, "tokenize")
+    setattr(gen, encode, timed(enc, "encode"))
+    torch.cuda.CUDAGraph.replay = timed(replay, "launch")
+    try:
+        yield got
+    finally:
+        gen.tokenizer = tok
+        setattr(gen, encode, enc)
+        torch.cuda.CUDAGraph.replay = replay
+        for h in hooks:
+            h.remove()
+        got["copy"] = got["encode"] - got["tokenize"] - got["launch"]
+
+
+def trace_busy(trace_file, region):
+    """From a Chrome trace of utils/profiling.py:device_trace: the span of
+    the user annotation `region` on the host's clock (ms), the card's busy
+    ms inside it (the union of its kernel, memcpy and memset intervals)
+    and the kernels that started inside it."""
+    with open(trace_file) as f:
+        events = json.load(f).get("traceEvents", [])
+    span = next(e for e in events if e.get("cat") == "user_annotation"
+                and e.get("name") == region)
+    t0, t1 = span["ts"], span["ts"] + span["dur"]
+    device = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                    and e["ts"] < t1 and e["ts"] + e.get("dur", 0) > t0)
+    busy, end = 0.0, t0
+    for a, b in device:
+        a, b = max(a, end), min(b, t1)
+        if b > a:
+            busy += b - a
+            end = b
+    kernels = sum(1 for e in events if e.get("cat") == "kernel"
+                  and t0 <= e["ts"] < t1)
+    return (t1 - t0) / 1e3, busy / 1e3, kernels
+
+
+def trace_share(trace_dir, forwards):
+    """{idle_share, busy / traced ms a forward, kernels a forward} of the
+    "encode_loop" region of the newest trace in `trace_dir` (removed
+    after), or {"idle_share": "not measured"} without a trace."""
+    trace_file = trace_top_kernels(trace_dir)[0]
+    if trace_file is None:
+        return {"idle_share": "not measured"}
+    span, busy, kernels = trace_busy(trace_file, "encode_loop")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    return {"idle_share": 1 - busy / span, "traced_forwards": forwards,
+            "traced_ms_per_forward": span / forwards,
+            "busy_ms_per_forward": busy / forwards,
+            "kernels_per_forward": kernels / forwards}
+
+
+def share_text(tr):
+    if tr["idle_share"] == "not measured":
+        return "device idle share not measured (no trace)"
+    return (f"device idle share {tr['idle_share']:.4f}, busy "
+            f"{tr['busy_ms_per_forward']:.3f} ms of "
+            f"{tr['traced_ms_per_forward']:.3f} ms a forward, "
+            f"{tr['kernels_per_forward']:.1f} kernels a forward")
+
+
+def encoder_loop(gen, calls, workdir, label, traced):
+    """A generator's generate_embedding over `calls` (lists of texts, one
+    call each: nw's base set calls the e5 generator with 10,000 sentences,
+    ck's source loop the ColBERT generator with one passage): once untimed
+    (every shape seen), once timed on the host clock with the host split
+    (host_split), and over the calls `traced` once under device_trace, for
+    the card's idle share and kernels a forward. Returns the numbers as a
+    dict."""
+    import torch
+    from neighborhoodwatch_tpu_torch.utils.profiling import device_trace
+    encode = "_encode" if hasattr(gen, "_encode") else "encode_passages"
+
+    def forwards(cs):
+        return sum(-(-len(c) // 64) for c in cs)
+
+    def run(cs):
+        for c in cs:
+            gen.generate_embedding(c)
+    run(calls)
+    seen = gen.tokens_seen
+    with host_split(gen, encode) as split:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        run(calls)
+        wall = time.perf_counter() - t
+    tokens = gen.tokens_seen - seen
+    n = forwards(calls)
+    trace_dir = os.path.join(workdir, f"encoder_trace_{label}")
+    with device_trace(trace_dir):
+        with torch.profiler.record_function("encode_loop"):
+            run(traced)
+    out = {"texts": sum(len(c) for c in calls), "calls": len(calls),
+           "forwards": n, "wall_s": wall, "tokens_per_s": tokens / wall,
+           "host_ms_per_forward": wall * 1e3 / n,
+           **{f"{k}_ms_per_forward": v * 1e3 / n
+              for k, v in split.items() if k != "encode"},
+           **trace_share(trace_dir, forwards(traced))}
+    log(f"  encode loop [{label}]: {out['texts']} texts in {len(calls)} "
+        f"calls, {n} forwards in {wall:.2f} s ({out['tokens_per_s']:.0f} "
+        f"tokens/s, {out['host_ms_per_forward']:.3f} ms a forward on the "
+        f"host: tokenize {out['tokenize_ms_per_forward']:.3f}, launch "
+        f"{out['launch_ms_per_forward']:.3f}, copy and the rest "
+        f"{out['copy_ms_per_forward']:.3f}); traced over "
+        f"{forwards(traced)} forwards: {share_text(out)}")
+    return out
+
+
+@contextlib.contextmanager
+def graph_forwards():
+    """The graph runner's counts set to 0 for the region (forwards by
+    variant, captures); yields a dict filled on exit with them and every
+    runner made in the region: its name, captured shapes and bound."""
+    from neighborhoodwatch_tpu_torch.models import graphed
+    G = graphed.GraphRunner
+    G.launches, G.captures = 0, 0
+    G.launches_by_variant = {v: 0 for v in graphed.VARIANTS}
+    made, init = [], G.__init__
+
+    def record(self, *a, **kw):
+        init(self, *a, **kw)
+        made.append(self)
+    G.__init__ = record
+    got = {}
+    try:
+        yield got
+    finally:
+        G.__init__ = init
+        got.update(forwards=G.launches, by_variant=dict(G.launches_by_variant),
+                   captures=G.captures,
+                   runners=[{"name": r.name, "shapes": sorted(r.graphs),
+                             "bound": r.max_graphs} for r in made])
+
+
+def require_graphed(got, what):
+    """Every forward of the region a graph replay, each runner's graphs
+    within its bound."""
+    by = got["by_variant"]
+    if by["eager"] or by["graph"] < 1 or by["graph"] != got["forwards"]:
+        raise AssertionError(f"{what}: forwards by variant {by}; every "
+                             f"forward must be a graph replay")
+    for r in got["runners"]:
+        if len(r["shapes"]) > r["bound"]:
+            raise AssertionError(f"{what}: {r}: graphs above the bound")
+    log(f"  {what}: {got['forwards']} forwards, all graph replays; "
+        f"captures {got['captures']} (" + "; ".join(
+            f"{r['name']}: {r['shapes']} of at most {r['bound']}"
+            for r in got["runners"]) + ")")
+
+
+@contextlib.contextmanager
+def traced_window(cls, first, count, trace_dir):
+    """Calls first .. first + count - 1 of cls.generate_embedding made in
+    the region (counted from 1) run under device_trace, as one
+    "encode_loop" user annotation; the yielded dict gets the window's
+    texts and forwards."""
+    import torch
+    from neighborhoodwatch_tpu_torch.utils.profiling import device_trace
+    real = cls.generate_embedding
+    state = {"n": 0, "texts": 0, "forwards": 0, "open": None}
+
+    def close():
+        region, trace = state["open"]
+        state["open"] = None
+        region.__exit__(None, None, None)
+        trace.__exit__(None, None, None)
+
+    def call(self, texts, *a, **kw):
+        state["n"] += 1
+        if state["n"] == first:
+            trace = device_trace(trace_dir)
+            trace.__enter__()
+            region = torch.profiler.record_function("encode_loop")
+            region.__enter__()
+            state["open"] = (region, trace)
+        try:
+            return real(self, texts, *a, **kw)
+        finally:
+            if state["open"]:
+                n = 1 if isinstance(texts, str) else len(texts)
+                state["texts"] += n
+                state["forwards"] += -(-n // 64)
+                if state["n"] == first + count - 1:
+                    close()
+    cls.generate_embedding = call
+    try:
+        yield state
+    finally:
+        cls.generate_embedding = real
+        if state["open"]:
+            close()
+
+
+@contextlib.contextmanager
+def no_sync_before_readback():
+    """torch.cuda.set_sync_debug_mode("error") around the region, lifted
+    only inside Tensor.cpu (the generators' readback): any other call that
+    synchronizes the stream raises."""
+    import torch
+    real = torch.Tensor.cpu
+
+    def cpu(self, *a, **kw):
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return real(self, *a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+    torch.Tensor.cpu = cpu
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        torch.Tensor.cpu = real
+
+
+def forward_flops(cfg, rows, T, head=0):
+    """Matmul FLOPs of one BERT forward at (rows, T): a layer's four h x h
+    projections and two FFN products, QK^T and PV over T x T; and a
+    `head`-wide projection of every token (ColBERT's 128)."""
+    h, f = cfg.hidden_size, cfg.intermediate_size
+    layer = 2 * rows * T * (4 * h * h + 2 * h * f) + 4 * rows * T * T * h
+    return cfg.num_layers * layer + 2 * rows * T * h * head
+
+
+def forward_turns(runner, ids, mask, rows):
+    """The runner's forward at one padded shape, "eager" and "graph" in
+    turns (eager, graph, graph, eager): host ms a forward over REPS
+    forwards ending in a synchronize, and device ms of one forward by CUDA
+    events (the card idle before it), each a median of 3; the mean of each
+    variant's two. The graph is captured before."""
+    import torch
+    from neighborhoodwatch_tpu_torch.models import graphed
+    got = {"eager": [], "graph": []}
+
+    def fwd():
+        return runner(ids, mask, rows)
+
+    def host():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(REPS):
+            fwd()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3 / REPS
+
+    for name in ("eager", "graph", "graph", "eager"):
+        with graphed.forced_variant(name):
+            fwd()
+            h = float(np.median([host() for _ in range(3)]))
+            got[name].append((h, event_ms(fwd)))
+    return {name: tuple(float(np.mean(x)) for x in zip(*v))
+            for name, v in got.items()}
+
+
+def shape_case(label, runner, ids, mask, rows, flops, cut_rows=None):
+    """Phase 14(b) at one padded shape through `runner`: the graph against
+    the eager forward bit for bit, the padded forward against the unpadded
+    one (cut_rows(out) gives the rows to compare and their unpadded
+    reference), and both timed in turns beside the tensor-core bound."""
+    import torch
+    from neighborhoodwatch_tpu_torch.models import graphed
+    graph = runner(ids, mask, rows)
+    with graphed.forced_variant("eager"):
+        eager = runner(ids, mask, rows)
+    if not torch.equal(graph, eager):
+        raise AssertionError(f"{label}: graph and eager forwards differ: "
+                             f"max |d| {float((graph - eager).abs().max())}")
+    r = {"shape": list(ids.shape), "rows": rows, "graph_out": graph}
+    if cut_rows is not None:
+        a, b = cut_rows(graph)
+        d, cos = embeddings_agree(a.float().cpu(), b.float().cpu())
+        # bf16 activations through every layer: cuBLAS tiles an unpadded
+        # product otherwise, so bf16 rounds at other places (phase 10's
+        # argument for flash against "auto")
+        if d > 5e-2 or cos < 0.999:
+            raise AssertionError(f"{label}: padded and unpadded forwards "
+                                 f"differ: max |d| {d:.3g}, least cosine "
+                                 f"{cos:.6f}")
+        r.update(padded_vs_unpadded_max_abs=d, padded_vs_unpadded_cos=cos)
+    t = forward_turns(runner, ids, mask, rows)
+    valid = int(np.asarray(mask)[:rows].sum())
+    r.update(eager_host_ms=t["eager"][0], eager_device_ms=t["eager"][1],
+             graph_host_ms=t["graph"][0], graph_device_ms=t["graph"][1],
+             eager_tokens_per_s=valid / t["eager"][0] * 1e3,
+             graph_tokens_per_s=valid / t["graph"][0] * 1e3,
+             bound_ms=flops / PEAK_BF16_FLOPS * 1e3, valid_tokens=valid)
+    log(f"  (b) {label} {tuple(ids.shape)} ({rows} rows, {valid} valid "
+        f"tokens): graph == eager bit for bit"
+        + (f"; padded vs unpadded max |d| "
+           f"{r['padded_vs_unpadded_max_abs']:.3g}, least cosine "
+           f"{r['padded_vs_unpadded_cos']:.6f}" if cut_rows else "")
+        + f"; in turns (eager, graph, graph, eager): host "
+        f"{r['eager_host_ms']:.3f} / {r['graph_host_ms']:.3f} ms a forward, "
+        f"device {r['eager_device_ms']:.3f} / {r['graph_device_ms']:.3f} ms, "
+        f"{r['eager_tokens_per_s']:.0f} / {r['graph_tokens_per_s']:.0f} "
+        f"tokens/s; bound {r['bound_ms']:.3f} ms "
+        f"({flops / 1e12:.3f} TFLOP at 989 TFLOP/s)")
+    return r
+
+
+def replay_order(label, runner, cases):
+    """Every shape of `cases` replayed again, in reverse order and then
+    interleaved, against its first graph output: bit for bit."""
+    import torch
+    order = list(reversed(cases)) + cases[::2] + cases[1::2]
+    for c in order:
+        out = runner(c["ids"], c["mask"], c["rows"])
+        if not torch.equal(out, c["graph_out"]):
+            raise AssertionError(f"{label}: replaying {c['shape']} out of "
+                                 f"order changed its output")
+    log(f"  (c) {label}: {len(order)} replays in another order than the "
+        f"captures' ({[tuple(c['shape']) for c in order]}): each equal to "
+        f"its first output bit for bit")
+
+
+def phase_encoders(rec, e5, workdir):
+    """Phase 14: the encoders' captured forward (models/graphed.py) at
+    published widths with seeded random weights: (b) each shape graph
+    against eager and timed, (c) replays out of capture order, (d) K6's
+    launches per replay under "flash", (e) the launch loops under
+    set_sync_debug_mode("error"), (f) the e5 loop of phase 8(a), graphed.
+    `e5` is phase 8's e5-large-v2 generator."""
+    import dataclasses
+    import torch
+    from neighborhoodwatch_tpu_torch.models import bert as bert_mod
+    from neighborhoodwatch_tpu_torch.models import colbert as cb
+    from neighborhoodwatch_tpu_torch.models import graphed
+    from neighborhoodwatch_tpu_torch.models.e5 import E5EmbeddingGenerator
+    from neighborhoodwatch_tpu_torch.ops import attention_kernel as ak
+    rng = np.random.default_rng(14)
+    out = {}
+    cfg, model = e5.config, e5.model_name
+    cases = []
+    for T, n in ((32, 64), (128, 64), (512, 64), (128, 37)):
+        texts = bucket_texts(n, T, rng)
+        ids, mask = e5.tokenizer(texts, max_length=e5.max_length)
+        pids, pmask = graphed.pad_rows(ids, mask, e5.chunk_size)
+
+        def unpadded(o, ids=ids, mask=mask):
+            with torch.no_grad():
+                want = e5.runner.fn(torch.from_numpy(ids).to("cuda",
+                                                               torch.long),
+                                    torch.from_numpy(mask).to("cuda"))
+            return o, want
+        c = shape_case(f"{model} ({cfg.num_layers} layers)", e5.runner,
+                       pids, pmask, n, forward_flops(cfg, 64, T),
+                       unpadded if n < 64 else None)
+        cases.append({**c, "ids": pids, "mask": pmask})
+    replay_order(model, e5.runner, cases)
+    out["e5"] = {f"{c['shape'][0]}x{c['shape'][1]}"
+                 + ("" if c["rows"] == 64 else f"_tail{c['rows']}"):
+                 {k: v for k, v in c.items() if k not in ("graph_out", "ids",
+                                                          "mask")}
+                 for c in cases}
+    # ColBERT at bert-base width: one passage in bucket 32, a 5-row batch
+    # padded to 8 in bucket 64, 64 passages in bucket 220
+    col = cb.ColbertEmbeddingGenerator(device="cuda")
+    runner = col._runner(64)
+    ccases = []
+    for T, n in ((32, 1), (64, 5), (220, 64)):
+        texts = bucket_texts(n, T, rng)
+        ids, mask = col.tokenizer(texts, max_length=col.max_length)
+        assert ids.shape[1] == T, ids.shape
+        pids, pmask = graphed.pad_rows(ids, mask,
+                                       graphed.padded_rows(n, 64))
+
+        def unpadded(o, ids=ids, mask=mask):
+            with torch.no_grad():
+                want = runner.fn(torch.from_numpy(ids).to("cuda", torch.long),
+                                 torch.from_numpy(mask).to("cuda"))
+            keep = torch.from_numpy(mask.astype(bool)).to("cuda")
+            return o[keep], want[keep]
+        c = shape_case(f"ColBERT ({col.config.num_layers} layers)",
+                       runner, pids, pmask, n,
+                       forward_flops(col.config, pids.shape[0], T, head=128),
+                       unpadded if n != pids.shape[0] else None)
+        got = col.encode_passages(texts)
+        with graphed.forced_variant("eager"):
+            want = col.encode_passages(texts)
+        if got[1] != want[1] or not np.array_equal(got[0], want[0]):
+            raise AssertionError(f"ColBERT encode_passages at {T}: graph "
+                                 f"and eager passages differ")
+        ccases.append({**c, "ids": pids, "mask": pmask})
+    replay_order("ColBERT", runner, ccases)
+    out["colbert"] = {f"{c['shape'][0]}x{c['shape'][1]}":
+                      {k: v for k, v in c.items()
+                       if k not in ("graph_out", "ids", "mask")}
+                      for c in ccases}
+    # (d) the e5-large flash config on the same state
+    bert_mod.E5_CONFIGS[model] = dataclasses.replace(cfg,
+                                                     attention_impl="flash")
+    try:
+        flash = E5EmbeddingGenerator(model, state=e5.model.state_dict(),
+                                     device="cuda")
+    finally:
+        bert_mod.E5_CONFIGS[model] = cfg
+    fcases, per_replay = [], {}
+    for T in (128, 256, 512):
+        texts = bucket_texts(64, T, rng)
+        ids, mask = flash.tokenizer(texts, max_length=512)
+        flash.runner(ids, mask)                 # captures
+        reset_counts(ak.masked_attention)
+        c = shape_case(f"{model} flash", flash.runner, ids, mask, 64,
+                       forward_flops(cfg, 64, T))
+        n = ak.masked_attention.launches_by_variant["wgmma"]
+        reset_counts(ak.masked_attention)
+        flash.runner(ids, mask)
+        per_replay[str(T)] = ak.masked_attention.launches
+        by = dict(ak.masked_attention.launches_by_variant)
+        if by != {"mma": 0, "wgmma": cfg.num_layers}:
+            raise AssertionError(f"flash bucket {T}: a replay counted {by}, "
+                                 f"expected {cfg.num_layers} wgmma")
+        c["k6_launches_per_replay"] = per_replay[str(T)]
+        c["k6_launches_in_turns"] = n
+        fcases.append({**c, "ids": ids, "mask": mask})
+    replay_order(f"{model} flash", flash.runner, fcases)
+    log(f"  (d) flash: K6 launches a replay by bucket {per_replay} (one a "
+        f"layer, all 'wgmma', counted at replay)")
+    out["e5_flash"] = {f"64x{c['shape'][1]}":
+                       {k: v for k, v in c.items()
+                        if k not in ("graph_out", "ids", "mask")}
+                       for c in fcases}
+    out["k6_launches_per_replay"] = per_replay
+    del flash
+    # (e) the launch loops: no synchronization before the readback
+    texts = base_texts(10_000)
+    passages = bucket_texts(70, 64, rng)
+    e5.generate_embedding(texts)                # every shape captured
+    col.encode_passages(passages)
+    with no_sync_before_readback():
+        e5.generate_embedding(texts)
+        col.encode_passages(passages)
+    log("  (e) generate_embedding over 10,000 base texts and "
+        "encode_passages over 70 passages under set_sync_debug_mode("
+        "'error'), the readback alone exempt: no synchronization")
+    # (f) the loop phase 8(a) measured eager, graphed
+    out["loop_graph"] = encoder_loop(e5, [texts], workdir, "e5 graph",
+                                     [texts[:2048]])
+    rec["graphs"] = out
+    del col
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2808,7 +3386,7 @@ def main():
         log(f"phase 7 ck --maxsim: ok, {time.perf_counter() - t:.1f} s")
         nw_dir = workdir()
         t = time.perf_counter()
-        files = phase_nw(rec, nw_dir)
+        files = phase_nw(rec, nw_dir, keep=kept)
         log(f"phase 8 nw e5-large-v2 1,000 x 100,000: ok, "
             f"{time.perf_counter() - t:.1f} s")
         kept["nw"] = {"workdir": nw_dir, "files": files, "k": 100,
@@ -2839,6 +3417,10 @@ def main():
         t = time.perf_counter()
         phase_verified(vrec, kept["nw"])
         log(f"phase 13 verified select: ok, {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        phase_encoders(arec, kept.pop("e5"), workdir())
+        log(f"phase 14 encoders' CUDA graphs: ok, "
+            f"{time.perf_counter() - t:.1f} s")
     finally:
         for w in workdirs:
             shutil.rmtree(w, ignore_errors=True)

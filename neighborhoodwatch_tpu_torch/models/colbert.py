@@ -6,7 +6,11 @@ model_generator.py:392-439: encodes passages into per-token 128-d
 embeddings, returns the flattened tensor + per-passage token counts) with
 the BERT-base backbone of models/bert.py plus the 128-d linear projection
 head and per-token L2 normalization. Checkpoint weights load from a local
-HF cache when present; otherwise a seeded random init.
+HF cache when present; otherwise a seeded random init. A batch's rows are
+padded to the next power of two (at most the batch size), and on the card
+each (rows, bucket) shape runs as one captured CUDA graph
+(models/graphed.py, the counterpart of the reference's jax.jit, which
+compiles every distinct shape and pads no rows).
 
 `generate_embedding(texts)` returns `([flat_token_embeddings], token_counts)`
 — the contract core/colbert_pipeline.process_source_dataset consumes
@@ -23,8 +27,13 @@ from neighborhoodwatch_tpu_torch.models.bert import (
     convert_torch_state_dict, init_params, load_hf_weights,
 )
 from neighborhoodwatch_tpu_torch.models.generators import EmbeddingGenerator
+from neighborhoodwatch_tpu_torch.models.graphed import (
+    GraphRunner, pad_rows, padded_rows, row_counts,
+)
 from neighborhoodwatch_tpu_torch.models.registry import EmbeddingModelName
-from neighborhoodwatch_tpu_torch.models.tokenizer import load_tokenizer
+from neighborhoodwatch_tpu_torch.models.tokenizer import (
+    load_tokenizer, token_buckets,
+)
 
 COLBERT_DIM = 128
 COLBERT_HF_REPO = "colbert-ir/colbertv2.0"
@@ -148,6 +157,19 @@ class ColbertEmbeddingGenerator(EmbeddingGenerator):
             and not self.tokenizer.is_hashed
         self._skiplist = self._punctuation_ids() if self.use_doc_marker \
             else frozenset()
+        self.runners = {}       # batch size -> GraphRunner
+
+    def _runner(self, batch_size):
+        """The graph runner of `batch_size`-row batches: at most one graph
+        per padded row count and token bucket (7 x 5 = 35 at 64 rows and
+        max_length 220)."""
+        runner = self.runners.get(batch_size)
+        if runner is None:
+            runner = self.runners[batch_size] = GraphRunner(
+                self.model, self.device,
+                len(row_counts(batch_size)) * len(token_buckets(
+                    self.max_length)), name=self.model_name)
+        return runner
 
     def _punctuation_ids(self):
         """Token ids colbert-ai's CollectionEncoder masks out of document
@@ -162,15 +184,16 @@ class ColbertEmbeddingGenerator(EmbeddingGenerator):
     def _call_model_api(self, text_list, *args, **kwargs):
         raise NotImplementedError("ColBERT uses generate_embedding directly")
 
-    @torch.no_grad()
     def encode_passages(self, texts, batch_size: int = 64,
                         max_in_flight: int = 16):
         """(total_tokens, 128) embeddings + per-passage token counts — the
         CollectionEncoder.encode_passages contract. Batches are launched
         ahead of the device-to-host reads, so tokenization of batch i+1
-        overlaps the encode of batch i (CUDA launches are asynchronous),
-        but at most `max_in_flight` device outputs stay live; the window
-        drains as ONE device-concatenated copy to the host.
+        overlaps the encode of batch i (graph replays fed by copies that do
+        not block), but at most `max_in_flight` device outputs stay live;
+        the window drains as ONE device-concatenated copy to the host. A
+        batch's pad rows are dropped from its output before the keep mask
+        reads its ids and mask; a failed capture or replay raises.
 
         With real weights + real vocab this matches colbert-ai's document
         encoding: "[D]" marker after [CLS], punctuation tokens dropped."""
@@ -197,15 +220,16 @@ class ColbertEmbeddingGenerator(EmbeddingGenerator):
                     counts.append(int(row_keep.sum()))
             items.clear()
 
+        runner = self._runner(batch_size)
         pending = []
         for s in range(0, len(texts), batch_size):
             batch = texts[s:s + batch_size]
             ids, mask = self.tokenizer(batch, max_length=self.max_length,
                                        insert_after_cls=marker)
             self.tokens_seen += int(mask.sum())
-            dev = self.model(
-                torch.from_numpy(ids).to(self.device, torch.long),
-                torch.from_numpy(mask).to(self.device))
+            rows = ids.shape[0]
+            dev = runner(*pad_rows(ids, mask, padded_rows(rows, batch_size)),
+                         rows)
             pending.append((dev, ids, mask))
             if len(pending) >= max_in_flight:
                 drain_group(pending)

@@ -3,9 +3,12 @@ encoder of models/bert.py + mean pooling + L2 normalization.
 
 Replaces the reference's SentenceTransformer path (reference:
 model_generator.py:273-287). Sequences are padded to the tokenizer's
-power-of-two buckets, matmuls run in the config's activation dtype (bf16
-for the e5 configs), pooling and normalization in fp32. The "query:"
-prefix contract is inherited from the generator ABC.
+power-of-two buckets and a ragged tail chunk to the full 64 rows (as
+e5_flax.py pads it), matmuls run in the config's activation dtype (bf16
+for the e5 configs), pooling and normalization in fp32. On the card the
+forward and the pooling run as one captured CUDA graph per token bucket
+(models/graphed.py, the counterpart of the reference's jax.jit). The
+"query:" prefix contract is inherited from the generator ABC.
 
 Weights come from a locally cached HuggingFace checkpoint when there is
 one, else from a seeded random init (`pretrained` says which); carry the
@@ -20,8 +23,13 @@ from neighborhoodwatch_tpu_torch.models.bert import (
     mean_pool_normalize,
 )
 from neighborhoodwatch_tpu_torch.models.generators import EmbeddingGenerator
+from neighborhoodwatch_tpu_torch.models.graphed import (
+    GraphError, GraphRunner, pad_rows,
+)
 from neighborhoodwatch_tpu_torch.models.registry import EmbeddingModelName
-from neighborhoodwatch_tpu_torch.models.tokenizer import load_tokenizer
+from neighborhoodwatch_tpu_torch.models.tokenizer import (
+    load_tokenizer, token_buckets,
+)
 
 
 class E5EmbeddingGenerator(EmbeddingGenerator):
@@ -49,37 +57,47 @@ class E5EmbeddingGenerator(EmbeddingGenerator):
             self.model.load_state_dict(state)
             self.pretrained = True
         self.model.to(self.device).eval()
+        model = self.model
 
-    @torch.no_grad()
+        def forward(ids, mask):
+            return mean_pool_normalize(model(ids, mask), mask)
+        # every chunk is padded to chunk_size rows: one graph per bucket
+        self.runner = GraphRunner(forward, self.device,
+                                  len(token_buckets(max_length)),
+                                  name=model_name)
+
     def _encode(self, chunk):
-        """Tokenize and launch one chunk; returns its (rows, dim) fp32
-        embeddings on the device (not synchronized)."""
+        """Tokenize and launch one chunk, a ragged one padded to chunk_size
+        rows; returns its (rows, dim) fp32 embeddings on the device (not
+        synchronized), the pad rows dropped."""
         ids, mask = self.tokenizer(chunk, max_length=self.max_length)
         self.tokens_seen += int(mask.sum())
-        ids = torch.from_numpy(ids).to(self.device, torch.long)
-        mask = torch.from_numpy(mask).to(self.device)
-        return mean_pool_normalize(self.model(ids, mask), mask)
+        rows = ids.shape[0]
+        ids, mask = pad_rows(ids, mask, self.chunk_size)
+        return self.runner(ids, mask, rows)
 
     def _call_model_api(self, text_list, *args, **kwargs):
         return self._encode(text_list).cpu().numpy()
 
     def generate_embedding(self, text_list, *args, **kwargs):
         """ABC-contract override with a deferred readback: every chunk is
-        launched first (CUDA launches are asynchronous, so tokenizing chunk
-        i+1 overlaps the encode of chunk i), then the successful chunks'
-        outputs are concatenated on the device and copied to the host in
-        ONE transfer. A chunk whose tokenize or launch fails gives zero
-        vectors for its rows only; an AssertionError (a caller's contract
-        violation) passes through, as in the ABC's loop. A failing copy
-        raises: on the card it means a device fault, which no retry
-        cures."""
+        launched first (graph replays fed by copies that do not block, so
+        tokenizing chunk i+1 overlaps the encode of chunk i), then the
+        successful chunks' outputs are concatenated on the device and
+        copied to the host in ONE transfer. A chunk whose tokenize or
+        launch fails gives zero vectors for its rows only; an
+        AssertionError (a caller's contract violation) passes through, as
+        in the ABC's loop, and so does a GraphError: a failed capture or
+        replay is a fault of the shape, which would zero every chunk of it.
+        A failing copy raises: on the card it means a device fault, which
+        no retry cures."""
         if isinstance(text_list, str):
             text_list = [text_list]
         pending = []            # (device tensor | None, row count)
         for chunk in self._iter_chunks(text_list):
             try:
                 pending.append((self._encode(chunk), len(chunk)))
-            except AssertionError:
+            except (AssertionError, GraphError):
                 raise
             except Exception as exc:
                 print(f"   !! embedding chunk failed ({exc}); "

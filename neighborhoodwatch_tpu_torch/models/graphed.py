@@ -1,0 +1,226 @@
+"""The encoders' compiled forward: one captured CUDA graph per padded input
+shape, replayed for every chunk of that shape. This is the card's
+counterpart of the `jax.jit` that the JAX package wraps around the e5 and
+ColBERT forwards (models/e5_flax.py:44-49, models/colbert_flax.py:139-143),
+where each padded shape compiles once into one XLA executable that is
+dispatched asynchronously. Run op by op from Python, a BERT forward is
+about 20 kernel launches a layer, each through nn.Module dispatch; a
+replay is one launch of all of them.
+
+`GraphRunner(fn, device, max_graphs)` runs `fn(ids, mask)`, a function of
+the (rows, bucket) int64 token ids and int32 attention mask alone (the
+weights it closes over do not change), on host arrays:
+
+- "graph", the default on CUDA: the first chunk of a (rows, bucket) shape
+  captures a graph (WARMUP forwards on a side stream, then the capture
+  under torch.no_grad(); every graph of one runner shares one memory
+  pool, and the runner keeps each graph's static inputs and output for
+  the graph's lifetime, so a later capture cannot take their memory).
+  Each chunk is copied from pinned host memory into the static inputs
+  with non_blocking=True (PyTorch's caching host allocator records the
+  event that keeps the pinned block until the copy is done), the graph is
+  replayed on the current stream, and the first `rows` rows of the static
+  output are cloned before the next replay of that graph can overwrite
+  them. Nothing in this synchronizes the stream.
+- "eager": `fn` op by op on the inputs copied as the generators copied
+  them before graphs (`.to(device)`, which synchronizes): a comparison
+  run, chosen only with `forced_variant("eager")`.
+
+CPU tensors run `fn` op by op: the device decides this, as it decides the
+plain version of a kernel; it is not a fallback. On CUDA a failed warm-up,
+capture or replay raises GraphError, and so does a capture beyond the
+runner's `max_graphs`; the runner never runs eager instead.
+
+Counts, across every runner, as the kernel wrappers keep theirs:
+`GraphRunner.launches` (forwards), `launches_by_variant` ("graph" are
+replays, "eager" forwards op by op, on either device) and `captures`. A
+kernel wrapper counts on the host where its launch is issued, so a launch
+recorded into a graph would count once at capture and never at replay.
+The runner therefore takes the launches a capture records back out of
+each counted wrapper (`counted_kernels()`: K6's `masked_attention`), keeps
+them with the graph, and adds them at every replay; launches of the
+warm-up forwards ran on the card and stay counted.
+"""
+
+import contextlib
+
+import numpy as np
+import torch
+
+VARIANTS = ("graph", "eager")
+WARMUP = 2               # side-stream forwards before a capture
+_forced_variant = None
+
+
+class GraphError(RuntimeError):
+    """A graph's warm-up, capture or replay failed, or a capture would pass
+    the runner's bound. A fault of the shape, never a chunk's."""
+
+
+@contextlib.contextmanager
+def forced_variant(name: str):
+    """Run CUDA forwards as `name` ("graph" or "eager") instead of the
+    default "graph", for tests and timings that hold the two against each
+    other."""
+    global _forced_variant
+    if name not in VARIANTS:
+        raise ValueError(f"variant {name!r} not in {VARIANTS}")
+    before = _forced_variant
+    _forced_variant = name
+    try:
+        yield
+    finally:
+        _forced_variant = before
+
+
+def counted_kernels():
+    """The kernel wrappers whose launches a captured forward may hold."""
+    from neighborhoodwatch_tpu_torch.ops.attention_kernel import (
+        masked_attention,
+    )
+    return (masked_attention,)
+
+
+def _counts():
+    return [(w.launches, dict(w.launches_by_variant))
+            for w in counted_kernels()]
+
+
+def _restore(counts):
+    for w, (n, by) in zip(counted_kernels(), counts):
+        w.launches, w.launches_by_variant = n, by
+
+
+def _held(after, before):
+    """Launches recorded between two snapshots, per wrapper and variant."""
+    return [(n1 - n0, {v: by1[v] - by0.get(v, 0) for v in by1})
+            for (n1, by1), (n0, by0) in zip(after, before)]
+
+
+def _add(held):
+    for w, (n, by) in zip(counted_kernels(), held):
+        w.launches += n
+        for v, c in by.items():
+            w.launches_by_variant[v] += c
+
+
+class _Graph:
+    __slots__ = ("graph", "ids", "mask", "out", "held")
+
+
+class GraphRunner:
+    """`fn`'s forwards on `device`, one CUDA graph per (rows, bucket)
+    there; at most `max_graphs` graphs. `name` labels its errors."""
+
+    launches = 0
+    launches_by_variant = {v: 0 for v in VARIANTS}
+    captures = 0
+
+    def __init__(self, fn, device, max_graphs: int, name: str = "encoder"):
+        self.fn = fn
+        self.device = torch.device(device)
+        self.max_graphs = max_graphs
+        self.name = name
+        self.graphs = {}          # (rows, bucket) -> _Graph
+        self.pool = None
+        # the device decides: graphs on the card, op by op on the CPU
+        self.graphed = self.device.type == "cuda"
+
+    @staticmethod
+    def _count(variant):
+        GraphRunner.launches += 1
+        GraphRunner.launches_by_variant[variant] += 1
+
+    @torch.no_grad()
+    def __call__(self, ids, mask, rows=None):
+        """The first `rows` rows (default: all) of `fn` over the (R, T)
+        host arrays `ids` and `mask`, on the device, not synchronized."""
+        rows = ids.shape[0] if rows is None else rows
+        if self.graphed and _forced_variant != "eager":
+            return self._graphed(ids, mask, rows)
+        ids = torch.from_numpy(ids).to(self.device, torch.long)
+        mask = torch.from_numpy(mask).to(self.device)
+        out = self.fn(ids, mask)[:rows]
+        self._count("eager")
+        return out
+
+    def _graphed(self, ids, mask, rows):
+        ids = torch.from_numpy(np.asarray(ids, np.int64)).pin_memory()
+        mask = torch.from_numpy(np.asarray(mask, np.int32)).pin_memory()
+        key = tuple(ids.shape)
+        g = self.graphs.get(key)
+        if g is None:
+            g = self._capture(ids, mask)
+        try:
+            g.ids.copy_(ids, non_blocking=True)
+            g.mask.copy_(mask, non_blocking=True)
+            g.graph.replay()
+            out = g.out[:rows].clone()
+        except Exception as e:
+            raise GraphError(f"{self.name}: replay of the {key} graph "
+                             f"failed: {e}") from e
+        _add(g.held)
+        self._count("graph")
+        return out
+
+    def _capture(self, ids, mask):
+        key = tuple(ids.shape)
+        if len(self.graphs) >= self.max_graphs:
+            raise GraphError(
+                f"{self.name}: a graph for {key} would be graph "
+                f"{len(self.graphs) + 1}, above the bound of "
+                f"{self.max_graphs} (shapes captured: {sorted(self.graphs)})")
+        g, warm = _Graph(), None
+        try:
+            g.ids = torch.empty(key, dtype=torch.long, device=self.device)
+            g.mask = torch.empty(key, dtype=torch.int32, device=self.device)
+            g.ids.copy_(ids, non_blocking=True)
+            g.mask.copy_(mask, non_blocking=True)
+            main = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                for _ in range(WARMUP):
+                    self.fn(g.ids, g.mask)
+            main.wait_stream(side)
+            warm = _counts()
+            if self.pool is None:
+                self.pool = torch.cuda.graph_pool_handle()
+            g.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g.graph, pool=self.pool):
+                g.out = self.fn(g.ids, g.mask)
+            g.held = _held(_counts(), warm)
+        except Exception as e:
+            raise GraphError(f"{self.name}: warm-up or capture of the "
+                             f"{key} graph failed: {e}") from e
+        finally:
+            if warm is not None:
+                _restore(warm)
+        self.graphs[key] = g
+        GraphRunner.captures += 1
+        return g
+
+
+def row_counts(batch_size: int):
+    """The padded row counts of batches of at most `batch_size` rows: the
+    powers of two below it, and `batch_size` itself."""
+    out, r = [], 1
+    while r < batch_size:
+        out.append(r)
+        r *= 2
+    return out + [batch_size]
+
+
+def padded_rows(rows: int, batch_size: int) -> int:
+    """`rows` padded to the next power of two, at most `batch_size`."""
+    return min(1 << max(rows - 1, 0).bit_length(), batch_size)
+
+
+def pad_rows(ids, mask, rows: int):
+    """(n, T) ids and mask padded with zero rows (padding tokens, all
+    masked) to `rows` rows, as e5_flax.py:68-74 pads a ragged tail."""
+    pad = rows - ids.shape[0]
+    if pad <= 0:
+        return ids, mask
+    return (np.pad(ids, ((0, pad), (0, 0))),
+            np.pad(mask, ((0, pad), (0, 0))))

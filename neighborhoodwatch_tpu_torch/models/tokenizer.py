@@ -106,6 +106,16 @@ def _pad(ids_rows, mask_rows, max_length):
     return ids, mask
 
 
+def token_buckets(max_length: int):
+    """Every bucket `_pad` can choose under `max_length`: 16, 32, ...
+    doubling, the last capped at max_length (16/32/64/128/220 at 220)."""
+    out, bucket = [], 16
+    while bucket < max_length:
+        out.append(bucket)
+        bucket *= 2
+    return out + [min(bucket, max_length)]
+
+
 def load_tokenizer(model_name: str, quiet: bool = False):
     """Local HF tokenizer if cached, else the hash fallback."""
     try:
