@@ -6,10 +6,11 @@ Phases, each printing its own lines and seconds:
   1. setup: the card's name and power limit, torch/CUDA versions, and the
      build of the hand-written kernels (csrc/screen_keys.cu and
      csrc/maxsim_keys.cu, both on csrc/wgmma_mainloop.cuh,
-     csrc/masked_attention.cu and csrc/verified_select.cu, one nvcc each,
-     started together, into neighborhoodwatch_tpu_torch/_build/) with
-     ptxas' registers and spills per kernel variant (a spill fails the
-     run);
+     csrc/masked_attention.cu, csrc/verified_select.cu and the kNN core's
+     csrc/prepare_base.cu, csrc/distance_tile.cu and csrc/rerank_rows.cu,
+     one nvcc each, started together, into
+     neighborhoodwatch_tpu_torch/_build/) with ptxas' registers and spills
+     per kernel variant (a spill fails the run);
   2. kernel against plain: the screen kernel and its plain PyTorch version
      on the same bf16 operands, passes 1/2/3 x l2/dot/rdot, on ragged
      shapes (D=200 and D=45, padded nowhere; a query count that leaves a
@@ -18,7 +19,8 @@ Phases, each printing its own lines and seconds:
      that is "wgmma", on "mma" too;
   3. engine at full size: 10,000 queries x 1,000,000 base rows x 1536
      dims, k=100, sqeuclidean, unit Gaussian rows: knn(engine="auto") must
-     pick the screened engine and launch the "wgmma" kernel; its result is
+     pick the screened engine and launch the "wgmma" kernel, F1 and F3 and
+     K7 (the merge's top-m), each counted from 0; its result is
      held against the exact engine and its kernel against the plain version
      at these shapes; the two variants are timed in turns (mma, wgmma,
      wgmma, mma) at 1/2/3 passes, here and at the streamed batch's shape
@@ -64,7 +66,8 @@ Phases, each printing its own lines and seconds:
      idle share, over 1,000 queries and
      100,000 base sentences, k=100, through the table path (compute_knn ->
      partial files -> merge): the screened engine must launch the "wgmma"
-     kernel at D=1024; the ivec is held against the exact engine on the
+     kernel at D=1024, and F1, F2 (the fallback's tiles) and F3, counted
+     from 0 around nw_main; the ivec is held against the exact engine on the
      same parquet (tie-tolerant recall 1.000), validate_files_v0 must find
      0 mismatches, and the kernel is held against its plain version on the
      run's own queries and first mega-tile at 1/2/3 passes. Prints the
@@ -152,7 +155,7 @@ Phases, each printing its own lines and seconds:
      kernels line's `launches`, all of them "adaptive") and on every other
      path that runs it (`launches_by_path`, `launches_by_path_variant`);
      (d) precision "default" and "high" on the exact engine at (b)'s
-     shape: ms and max |d - d_highest|.
+     shape: ms and max |d - d_highest|. (b) and (c) count F1 and F2.
  14. the encoders' compiled forward (models/graphed.py: a CUDA graph per
      padded shape), at published widths with seeded random weights: (b)
      e5-large-v2 at (64, 32), (64, 128), (64, 512) and a 37-row tail padded
@@ -167,6 +170,22 @@ Phases, each printing its own lines and seconds:
      "flash" (24, all "wgmma"); (e) generate_embedding over 10,000 base
      sentences and encode_passages under set_sync_debug_mode("error"),
      the readback alone exempt; (f) phase 8(a)'s loop, graphed.
+ 15. the kNN core's fused kernels (ops/fused_core.py), each against its
+     plain version (the op-by-op code) at the main path's shapes and timed
+     in turns (plain, kernel, kernel, plain) beside its bytes bound: (a) F1
+     prepare_base (csrc/prepare_base.cu) at phase 3's 1,000,000 x 1536
+     base: bhi bit for bit, bn_row within (dim + 16) 2^-24, the statistics
+     at or above their float64 truth, the rows whose norm bits differ from
+     torch's row sums, and the norms-only launch; (b) F2 distance_tile
+     (csrc/distance_tile.cu) at 512 x 8,192 (1536 dims: the 512 x 1M
+     engines' tile) and 1,000 x 8,192 (1024: nw's fallback), every metric
+     and a shifted mask bit for bit, and the distances that differ from
+     the old path's (torch's row sums as norms); (c) F3 rerank_rows
+     (csrc/rerank_rows.cu) on knn(auto)'s own 10,000 x 256 candidates
+     within 1e-5 of the gather and torch.bmm, its bound over the distinct
+     rows and over every candidate row; (d) the merge's top-m on K7
+     against the stable sort, equal and in turns. Their records join the
+     kernels line, launches from phase 8's nw_main and per path.
 The line before the last is one JSON object with the kernels' numbers;
 the last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 without that line; without a CUDA card it exits 2.
@@ -195,6 +214,7 @@ sys.path.insert(0, HERE)
 PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+L2_BYTES = 50 * 2 ** 20     # the H100's L2 cache
 # calls per CUDA-event timing where one call is a fraction of a millisecond
 REPS = 10
 
@@ -265,7 +285,14 @@ def ptxas_report(name, report):
     for line in report.splitlines():
         if "Compiling entry function" in line:
             sym = line.split("'")[1]
-            if "verified_select" in sym:
+            if name in FUSED_KERNELS:
+                # F1-F3: the kernel's name, then its template arguments
+                targs = re.search(r"I((?:L[ib]\d+E)+)E", sym)
+                args = re.findall(r"\d+", targs.group(1)) if targs \
+                    else []
+                entry = (f"{re.search(r'([a-z_]+_kernel)', sym).group(1)}"
+                         f"<{', '.join(args)}>")
+            elif "verified_select" in sym:
                 # the adaptive variant's template arguments: resident keys,
                 # cluster
                 targs = re.search(r"ILb(\d)ELb(\d)E", sym)
@@ -297,6 +324,32 @@ def ptxas_report(name, report):
             entry = None
         elif "arning" in line or "(C7" in line:
             log(f"  ptxas {name}: {line.strip()}")
+
+
+# the kNN core's fused kernels (ops/fused_core.py): F1, F2, F3
+FUSED_KERNELS = ("prepare_base", "distance_tile", "rerank_rows")
+# their launches on each path that runs them, counted from 0 just before
+# the path and read just after: {path: {kernel: launches}}
+FUSED_LAUNCHES = {}
+
+
+@contextlib.contextmanager
+def fused_counted(path):
+    from neighborhoodwatch_tpu_torch.ops import fused_core as fc
+    fc.reset_launches()
+    yield
+    FUSED_LAUNCHES[path] = {
+        "prepare_base": fc.prepare_base.launches,
+        "distance_tile": fc.distance_tile.launches,
+        "rerank_rows": fc.rerank_rows.launches}
+
+
+def require_fused(path, kernels):
+    """Fail unless every kernel in `kernels` launched on `path`."""
+    got = FUSED_LAUNCHES[path]
+    missing = [n for n in kernels if got[n] < 1]
+    if missing:
+        raise AssertionError(f"{path} never launched {missing}: {got}")
 
 
 def reset_counts(wrapper):
@@ -374,13 +427,14 @@ def phase_setup():
     from concurrent.futures import ThreadPoolExecutor
     from neighborhoodwatch_tpu_torch.utils import cuda_build
     from neighborhoodwatch_tpu_torch.ops import attention_kernel as ak
+    from neighborhoodwatch_tpu_torch.ops import fused_core as fc
     from neighborhoodwatch_tpu_torch.ops import maxsim_kernel as mk
     from neighborhoodwatch_tpu_torch.ops import screen_kernel as sk
     from neighborhoodwatch_tpu_torch.ops import verified_kernel as vk
     # one nvcc per source, all started together
     shutil.rmtree(cuda_build.BUILD_DIR, ignore_errors=True)
     names = ("screen_keys", "maxsim_keys", "masked_attention",
-             "verified_select")
+             "verified_select") + FUSED_KERNELS
     t = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         reports = [r for _, r in pool.map(cuda_build.build, names)]
@@ -388,6 +442,7 @@ def phase_setup():
     mk.load_library()
     ak.load_library()
     vk.load_library()
+    fc.load_libraries()
     log(f"kernel builds ({', '.join(names)}): "
         f"{time.perf_counter() - t:.2f} s "
         f"(nvcc {' '.join(cuda_build.NVCC_FLAGS)})")
@@ -468,8 +523,9 @@ def phase_engine(rec):
     reset_counts(sk.screen_keys)
     torch.cuda.synchronize()
     t = time.perf_counter()
-    d_s, i_s = K.knn(q, base, k, engine="auto")
-    torch.cuda.synchronize()
+    with fused_counted("knn_auto"), verified_counted("knn_auto"):
+        d_s, i_s = K.knn(q, base, k, engine="auto")
+        torch.cuda.synchronize()
     first_s = time.perf_counter() - t
     launches = sk.screen_keys.launches
     by_variant = dict(sk.screen_keys.launches_by_variant)
@@ -478,8 +534,13 @@ def phase_engine(rec):
     if by_variant["mma"] or by_variant["wgmma"] != launches:
         raise AssertionError(f"knn(auto) launched {by_variant}: every launch "
                              f"at these shapes must take 'wgmma'")
+    # F1 prepares the base, F3 re-ranks, K7 takes the merge's top-m
+    require_fused("knn_auto", ("prepare_base", "rerank_rows"))
+    if VERIFIED_LAUNCHES["knn_auto"] < 1:
+        raise AssertionError("knn(auto)'s merge never launched K7")
     log(f"  knn(auto) -> engine {engine}, kernel launches {launches} "
-        f"{by_variant}, first call {first_s:.3f} s")
+        f"{by_variant}, fused kernels {FUSED_LAUNCHES['knn_auto']}, K7 "
+        f"{VERIFIED_LAUNCHES['knn_auto']}, first call {first_s:.3f} s")
 
     screened_ms = median_ms(lambda: K.knn(q, base, k, engine="auto"))
     _, _, diag = K.screened_knn_traced(q, base, B, 0, k, "sqeuclidean",
@@ -1402,7 +1463,8 @@ def phase_nw(rec, workdir, Q=1000, B=100_000, k=100,
     # 4, the base set's second 10,000 sentences, is traced
     t = time.perf_counter()
     with counted_repairs() as diags, contextlib.redirect_stdout(tee), \
-            verified_counted("nw"), graph_forwards() as forwards, \
+            verified_counted("nw"), fused_counted("nw"), \
+            graph_forwards() as forwards, \
             traced_window(E5EmbeddingGenerator, 4, 1, os.path.join(
                 workdir, "encode_trace")) as window:
         nw_main(argv)
@@ -1432,6 +1494,10 @@ def phase_nw(rec, workdir, Q=1000, B=100_000, k=100,
         f"{class_b}, whole-batch fallbacks {sum(d[2] for d in diags)}")
     if launches < 1:
         raise AssertionError("nw never launched the screen kernel")
+    # the screened call: F1 prepares, F3 re-ranks, and the exact fallback
+    # of the queries that fail the certificate runs its tiles on F2
+    require_fused("nw", FUSED_KERNELS)
+    log(f"  nw_main's fused kernel launches: {FUSED_LAUNCHES['nw']}")
     if by_variant["mma"] or by_variant["wgmma"] != launches:
         raise AssertionError(f"nw launched {by_variant}: D={D} must take "
                              f"'wgmma'")
@@ -2574,6 +2640,31 @@ def graph_ms(fn):
     return ms
 
 
+def rotating_ms(fn, inputs, graph=True):
+    """Milliseconds of one call of `fn`, each call on its own input of
+    `inputs` and with its own output kept, so that a caller who makes the
+    inputs and outputs together well larger than the L2 cache times calls
+    that read their input from HBM: all of them captured in one CUDA graph
+    and its replay timed by CUDA events (median of 3; the card alone, as
+    graph_ms), or with graph=False back to back through the host."""
+    import torch
+    fn(inputs[0])
+    if not graph:
+        return event_ms(lambda: [fn(x) for x in inputs]) / len(inputs)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(inputs[0])
+    torch.cuda.current_stream().wait_stream(side)
+    captured = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(captured, capture_error_mode="relaxed"):
+        outs = [fn(x) for x in inputs]
+    captured.replay()
+    ms = event_ms(captured.replay) / len(inputs)
+    del captured, outs
+    return ms
+
+
 def select_bound_ms(q_rows, n, k):
     """One read of the tile, one write of (dist f32, position int64) and of
     the proof's byte per row, at the card's memory rate."""
@@ -2703,11 +2794,16 @@ def verified_engine(rec, n_q=512, k=100):
     q, base = engine_data()
     q = q[:n_q].contiguous()
     B, D = base.shape
-    d_e, i_e = K.knn(q, base, k, engine="exact")
+    with fused_counted("engine_exact"):
+        d_e, i_e = K.knn(q, base, k, engine="exact")
     vk.reset_failed_rows()
-    with verified_counted("engine_verified"):
+    with verified_counted("engine_verified"), \
+            fused_counted("engine_verified"):
         d_v, i_v = K.knn(q, base, k, engine="verified")
     torch.cuda.synchronize()
+    # each tile's epilogue on F2, the base's norms once on F1
+    for path in ("engine_exact", "engine_verified"):
+        require_fused(path, ("prepare_base", "distance_tile"))
     knn_agree(d_v, i_v, d_e, i_e, f"(b) knn(engine='verified') vs 'exact', "
               f"{n_q} x {B} x {D}, k={k}")
     exact_ms = median_ms(lambda: K.knn(q, base, k, engine="exact"))
@@ -2732,7 +2828,9 @@ def verified_engine(rec, n_q=512, k=100):
         f"verified (K7 per tile, {tiles} launches, {vk.failed_rows()} rows "
         f"fell back) {verified_ms:.1f} ms, exact with torch.topk "
         f"{topk_ms:.1f} ms; bound (the fp32 product at "
-        f"{PEAK_FP32_FLOPS / 1e12:.0f} TFLOP/s) {bound:.1f} ms")
+        f"{PEAK_FP32_FLOPS / 1e12:.0f} TFLOP/s) {bound:.1f} ms; fused "
+        f"kernels exact {FUSED_LAUNCHES['engine_exact']}, verified "
+        f"{FUSED_LAUNCHES['engine_verified']}")
     rec["engine"] = {"Q": n_q, "B": B, "D": D, "k": k, "exact_ms": exact_ms,
                      "verified_ms": verified_ms, "topk_ms": topk_ms,
                      "bound_ms": bound, "launches": tiles}
@@ -2786,8 +2884,9 @@ def verified_nw_batch(rec, nw):
     vk.reset_failed_rows()
     reset_counts(vk.verified_select)
     torch.cuda.synchronize()
-    d, i, diag = call()
-    torch.cuda.synchronize()
+    with fused_counted("nw_batch"):
+        d, i, diag = call()
+        torch.cuda.synchronize()
     launches = vk.verified_select.launches
     failed = vk.failed_rows()
     if launches < 1:
@@ -2801,7 +2900,8 @@ def verified_nw_batch(rec, nw):
         f"medians of 3 in turns (exact, verified, verified, exact): fallback "
         f"on the stable sort {ms['exact'][0]:.2f} / {ms['exact'][1]:.2f} ms, "
         f"on K7 {ms['verified'][0]:.2f} / {ms['verified'][1]:.2f} ms; K7 "
-        f"launches of the call {launches}, rows fallen back {failed}")
+        f"launches of the call {launches}, rows fallen back {failed}; fused "
+        f"kernels {FUSED_LAUNCHES['nw_batch']}")
     rec["nw_batch"] = {"Q": Q, "B": B, "D": D, "k": k, "ms_before": before,
                        "ms": after, "launches": launches,
                        "repairs": list(diag)}
@@ -3331,6 +3431,257 @@ def phase_encoders(rec, e5, workdir):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------ phase 15
+
+
+def in_turns(fns, timer):
+    """{name: ms}: each callable of `fns` timed by `timer` in turns (the
+    order given, then reversed), the two timings averaged."""
+    got = {n: [] for n in fns}
+    for n in list(fns) + list(reversed(fns)):
+        got[n].append(timer(fns[n]))
+    return {n: float(np.mean(v)) for n, v in got.items()}
+
+
+def row_sums(x, fn, chunk=100_000):
+    """(n,) fn(rows) over row chunks of x, on the card."""
+    import torch
+    return torch.cat([fn(x[s:s + chunk]) for s in range(0, len(x), chunk)])
+
+
+def fused_record(name, replaces, **numbers):
+    return {"name": name, "route": "cuda",
+            "source": f"neighborhoodwatch_tpu_torch/csrc/{name}.cu",
+            "replaces": replaces,
+            "launches": FUSED_LAUNCHES.get("nw", {}).get(name, 0),
+            "launches_by_path": {p: v[name] for p, v in
+                                 FUSED_LAUNCHES.items()},
+            "bound_by": "bytes", "library_ms": None, **numbers}
+
+
+def fused_prepare(base):
+    """(a) F1 at the headline base against its plain version: bhi bit for
+    bit, bn_row within the order-of-addition bound, the statistics at or
+    above their float64 truth; the two in turns; the norms-only launch."""
+    import torch
+    from neighborhoodwatch_tpu_torch.ops import fused_core as fc
+    B, D = base.shape
+    bn_p, st_p, bhi_p = fc.prepare_plain(base)
+    bn_k, st_k, bhi_k = fc.prepare_base(base)
+    torch.cuda.synchronize()
+    same_bhi = torch.equal(bhi_k.view(torch.int16), bhi_p.view(torch.int16))
+    fin = torch.isfinite(bn_p)
+    rel = (D + 16) * 2.0 ** -24
+    err = float((bn_k - bn_p).abs()[fin].max())
+    within = bool(((bn_k - bn_p).abs() <= rel * bn_p)[fin].all())
+    b64 = row_sums(base, lambda x: (x.double() ** 2).sum(1))
+    lo64 = torch.cat([((base[s:s + 100_000].double()
+                        - bhi_p[s:s + 100_000].double()) ** 2).sum(1)
+                      for s in range(0, B, 100_000)]).sqrt()
+    pos = fin & (b64 > 0)
+    truth = [b64[fin].max(), b64[fin].max().sqrt(), lo64[fin].max(),
+             (lo64[pos] / b64[pos].sqrt()).max()]
+    bounds = all(float(st_k[j]) >= float(truth[j]) for j in range(4))
+    # and within the guard of the plain version's: a kernel whose stats
+    # are too loose fails the certificate on every query
+    tight = all(abs(float(st_k[j]) - float(st_p[j]))
+                <= 2 * rel * float(st_p[j]) for j in range(4))
+    # the bits F1's norms move against torch's row sums (the norms the
+    # exact engines took per tile before)
+    moved = int((bn_k.view(torch.int32) != row_sums(
+        base, lambda x: (x * x).sum(1)).view(torch.int32)).sum())
+    del bhi_p, bn_p, b64, lo64
+    torch.cuda.empty_cache()
+    if not (same_bhi and within and bounds and tight):
+        raise AssertionError(f"F1 vs plain: bhi bit-equal {same_bhi}, norms "
+                             f"within {within}, stats {st_k.tolist()} >= "
+                             f"float64 truth {bounds}, within {2 * rel:.3g}"
+                             f" of the plain {st_p.tolist()} {tight}")
+    t = in_turns({"plain": lambda: fc.prepare_plain(base),
+                  "kernel": lambda: fc.prepare_base(base)}, event_ms)
+    tn = in_turns({"plain": lambda: fc.sq_norms_plain(base),
+                   "kernel": lambda: fc.sq_norms(base)}, event_ms)
+    bound = (B * D * 6 + B * 4 + 16) / PEAK_BYTES * 1e3
+    bound_n = (B * D * 4 + B * 4) / PEAK_BYTES * 1e3
+    log(f"  (a) F1 prepare_base {B:,} x {D}: kernel {t['kernel']:.3f} ms "
+        f"({t['kernel'] / bound:.2f}x the bytes bound {bound:.3f} ms), plain "
+        f"{t['plain']:.2f} ms (turns plain, kernel, kernel, plain); bhi bit "
+        f"for bit, max |bn_row - plain| {err:.3g} (bound {rel:.3g} x "
+        f"bn_row), stats {[round(float(x), 6) for x in st_k]} >= the float64"
+        f" truth {[round(float(x), 6) for x in truth]} and within "
+        f"{2 * rel:.3g} x the plain {[round(float(x), 6) for x in st_p]}; "
+        f"rows whose norm bits differ"
+        f" from torch's row sum {moved:,} of {B:,}; norms alone: kernel "
+        f"{tn['kernel']:.3f} ms (bound {bound_n:.3f}), plain "
+        f"{tn['plain']:.2f} ms")
+    return fused_record(
+        "prepare_base", "neighborhoodwatch_tpu/ops/knn.py:251",
+        max_abs_err=err, ms=t["kernel"], plain_ms=t["plain"],
+        bound_ms=bound, norms_ms=tn["kernel"], norms_plain_ms=tn["plain"],
+        norms_bound_ms=bound_n, norm_bits_moved=moved,
+        shape=[B, D])
+
+
+def fused_distance_tiles():
+    """(b) F2 at the exact engines' tiles (512 x 8,192 at 1536 dims, the
+    512 x 1M engines'; 1,000 x 8,192 at 1024, nw's fallback) against its
+    plain version for every metric and a shifted tile's mask, bit for bit;
+    the two in turns; and the distances of the old op-by-op path (torch's
+    row sums as norms) against the new."""
+    import torch
+    from neighborhoodwatch_tpu_torch.ops import fused_core as fc
+    from neighborhoodwatch_tpu_torch.ops.distance import pairwise_distance
+    g = torch.Generator(device="cuda").manual_seed(15)
+    out = {}
+    for label, Q, T, D in (("engine_512x8192", 512, 8192, 1536),
+                           ("nw_1000x8192", 1000, 8192, 1024)):
+        q, b = unit_rows(Q, D, g), unit_rows(T, D, g)
+        dots = q @ b.T
+        qn, bn = fc.sq_norms(q), fc.sq_norms(b)
+        err = 0.0
+        for metric in ("sqeuclidean", "euclidean", "cosine", "dot"):
+            for lo, hi in ((0, T), (3000, T - 5)):
+                want = fc.distance_tile_plain(dots, qn, bn, metric, lo, hi)
+                got = fc.distance_tile(dots, qn, bn, metric, lo, hi)
+                if not torch.equal(got.view(torch.int32),
+                                   want.view(torch.int32)):
+                    raise AssertionError(f"F2 {label} {metric} [{lo}, {hi})"
+                                         f" differs from its plain version")
+                err = max(err, float((got - want).abs().nan_to_num(0).max()))
+        fns = {"plain": lambda x: fc.distance_tile_plain(
+            x, qn, bn, "sqeuclidean", 0, T - 5),
+            "kernel": lambda x: fc.distance_tile(
+                x, qn, bn, "sqeuclidean", 0, T - 5)}
+        # copies of the products, each call on its own and its output kept:
+        # four times the L2 cache or more, so that no call finds its input
+        # there. The card's time alone (one CUDA graph of every call), and
+        # one call through the wrapper, the host's share included
+        copies = max(REPS, -(-4 * L2_BYTES // (2 * Q * T * 4)))
+        dots_set = [dots] + [dots.clone() for _ in range(copies - 1)]
+        t = in_turns(fns, lambda f: rotating_ms(f, dots_set))
+        call = in_turns(fns, lambda f: rotating_ms(f, dots_set, graph=False))
+        bound = (2 * Q * T * 4 + (Q + T) * 4) / PEAK_BYTES * 1e3
+        # the old path: torch's row sums as both norms, op by op
+        old = fc.distance_tile_plain(dots, (q * q).sum(1), (b * b).sum(1),
+                                     "sqeuclidean")
+        new = pairwise_distance(q, b)
+        moved = int((old.view(torch.int32) != new.view(torch.int32)).sum())
+        out[label] = {"ms": t["kernel"], "plain_ms": t["plain"],
+                      "copies": copies,
+                      "call_ms": call["kernel"],
+                      "plain_call_ms": call["plain"],
+                      "bound_ms": bound, "max_abs_err": err,
+                      "distance_bits_moved": moved,
+                      "max_abs_moved": float((old - new).abs().max())}
+        log(f"  (b) F2 distance_tile {label} (D={D}): kernel "
+            f"{t['kernel']:.4f} ms ({t['kernel'] / bound:.2f}x the bytes "
+            f"bound {bound:.4f} ms), plain {t['plain']:.4f} ms (a CUDA graph "
+            f"of {copies} calls, each on its own copy of the products, "
+            f"{copies * 2 * Q * T * 4 / 2 ** 20:.0f} MiB in and out, in "
+            f"turns); one call through the wrapper (host "
+            f"included) {call['kernel']:.4f} ms, plain {call['plain']:.4f} "
+            f"ms; every metric and mask bit for "
+            f"bit; against the old path (torch's row sums as norms) {moved:,}"
+            f" of {Q * T:,} distances differ, max |d| "
+            f"{out[label]['max_abs_moved']:.3g}")
+        del q, b, dots, dots_set, old, new
+    torch.cuda.empty_cache()
+    main = out["nw_1000x8192"]
+    return fused_record(
+        "distance_tile", "neighborhoodwatch_tpu/ops/knn.py:138",
+        max_abs_err=max(v["max_abs_err"] for v in out.values()),
+        ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+        shapes=out)
+
+
+def fused_rerank(q, base, k=100):
+    """(c) F3 on knn(auto)'s own candidates at the headline shape (the
+    screen's merge, its top-m on K7) against its plain version (the
+    blocked gather and torch.bmm), within 1e-5, the two in turns; and (d)
+    the merge's top-m on K7 against the stable sort, equal and in turns."""
+    import torch
+    from neighborhoodwatch_tpu_torch.ops import fused_core as fc
+    from neighborhoodwatch_tpu_torch.ops import knn as K
+    from neighborhoodwatch_tpu_torch.ops import screen_kernel as sk
+    Q, D = q.shape
+    B = base.shape[0]
+    sub = sk.pick_sub(B, k, q_rows=Q)
+    bn_row, stats, bhi = K._prepare_arrays(base)
+    cd, ci, _ = sk.screen_candidates(q, base, epilogue="l2",
+                                     screen_precision="default", n_valid=B,
+                                     bn_row=bn_row, bhi=bhi, sub=sub)
+    del bn_row, bhi
+    _, m, block = K._screen_plan(B, k, D, sub, 1, lean=True)
+    keep, lanes = sk.KEEP, sk.LANES
+    merge_d = cd.reshape(Q, -1, keep, lanes)[:, :, :keep - 1, :].reshape(
+        Q, -1)
+    merge_i = ci.reshape(Q, -1, keep, lanes)[:, :, :keep - 1, :].reshape(
+        Q, -1)
+    del cd, ci
+
+    def by_sort():
+        sd, order = torch.sort(merge_d, dim=1, stable=True)
+        return sd[:, :m], torch.gather(merge_i, 1, order[:, :m])
+    scr, idx_m = K._merge_select(merge_d, merge_i, m)
+    s_scr, s_idx = by_sort()
+    if not (torch.equal(scr.view(torch.int32), s_scr.view(torch.int32))
+            and torch.equal(idx_m, s_idx)):
+        raise AssertionError("the merge's top-m on K7 differs from the "
+                             "stable sort")
+    tm = in_turns({"sort": by_sort,
+                   "k7": lambda: K._merge_select(merge_d, merge_i, m)},
+                  per_call_ms)
+    width = merge_d.shape[1]
+    log(f"  (d) the merge's top-{m} of {width:,} columns, "
+        f"{Q:,} rows: K7 {tm['k7']:.3f} ms, stable sort {tm['sort']:.3f} ms "
+        f"(in turns); equal, values bit for bit and ids in order")
+    want = fc.rerank_plain(q, base, idx_m, "sqeuclidean", block)
+    got = fc.rerank_rows(q, base, idx_m, "sqeuclidean")
+    fin = torch.isfinite(want)
+    err = float((got - want).abs()[fin].max())
+    if not torch.equal(torch.isfinite(got), fin) or err > 1e-5:
+        raise AssertionError(f"F3 vs plain: max |d| {err:.3g}")
+    t = in_turns({"plain": lambda: fc.rerank_plain(q, base, idx_m,
+                                                   "sqeuclidean", block),
+                  "kernel": lambda: fc.rerank_rows(q, base, idx_m,
+                                                   "sqeuclidean")}, event_ms)
+    distinct = int(torch.unique(idx_m).numel())
+    small = Q * D * 4 + Q * m * 4 * 2
+    bound = (distinct * D * 4 + small) / PEAK_BYTES * 1e3
+    bound_all = (Q * m * D * 4 + small) / PEAK_BYTES * 1e3
+    log(f"  (c) F3 rerank_rows {Q:,} x {m} candidates x {D}: kernel "
+        f"{t['kernel']:.3f} ms ({t['kernel'] / bound:.2f}x the bytes bound "
+        f"{bound:.3f} ms over the {distinct:,} distinct rows; "
+        f"{t['kernel'] / bound_all:.2f}x {bound_all:.3f} ms over every "
+        f"candidate row), plain (blocks of {block} rows: gather + torch.bmm)"
+        f" {t['plain']:.2f} ms, in turns; max |d - plain| {err:.3g}")
+    del merge_d, merge_i, scr, idx_m, s_scr, s_idx, want, got
+    torch.cuda.empty_cache()
+    return fused_record(
+        "rerank_rows", "neighborhoodwatch_tpu/ops/knn.py:379",
+        max_abs_err=err, ms=t["kernel"], plain_ms=t["plain"],
+        bound_ms=bound, bound_every_candidate_ms=bound_all,
+        distinct_rows=distinct, shape=[Q, m, D],
+        merge_select={"k7_ms": tm["k7"], "sort_ms": tm["sort"],
+                      "rows": Q, "width": width, "m": m})
+
+
+def phase_fused():
+    """Phase 15: F1-F3 against their plain versions at the main path's
+    shapes, timed in turns beside their bounds; returns their records for
+    the kernels line (launches: phase 8's nw_main, and per path)."""
+    import torch
+    q, base = engine_data()
+    recs = [fused_prepare(base)]
+    recs.append(fused_distance_tiles())
+    recs.append(fused_rerank(q, base))
+    del q, base
+    torch.cuda.empty_cache()
+    log(f"  fused kernels' launches by path (each counted from 0): "
+        f"{FUSED_LAUNCHES}")
+    return recs
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3421,12 +3772,16 @@ def main():
         phase_encoders(arec, kept.pop("e5"), workdir())
         log(f"phase 14 encoders' CUDA graphs: ok, "
             f"{time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        frecs = phase_fused()
+        log(f"phase 15 the kNN core's fused kernels: ok, "
+            f"{time.perf_counter() - t:.1f} s")
     finally:
         for w in workdirs:
             shutil.rmtree(w, ignore_errors=True)
     assert "jax" not in sys.modules
     log(f"total {time.perf_counter() - t0:.1f} s on {card}")
-    print(json.dumps({"kernels": [rec, mrec, arec, vrec]}))
+    print(json.dumps({"kernels": [rec, mrec, arec, vrec, *frecs]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -15,9 +15,16 @@ with an fp32 result (the JAX package leaves them to XLA, outside any
 Pallas kernel); on the CPU the bf16-rounded operands are multiplied in
 fp32, where every product is exact, so the two differ only in the order
 of addition. Norms are fp32 from the fp32 inputs at every precision.
+
+The epilogue after the product is one pass, the counterpart of the XLA
+fusion around the JAX package's product: on the card the hand-written
+ops/fused_core.py:distance_tile (F2), with the norms from sq_norms (F1's
+norms); on the CPU their plain versions, op by op.
 """
 
 import torch
+
+from neighborhoodwatch_tpu_torch.ops import fused_core
 
 METRICS = ("sqeuclidean", "euclidean", "cosine", "dot")
 PRECISIONS = ("default", "high", "highest")
@@ -45,28 +52,55 @@ def products(query, base, precision: str = "highest"):
     return a.float() @ b.float().T
 
 
+def _check_metric(metric: str) -> None:
+    if metric not in METRICS:
+        raise ValueError(f"unknown metric {metric!r}; must be one of "
+                         f"{METRICS}")
+
+
+def query_operand(query, metric: str):
+    """(query rows as the products take them, their squared norms or None):
+    computed once per call and shared by every tile. Cosine normalizes the
+    rows; only the (sq)euclidean metrics read norms."""
+    _check_metric(metric)
+    query = query.float()
+    if metric == "cosine":
+        return _safe_normalize(query), None
+    if metric in ("sqeuclidean", "euclidean"):
+        return query, fused_core.sq_norms(query)
+    return query, None
+
+
+def base_norms(base, metric: str):
+    """The base rows' squared norms where `metric` reads them, else None
+    (one pass over the base per call, not one per tile)."""
+    if metric in ("sqeuclidean", "euclidean"):
+        return fused_core.sq_norms(base.float())
+    return None
+
+
+def tile_distance(q, qn, tile, bn, metric: str, precision: str = "highest",
+                  lo: int = 0, hi: int | None = None):
+    """(Q, T) distances of the prepared query rows `q` (query_operand)
+    against the base rows `tile` (T, d) whose squared norms are `bn` (T,)
+    (None: computed here; the cosine and dot metrics read none): the
+    product at `precision`, then the one-pass epilogue with columns outside
+    [lo, hi) masked to +inf."""
+    tile = tile.float()
+    if metric == "cosine":
+        tile = _safe_normalize(tile)
+    elif bn is None:
+        bn = base_norms(tile, metric)
+    dots = products(q, tile, precision)
+    return fused_core.distance_tile(dots, qn, bn, metric, lo, hi)
+
+
 def pairwise_distance(query, base, metric: str = "sqeuclidean",
                       precision: str = "highest"):
     """(Q, d) x (B, d) -> (Q, B) fp32 distance matrix; `precision` as in
     the module doc."""
-    if metric not in METRICS:
-        raise ValueError(f"unknown metric {metric!r}; must be one of "
-                         f"{METRICS}")
-    query = query.float()
-    base = base.float()
-    if metric == "cosine":
-        query = _safe_normalize(query)
-        base = _safe_normalize(base)
-    dots = products(query, base, precision)
-    if metric in ("sqeuclidean", "euclidean"):
-        qn = (query * query).sum(1, keepdim=True)
-        bn = (base * base).sum(1, keepdim=True)
-        d = torch.clamp_min(qn + bn.T - 2.0 * dots, 0.0)
-        if metric == "euclidean":
-            d = torch.sqrt(d)
-    else:
-        d = 1.0 - dots
-    return torch.where(torch.isfinite(d), d, torch.full_like(d, float("inf")))
+    q, qn = query_operand(query, metric)
+    return tile_distance(q, qn, base, None, metric, precision)
 
 
 def similarity_from_distance(distance, metric: str):

@@ -1,0 +1,322 @@
+"""The kNN engines' fused passes: hand-written Hopper counterparts of the
+fusions XLA makes of the JAX package's jitted kNN core (ops/knn.py), which
+are not Pallas kernels but single passes over HBM on the TPU.
+
+  F1 `prepare_base` (csrc/prepare_base.cu): JAX `_prepare_arrays`
+     (ops/knn.py:251): squared row norms, the bf16 screen operand and the
+     certificate statistics in one read of the base. `sq_norms` launches
+     the same kernel for the norms alone (the exact engines' base norms).
+  F2 `distance_tile` (csrc/distance_tile.cu): the distance epilogue and
+     validity mask of `pairwise_distance` inside JAX `_knn_scan`'s step
+     (:137-146) and `_knn_full` (:154-163), on products that stay a library
+     product (ops/distance.py:products).
+  F3 `rerank_rows` (csrc/rerank_rows.cu): JAX `_exact_pair_dists` (:379)
+     under `_screened_select`'s jit: each query's candidate rows read by
+     id, fp32 distances, no gathered copy of the rows.
+
+Each wrapper launches its kernel on CUDA tensors (and counts the launch)
+or raises; on CPU tensors it runs the plain PyTorch version beside it,
+which is the engines' op-by-op code as it was before the kernels. Nothing
+is built at import: the kernels build at first use (utils/cuda_build.py).
+"""
+
+import ctypes
+
+import torch
+
+from neighborhoodwatch_tpu_torch.ops import screen_kernel
+
+METRICS = ("sqeuclidean", "euclidean", "cosine", "dot")
+_TILE_CODE = {"sqeuclidean": 0, "euclidean": 1, "cosine": 2, "dot": 2}
+_RERANK_CODE = {"sqeuclidean": 0, "euclidean": 1, "cosine": 2, "dot": 3}
+
+# bounds the plain versions' per-chunk temporaries (~0.5 GB)
+_PREP_CHUNK_ELEMS = 1 << 27
+# blocks of F1 an SM: eight warps a block, each a row at a time
+_PREP_BLOCKS_PER_SM = 8
+
+_INF = float("inf")
+
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# each source's C launch function, `<name>_launch`, and its arguments
+_ARGTYPES = {
+    "prepare_base": [_P, _LL, _I, _I, _I, _P, _P, _P, _P, ctypes.c_float,
+                     _I, _P],
+    "distance_tile": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "rerank_rows": [_P, _P, _P, _P, _I, _I, _I, _LL, _I, _I, _P],
+}
+
+
+def _launcher(name: str):
+    """Build (at first use) and load csrc/<name>.cu; its launch function."""
+    from neighborhoodwatch_tpu_torch.utils import cuda_build
+    lib = cuda_build.load(name)
+    fn = getattr(lib, f"{name}_launch")
+    if not getattr(lib, "_nw_typed", False):
+        fn.argtypes = _ARGTYPES[name]
+        fn.restype = ctypes.c_int
+        lib._nw_typed = True
+    return fn
+
+
+def load_libraries():
+    """Build (at first use) and load the three sources."""
+    for name in _ARGTYPES:
+        _launcher(name)
+
+
+def _cuda_f32(t, name):
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: on {t.device}, expected a CUDA device")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: expected float32, got {t.dtype}")
+    return t.contiguous()
+
+
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+_sms: dict[torch.device, int] = {}
+
+
+def _sm_count(device) -> int:
+    n = _sms.get(device)
+    if n is None:
+        n = _sms[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return n
+
+
+# ---------------------------------------------------------------- F1
+
+
+def prepare_plain(base):
+    """(bn_row, stats, bhi) op by op, in row chunks that keep the bf16
+    rounding's temporaries small. stats = [bn_max, babs_max, blo_max,
+    ratio_max], every entry an UPPER bound for the certificate eps (each
+    computed norm carries the worst-case fp32 accumulation guard);
+    non-finite rows are excluded (they never become candidates)."""
+    n, dim = base.shape
+    g = screen_kernel.norm_guard(dim)
+    dev = base.device
+    bn_row = torch.empty(n, device=dev)
+    blo_n = torch.empty(n, device=dev)
+    bhi = torch.empty((n, dim), dtype=torch.bfloat16, device=dev)
+    step = max(1, _PREP_CHUNK_ELEMS // max(dim, 1))
+    for s in range(0, n, step):
+        x = base[s:s + step]
+        bn_row[s:s + step] = (x * x).sum(1)
+        hf = screen_kernel.bf16_round(x)
+        bhi[s:s + step] = hf.to(torch.bfloat16)
+        r = x - hf
+        blo_n[s:s + step] = torch.sqrt((r * r).sum(1))
+    finite = torch.isfinite(bn_row)
+    zero = torch.zeros((), device=dev)
+    bn_max = torch.where(finite, bn_row, zero).max() * g
+    blo_max = torch.where(finite, blo_n, zero).max() * g
+    ratio = blo_n * torch.rsqrt(torch.clamp_min(bn_row, 1e-30))
+    ratio_max = torch.where(finite & (bn_row > 0.0), ratio, zero).max() * g
+    stats = torch.stack([bn_max, torch.sqrt(bn_max), blo_max, ratio_max])
+    return bn_row, stats, bhi
+
+
+def sq_norms_plain(x):
+    """(n,) squared row norms of (n, dim) fp32 rows, in row chunks."""
+    n, dim = x.shape
+    out = torch.empty(n, device=x.device)
+    step = max(1, _PREP_CHUNK_ELEMS // max(dim, 1))
+    for s in range(0, n, step):
+        c = x[s:s + step]
+        out[s:s + step] = (c * c).sum(1)
+    return out
+
+
+def _launch_prepare(x, bhi, maxima, stats):
+    n, dim = x.shape
+    dev = x.device
+    bn_row = torch.empty(n, device=dev)
+    vec = int(dim % 4 == 0 and x.data_ptr() % 16 == 0)
+    grid = max(1, min(-(-n // 8), _sm_count(dev) * _PREP_BLOCKS_PER_SM))
+    guard = screen_kernel.norm_guard(dim)
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    with torch.cuda.device(dev):
+        err = _launcher("prepare_base")(
+            x.data_ptr(), n, dim, vec, int(bhi is not None),
+            bn_row.data_ptr(), ptr(bhi), ptr(maxima), ptr(stats), guard,
+            grid, _stream(dev))
+    _raise_on(err, "prepare_base")
+    prepare_base.launches += 1
+    return bn_row
+
+
+def prepare_base(base):
+    """(bn_row (n,) f32, stats (4,) f32, bhi (n, dim) bf16) of an (n, dim)
+    f32 base, as `prepare_plain` defines them. CUDA tensors launch F1 (one
+    read of the base; no temporary beyond the outputs) or raise; CPU
+    tensors take the plain version. On the card bhi equals the plain
+    version's bit for bit; bn_row and the statistics differ from it only by
+    the order of addition, which the statistics' guard covers."""
+    if base.device.type == "cpu":
+        return prepare_plain(base)
+    x = _cuda_f32(base, "base")
+    n, dim = x.shape
+    bhi = torch.empty((n, dim), dtype=torch.bfloat16, device=x.device)
+    maxima = torch.empty(3, dtype=torch.int32, device=x.device)
+    stats = torch.empty(4, device=x.device)
+    bn_row = _launch_prepare(x, bhi, maxima, stats)
+    return bn_row, stats, bhi
+
+
+def sq_norms(x):
+    """(n,) f32 squared row norms of (n, dim) f32 rows: F1 without its bf16
+    operand and statistics on CUDA tensors (the same sums as its bn_row,
+    bit for bit), the plain version on CPU tensors."""
+    if x.device.type == "cpu":
+        return sq_norms_plain(x)
+    return _launch_prepare(_cuda_f32(x, "x"), None, None, None)
+
+
+prepare_base.launches = 0
+
+
+# ---------------------------------------------------------------- F2
+
+
+def distance_tile_plain(dots, qn, bn, metric: str, lo: int = 0,
+                        hi: int | None = None):
+    """(Q, T) distances from f32 products `dots`: for (sq)euclidean from
+    the squared norms qn (Q,) and bn (T,) as max((qn + bn) - 2 dots, 0)
+    (sqrt for euclidean), else 1 - dots; non-finite distances and columns
+    outside [lo, hi) are +inf."""
+    if metric in ("sqeuclidean", "euclidean"):
+        d = torch.clamp_min(qn[:, None] + bn[None, :] - 2.0 * dots, 0.0)
+        if metric == "euclidean":
+            d = torch.sqrt(d)
+    else:
+        d = 1.0 - dots
+    d = torch.where(torch.isfinite(d), d, torch.full_like(d, _INF))
+    t = dots.shape[1]
+    hi = t if hi is None else hi
+    if lo > 0 or hi < t:
+        cols = torch.arange(t, device=dots.device)
+        d = torch.where(((cols >= lo) & (cols < hi))[None, :], d, _INF)
+    return d
+
+
+def distance_tile(dots, qn, bn, metric: str, lo: int = 0,
+                  hi: int | None = None):
+    """`distance_tile_plain`'s function: F2 on CUDA tensors (bit for bit
+    the plain version's for the same norms; one read of the products, one
+    write), the plain version on CPU tensors. qn and bn are read only for
+    the (sq)euclidean metrics."""
+    if metric not in METRICS:
+        raise ValueError(f"unknown metric {metric!r}; must be one of "
+                         f"{METRICS}")
+    if dots.device.type == "cpu":
+        return distance_tile_plain(dots, qn, bn, metric, lo, hi)
+    dots = _cuda_f32(dots, "dots")
+    q_rows, t = dots.shape
+    hi = t if hi is None else int(hi)
+    lo, hi = max(0, min(int(lo), t)), max(0, min(hi, t))
+    l2 = metric in ("sqeuclidean", "euclidean")
+    if l2:
+        qn, bn = _cuda_f32(qn, "qn"), _cuda_f32(bn, "bn")
+        if qn.shape != (q_rows,) or bn.shape != (t,):
+            raise ValueError(f"norms {tuple(qn.shape)}, {tuple(bn.shape)} "
+                             f"for a ({q_rows}, {t}) tile")
+    out = torch.empty_like(dots)
+    vec = int(t % 4 == 0 and dots.data_ptr() % 16 == 0
+              and out.data_ptr() % 16 == 0)
+    dev = dots.device
+    with torch.cuda.device(dev):
+        err = _launcher("distance_tile")(
+            dots.data_ptr(), qn.data_ptr() if l2 else None,
+            bn.data_ptr() if l2 else None, out.data_ptr(), q_rows, t, lo, hi,
+            _TILE_CODE[metric], vec, _stream(dev))
+    _raise_on(err, "distance_tile")
+    distance_tile.launches += 1
+    return out
+
+
+distance_tile.launches = 0
+
+
+# ---------------------------------------------------------------- F3
+
+
+def rerank_plain(query, base, ids, metric: str, block: int | None = None):
+    """Exact fp32 distances of query[t] against its own candidate rows
+    base[ids[t]]: (T, dim), (B, dim), (T, M) -> (T, M). The rows are
+    gathered `block` query rows at a time (all at once for None), which
+    bounds the (block, M, dim) gather."""
+    step = max(1, block or query.shape[0])
+    out = torch.empty(ids.shape, device=query.device)
+    for s in range(0, query.shape[0], step):
+        qb = query[s:s + step]
+        cb = base[ids[s:s + step].long()]
+        dots = torch.bmm(cb, qb[:, :, None])[:, :, 0]
+        if metric in ("sqeuclidean", "euclidean"):
+            qn = (qb * qb).sum(1)
+            cn = (cb * cb).sum(2)
+            d = torch.clamp_min(qn[:, None] + cn - 2.0 * dots, 0.0)
+            if metric == "euclidean":
+                d = torch.sqrt(d)
+        elif metric == "cosine":
+            qn = torch.sqrt((qb * qb).sum(1))
+            cn = torch.sqrt((cb * cb).sum(2))
+            denom = torch.clamp_min(qn[:, None] * cn, 1e-30)
+            d = 1.0 - dots / denom
+        else:  # dot
+            d = 1.0 - dots
+        out[s:s + step] = d
+    return out
+
+
+def rerank_rows(query, base, ids, metric: str, block: int | None = None):
+    """`rerank_plain`'s function: F3 on CUDA tensors (the candidate rows
+    read by id, never gathered; fp32 products and norms with fp32
+    accumulation; within the fp32 tolerance of the plain version, whose
+    sums run in another order; an id outside the base gives NaN), the
+    plain version on CPU tensors (`block` bounds its gather)."""
+    if metric not in METRICS:
+        raise ValueError(f"unknown metric {metric!r}; must be one of "
+                         f"{METRICS}")
+    if query.device.type == "cpu":
+        return rerank_plain(query, base, ids, metric, block)
+    query, base = _cuda_f32(query, "query"), _cuda_f32(base, "base")
+    q_rows, dim = query.shape
+    if base.shape[1] != dim or ids.shape[0] != q_rows or ids.device != \
+            query.device or base.device != query.device:
+        raise ValueError(f"query {tuple(query.shape)}, base "
+                         f"{tuple(base.shape)}, ids {tuple(ids.shape)} on "
+                         f"{query.device}, {base.device}, {ids.device}")
+    ids = ids.to(torch.int64).contiguous()
+    m = ids.shape[1]
+    out = torch.empty((q_rows, m), device=query.device)
+    vec = int(dim % 4 == 0 and base.data_ptr() % 16 == 0)
+    dev = query.device
+    with torch.cuda.device(dev):
+        err = _launcher("rerank_rows")(
+            query.data_ptr(), base.data_ptr(), ids.data_ptr(),
+            out.data_ptr(), q_rows, m, dim, base.shape[0],
+            _RERANK_CODE[metric], vec, _stream(dev))
+    _raise_on(err, "rerank_rows")
+    rerank_rows.launches += 1
+    return out
+
+
+rerank_rows.launches = 0
+
+
+def reset_launches() -> None:
+    """Set every wrapper's launch counts to 0."""
+    prepare_base.launches = 0
+    distance_tile.launches = 0
+    rerank_rows.launches = 0

@@ -23,6 +23,11 @@
 - precision ("default", "high", "highest") is the exact and verified
   engines' product precision (ops/distance.py); the screened engines
   re-rank in full fp32 whatever it is.
+- The passes XLA fuses in the JAX package's jitted core are hand-written
+  kernels on the card (ops/fused_core.py): the base preparation (F1), each
+  tile's distance epilogue and mask (F2, on norms computed once per call)
+  and the candidates' exact re-rank (F3); the merge's top-m runs on the
+  verified select (K7). On the CPU their plain versions run, op by op.
 
 Host syncs: the JAX engine's lazy `lax.cond` branches become Python `if`s
 on host values. screened_knn_traced reads the class-A and class-B counts
@@ -37,9 +42,11 @@ import numpy as np
 import torch
 
 from neighborhoodwatch_tpu_torch import resolve_device
-from neighborhoodwatch_tpu_torch.ops import screen_kernel, verified_kernel
+from neighborhoodwatch_tpu_torch.ops import (
+    fused_core, screen_kernel, verified_kernel,
+)
 from neighborhoodwatch_tpu_torch.ops.distance import (
-    PRECISIONS, pairwise_distance,
+    PRECISIONS, base_norms, query_operand, tile_distance,
 )
 from neighborhoodwatch_tpu_torch.ops.topk import merge_topk, smallest_k
 from neighborhoodwatch_tpu_torch.utils.misc import cdiv, round_up
@@ -102,28 +109,30 @@ def _select(engine: str):
 
 def _knn_scan(query, base, n_valid, base_offset, k: int, metric: str,
               tile_size: int, engine: str = "exact",
-              precision: str = "highest"):
+              precision: str = "highest", bn_row=None):
     """Scan base tiles with a running top-k. Pad-free: the last tile starts
     at B - tile_size (overlapping the previous one) and masks the rows the
     previous tile already covered. Rows >= n_valid are masked. `engine`
-    "verified" selects each tile's top-k with the verified select."""
+    "verified" selects each tile's top-k with the verified select. The
+    query's and the base's norms are computed once per call (`bn_row`: the
+    base's squared row norms, where the caller has them)."""
     q_count = query.shape[0]
     b_count = base.shape[0]
     assert b_count >= tile_size
     n_tiles = cdiv(b_count, tile_size)
     k_tile = min(k, tile_size)
     dev = query.device
-    local = torch.arange(tile_size, device=dev)
     run_d = torch.full((q_count, k), _INF, device=dev)
     run_i = torch.zeros((q_count, k), dtype=torch.int32, device=dev)
     select = _select(engine)
+    q, qn = query_operand(query, metric)
+    bn = base_norms(base, metric) if bn_row is None else bn_row
     for t in range(n_tiles):
         start = min(t * tile_size, b_count - tile_size)
         fresh = t * tile_size - start
-        d = pairwise_distance(query, base[start:start + tile_size], metric,
-                              precision)
-        valid = (local >= fresh) & (start + local < n_valid)
-        d = torch.where(valid[None, :], d, _INF)
+        d = tile_distance(q, qn, base[start:start + tile_size],
+                          None if bn is None else bn[start:start + tile_size],
+                          metric, precision, lo=fresh, hi=n_valid - start)
         td, ti = select(d, k_tile)
         ti = (ti + start + base_offset).to(torch.int32)
         run_d, run_i = merge_topk(run_d, run_i, td, ti, k)
@@ -131,11 +140,11 @@ def _knn_scan(query, base, n_valid, base_offset, k: int, metric: str,
 
 
 def _knn_full(query, base, n_valid, base_offset, k: int, metric: str,
-              engine: str = "exact", precision: str = "highest"):
+              engine: str = "exact", precision: str = "highest",
+              bn_row=None):
     """Single-tile variant: full (Q, B) distance matrix + one top-k."""
-    d = pairwise_distance(query, base, metric, precision)
-    valid = torch.arange(base.shape[0], device=d.device) < n_valid
-    d = torch.where(valid[None, :], d, _INF)
+    q, qn = query_operand(query, metric)
+    d = tile_distance(q, qn, base, bn_row, metric, precision, hi=n_valid)
     dist, idx = _select(engine)(d, k)
     return dist, (idx + base_offset).to(torch.int32)
 
@@ -192,41 +201,18 @@ class PreparedBase(NamedTuple):
     bhi: torch.Tensor       # (B, D) bf16 — the screen's base operand
 
 
-_PREP_CHUNK_ELEMS = 1 << 27     # bounds the per-chunk temporaries (~0.5 GB)
-
-
 def _prepare_arrays(base):
     """(bn_row, stats, bhi). stats = [bn_max, babs_max, blo_max, ratio_max],
     every entry an UPPER bound for the certificate eps, so each computed
     norm carries the worst-case fp32 accumulation guard; non-finite rows
-    are excluded (they never become candidates). Row-chunked so the bf16
-    rounding's temporaries stay small on a multi-GB corpus."""
-    n, dim = base.shape
-    g = screen_kernel.norm_guard(dim)
-    dev = base.device
-    bn_row = torch.empty(n, device=dev)
-    blo_n = torch.empty(n, device=dev)
-    bhi = torch.empty((n, dim), dtype=torch.bfloat16, device=dev)
-    step = max(1, _PREP_CHUNK_ELEMS // max(dim, 1))
-    for s in range(0, n, step):
-        x = base[s:s + step]
-        bn_row[s:s + step] = (x * x).sum(1)
-        hf = screen_kernel.bf16_round(x)
-        bhi[s:s + step] = hf.to(torch.bfloat16)
-        r = x - hf
-        blo_n[s:s + step] = torch.sqrt((r * r).sum(1))
-    finite = torch.isfinite(bn_row)
-    zero = torch.zeros((), device=dev)
-    bn_max = torch.where(finite, bn_row, zero).max() * g
-    blo_max = torch.where(finite, blo_n, zero).max() * g
-    ratio = blo_n * torch.rsqrt(torch.clamp_min(bn_row, 1e-30))
-    ratio_max = torch.where(finite & (bn_row > 0.0), ratio, zero).max() * g
-    stats = torch.stack([bn_max, torch.sqrt(bn_max), blo_max, ratio_max])
-    return bn_row, stats, bhi
+    are excluded (they never become candidates). F1 on the card, its plain
+    version (row-chunked, op by op) on the CPU: ops/fused_core.py."""
+    return fused_core.prepare_base(base)
 
 
 def prepare_base(base, device=None) -> PreparedBase:
-    """One pass over the corpus -> PreparedBase (see class doc)."""
+    """The corpus -> PreparedBase (see class doc); on the card in one pass
+    over it (F1), on the CPU op by op."""
     dev = resolve_device(device)
     base = _as_tensor(base, dev)
     bn_row, stats, bhi = _prepare_arrays(base)
@@ -264,32 +250,32 @@ def _screen_err_bounds(query, base, passes: int, base_stats=None):
     return d_err, r_err, qabs
 
 
+def _smallest_k(d, k: int):
+    """`smallest_k`'s selection (values ascending, ties by position, NaN
+    after every other value): on the card the verified select (K7), which
+    returns exactly that selection without sorting the row; on the CPU
+    the stable sort. (`_verified_smallest_k`, the verified engine's
+    select, runs K7's plain version on the CPU instead, whose proof
+    counts its failed rows there.)"""
+    if d.device.type == "cuda":
+        return _verified_smallest_k(d.float().contiguous(), k)
+    return smallest_k(d, k)
+
+
 def _merge_select(merge_d, merge_i, m: int):
     """Exact smallest-m, values ascending, ties by original position (the
     order `lax.top_k` and a stable sort both give)."""
-    sd, order = torch.sort(merge_d, dim=1, stable=True)
-    return sd[:, :m], torch.gather(merge_i, 1, order[:, :m])
+    sd, pos = _smallest_k(merge_d, m)
+    return sd, torch.gather(merge_i, 1, pos)
 
 
-def _exact_pair_dists(qb, cb, metric: str):
-    """Exact fp32 distances of qb[t] against its own candidate rows cb[t]:
-    (T, dim) x (T, M, dim) -> (T, M). One definition shared by the
-    select's re-rank and the suspicious-bin repair."""
-    dots = torch.bmm(cb, qb[:, :, None])[:, :, 0]
-    if metric in ("sqeuclidean", "euclidean"):
-        qn = (qb * qb).sum(1)
-        cn = (cb * cb).sum(2)
-        d = torch.clamp_min(qn[:, None] + cn - 2.0 * dots, 0.0)
-        if metric == "euclidean":
-            d = torch.sqrt(d)
-    elif metric == "cosine":
-        qn = torch.sqrt((qb * qb).sum(1))
-        cn = torch.sqrt((cb * cb).sum(2))
-        denom = torch.clamp_min(qn[:, None] * cn, 1e-30)
-        d = 1.0 - dots / denom
-    else:  # dot
-        d = 1.0 - dots
-    return d
+def _exact_pair_dists(qb, base, ids, metric: str, block: int | None = None):
+    """Exact fp32 distances of qb[t] against its own candidate rows
+    base[ids[t]]: (T, dim), (B, dim), (T, M) -> (T, M). One definition
+    shared by the select's re-rank and the suspicious-bin repair: F3 on
+    the card (the rows read by id), on the CPU the gather and torch.bmm,
+    `block` query rows at a time (ops/fused_core.py)."""
+    return fused_core.rerank_rows(qb, base, ids, metric, block)
 
 
 def _screened_select(query, base, cand_d, cand_i, k: int, m: int,
@@ -307,18 +293,15 @@ def _screened_select(query, base, cand_d, cand_i, k: int, m: int,
     merge_i = i4[:, :, : keep - 1, :].reshape(q_count, -1)
     scr, idx_m = _merge_select(merge_d, merge_i, m)
 
-    # ---- blocked exact re-rank (bounds the (block, m, dim) gather) ----
-    d_exact = torch.empty((q_count, m), device=query.device)
-    for s in range(0, q_count, block):
-        ib = idx_m[s:s + block].long()
-        d_exact[s:s + block] = _exact_pair_dists(query[s:s + block],
-                                                 base[ib], metric)
+    # ---- exact re-rank (on the CPU blocked: bounds the (block, m, dim)
+    # gather) ----
+    d_exact = _exact_pair_dists(query, base, idx_m, metric, block)
     # +inf screen values are masked bins, not candidates; NaN exact
     # distances are garbage corpus rows
     drop = torch.isinf(scr) | torch.isnan(d_exact)
     d_exact = torch.where(drop, _INF, d_exact)
 
-    dist, selk = smallest_k(d_exact, k)
+    dist, selk = _smallest_k(d_exact, k)
     idx = torch.gather(idx_m, 1, selk)
     tau = dist[:, k - 1]
 
@@ -519,13 +502,16 @@ def screened_knn_traced(query, base, n_valid, base_offset, k: int,
 
     def _verified(q, n_rows: int):
         """Exact fallback for `q` on the fallback engine; the tile scales
-        with a 16 MB (q rows x tile) distance-matrix budget."""
+        with a 16 MB (q rows x tile) distance-matrix budget. The base's
+        norms are the prepared ones once they exist."""
         if n_base <= DEFAULT_TILE:
-            return _knn_full(q, base, n_valid, 0, k, metric, fb_engine)
+            return _knn_full(q, base, n_valid, 0, k, metric, fb_engine,
+                             bn_row=bn_row)
         budget_rows = (1 << 24) // (4 * max(n_rows, 1))
         tile = max(DEFAULT_TILE, (budget_rows // 1024) * 1024)
         tile = min(tile, (n_base // 1024) * 1024 or DEFAULT_TILE)
-        return _knn_scan(q, base, n_valid, 0, k, metric, tile, fb_engine)
+        return _knn_scan(q, base, n_valid, 0, k, metric, tile, fb_engine,
+                         bn_row=bn_row)
 
     sub_width = screen_kernel.pick_sub(n_base, k, q_rows=q_count)
     cap, m, block = _screen_plan(n_base, k, dim, sub_width, passes,
@@ -588,13 +574,8 @@ def screened_knn_traced(query, base, n_valid, base_offset, k: int,
               + lane_a[..., None]).reshape(na, w)
         valid = rg < n_valid
         rgc = torch.clamp_max(rg, n_base - 1)
-        qa = query[rows_a]
-        d_bin = torch.empty((na, w), device=query.device)
-        for s in range(0, na, blk):
-            d = _exact_pair_dists(qa[s:s + blk], base[rgc[s:s + blk]],
-                                  metric)
-            keep_d = valid[s:s + blk] & torch.isfinite(d)
-            d_bin[s:s + blk] = torch.where(keep_d, d, _INF)
+        d = _exact_pair_dists(query[rows_a], base, rgc, metric, blk)
+        d_bin = torch.where(valid & torch.isfinite(d), d, _INF)
         # dedup: a returned top-k entry inside a gathered bin already has
         # its exact distance in d_bin
         idx_a = idx[rows_a]
@@ -602,7 +583,7 @@ def screened_knn_traced(query, base, n_valid, base_offset, k: int,
         binid_k = (idx_a // mega_rows) * lanes + (idx_a % lanes)
         dup = (binid_k[:, :, None] == bins_a[:, None, :]).any(2)
         dist_a = torch.where(dup, _INF, dist_a)
-        new_d, sel = smallest_k(torch.cat([dist_a, d_bin], dim=1), k)
+        new_d, sel = _smallest_k(torch.cat([dist_a, d_bin], dim=1), k)
         new_i = torch.gather(torch.cat([idx_a, rgc.to(idx_a.dtype)], dim=1),
                              1, sel)
         ta = take_a[:, None]
@@ -664,7 +645,7 @@ def screened_knn(query, base, k: int, metric: str = "sqeuclidean",
     if len(bad):
         # n_base >= MEGA > DEFAULT_TILE: the rescan always scans tiles
         d_f, i_f = _knn_scan(query[bad], base, n_base, 0, k, metric,
-                             DEFAULT_TILE, fb_engine)
+                             DEFAULT_TILE, fb_engine, bn_row=bn_row)
         dist[bad] = d_f
         idx[bad] = i_f.to(idx.dtype)
     return dist, (idx + base_offset).to(torch.int32)
