@@ -6,9 +6,11 @@ Phases, each printing its own lines and seconds:
   1. setup: the card's name and power limit, torch/CUDA versions, and the
      build of the hand-written kernels (csrc/screen_keys.cu and
      csrc/maxsim_keys.cu, both on csrc/wgmma_mainloop.cuh,
-     csrc/masked_attention.cu, csrc/verified_select.cu and the kNN core's
+     csrc/masked_attention.cu, csrc/verified_select.cu, the kNN core's
      csrc/prepare_base.cu, csrc/distance_tile.cu and csrc/rerank_rows.cu,
-     one nvcc each, started together, into
+     and the encoders' csrc/embed_layernorm.cu, csrc/add_layernorm.cu and
+     csrc/masked_softmax.cu (on csrc/row_pass.cuh), one nvcc each,
+     started together, into
      neighborhoodwatch_tpu_torch/_build/) with ptxas' registers and spills
      per kernel variant (a spill fails the run);
   2. kernel against plain: the screen kernel and its plain PyTorch version
@@ -50,9 +52,12 @@ Phases, each printing its own lines and seconds:
      port's ck_main --maxsim --synthetic --post-validation at BERT-base
      width with seeded random weights (bf16 activations) over 17,408 base
      passages (2 full 8192-doc tiles + a padded tail), every forward a
-     CUDA graph replay (models/graphed.py; captures within the bound), 512
-     of its base calls traced for the graphed idle share, the sections'
-     seconds and the encoder's tokens/s, then
+     CUDA graph replay (models/graphed.py; captures within the bound), and
+     every forward launching E1 once, E2 twice a layer and E3 once a layer
+     (counted from 0 around ck_main; a capture's warm-up forwards count),
+     512 of its base calls traced for the graphed idle share (both traces
+     must show E1-E3 and no ATen softmax or layer_norm kernel), the
+     sections' seconds and the encoder's tokens/s, then
      validate_maxsim_files, the exported neighbours against the exact
      MaxSim engine on the same parquet, and both kernel variants against
      the plain version on the run's own queries and first tile at 3/2/1
@@ -62,8 +67,10 @@ Phases, each printing its own lines and seconds:
      the port's nw_main --synthetic --post-validation --trace-dir at
      e5-large-v2's full width (1024 hidden, 24 layers, 16 heads, FFN 4096,
      bf16, seeded random weights, hash tokenizer), every forward a CUDA
-     graph replay, one 10,000-sentence base call traced for the graphed
-     idle share, over 1,000 queries and
+     graph replay launching E1-E3 as in 7, one 10,000-sentence base call
+     traced for the graphed idle share (both traces, (a)'s and this one,
+     must show E1-E3 and no ATen softmax or layer_norm kernel; the kernels
+     a forward are printed), over 1,000 queries and
      100,000 base sentences, k=100, through the table path (compute_knn ->
      partial files -> merge): the screened engine must launch the "wgmma"
      kernel at D=1024, and F1, F2 (the fallback's tiles) and F3, counted
@@ -165,9 +172,15 @@ Phases, each printing its own lines and seconds:
      forward at the same padded shape bit for bit, padded against unpadded
      (max |d| <= 5e-2, cosine >= 0.999), eager and graph in turns: host ms
      a forward over a synced loop, device ms by CUDA events, tokens/s, the
-     tensor-core bound (FLOPs / 989 TFLOP/s); (c) every shape replayed out
-     of its capture order, bit for bit; (d) K6 launches per replay under
-     "flash" (24, all "wgmma"); (e) generate_embedding over 10,000 base
+     tensor-core bound (FLOPs / 989 TFLOP/s); E1-E3's launches in one
+     replay (E1 1, E2 2 x layers, E3 layers; E3 0 under "flash"); at e5
+     64 x 32 / 128 / 512 and ColBERT 64 x 220 the forward on E1-E3 against
+     the plain chain (a second graph captured under
+     encoder_fused.forced_variant("plain")), outputs within 5e-2 and
+     cosine 0.999, device ms in turns (plain, fused, fused, plain); (c)
+     every shape replayed out of its capture order, bit for bit; (d) K6
+     launches per replay under "flash" (24, all "wgmma"); (e)
+     generate_embedding over 10,000 base
      sentences and encode_passages under set_sync_debug_mode("error"),
      the readback alone exempt; (f) phase 8(a)'s loop, graphed.
  15. the kNN core's fused kernels (ops/fused_core.py), each against its
@@ -186,6 +199,18 @@ Phases, each printing its own lines and seconds:
      rows and over every candidate row; (d) the merge's top-m on K7
      against the stable sort, equal and in turns. Their records join the
      kernels line, launches from phase 8's nw_main and per path.
+ 16. the encoders' fused kernels (ops/encoder_fused.py), each against its
+     plain version (the op-by-op chain) on bf16 inputs at the published
+     shapes: e5-large-v2 64 x 32 / 128 / 512 (1024 hidden, 16 heads) and
+     ColBERT 64 x 256 (768, 12), ragged masks with a pad row: E1
+     embed_layernorm (csrc/embed_layernorm.cu), E2 add_layernorm
+     (csrc/add_layernorm.cu), E3 masked_softmax (csrc/masked_softmax.cu),
+     within one bf16 ulp (plus 1e-5 for the LayerNorms' cancellations near
+     0); each timed by rotating_ms (a CUDA graph of calls, each on its own
+     inputs, inputs and outputs four times the L2 or more) in turns with
+     its plain version beside its bytes bound. Their records join the
+     kernels line: ms at nw's 64 x 32, launches from phase 8's nw_main,
+     per path (7, 8) and per replay (14).
 The line before the last is one JSON object with the kernels' numbers;
 the last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 without that line; without a CUDA card it exits 2.
@@ -285,7 +310,16 @@ def ptxas_report(name, report):
     for line in report.splitlines():
         if "Compiling entry function" in line:
             sym = line.split("'")[1]
-            if name in FUSED_KERNELS:
+            if name in ENCODER_KERNELS:
+                # E1-E3: the kernel's name, then its template arguments:
+                # the activation dtype, ints, flags
+                dtype = ("bf16" if "bfloat16" in sym else "fp16" if
+                         "__half" in sym else "fp32")
+                targs = re.search(r"I(?:13__nv_bfloat16|6__half|f)"
+                                  r"((?:L[ib]\d+E)*)E", sym)
+                args = re.findall(r"\d+", targs.group(1)) if targs else []
+                entry = f"{name}<{', '.join([dtype, *args])}>"
+            elif name in FUSED_KERNELS:
                 # F1-F3: the kernel's name, then its template arguments
                 targs = re.search(r"I((?:L[ib]\d+E)+)E", sym)
                 args = re.findall(r"\d+", targs.group(1)) if targs \
@@ -350,6 +384,63 @@ def require_fused(path, kernels):
     missing = [n for n in kernels if got[n] < 1]
     if missing:
         raise AssertionError(f"{path} never launched {missing}: {got}")
+
+
+# the encoders' fused kernels (ops/encoder_fused.py): E1, E2, E3
+ENCODER_KERNELS = ("embed_layernorm", "add_layernorm", "masked_softmax")
+# their launches on each path that runs them, counted from 0 just before
+# the path and read just after: {path: {kernel: launches}}
+ENCODER_LAUNCHES = {}
+# an ATen kernel of the chains E1-E3 replace, by its name in a trace
+ATEN_NORM_SOFTMAX = re.compile(r"(?i)softmax|layer_?norm")
+
+
+@contextlib.contextmanager
+def encoder_counted(path):
+    from neighborhoodwatch_tpu_torch.ops import encoder_fused as ef
+    ef.reset_launches()
+    yield
+    ENCODER_LAUNCHES[path] = {n: getattr(ef, n).launches
+                              for n in ENCODER_KERNELS}
+
+
+def per_forward(layers, e3=True):
+    """E1-E3's launches in one BERT forward of `layers` layers: E3 is 0
+    where K6 runs ("flash")."""
+    return {"embed_layernorm": 1, "add_layernorm": 2 * layers,
+            "masked_softmax": layers if e3 else 0}
+
+
+def require_encoder(path, forwards, layers):
+    """Fail unless every forward of `path` launched E1 once, E2 twice a
+    layer and E3 once a layer. `forwards` is graph_forwards()' record: the
+    replays, and per capture the WARMUP forwards that ran on the card (a
+    capture's own launches are counted at each replay)."""
+    from neighborhoodwatch_tpu_torch.models import graphed
+    n = forwards["forwards"] + graphed.WARMUP * forwards["captures"]
+    want = {k: v * n for k, v in per_forward(layers).items()}
+    got = ENCODER_LAUNCHES[path]
+    if got != want:
+        raise AssertionError(f"{path}: E1-E3 launched {got}, expected "
+                             f"{want} ({n} forwards of {layers} layers)")
+    log(f"  {path}'s encoder fused kernel launches {got}: E1 1, E2 "
+        f"{2 * layers}, E3 {layers} a forward over {n} forwards "
+        f"({forwards['forwards']} replays + {graphed.WARMUP} x "
+        f"{forwards['captures']} warm-up)")
+
+
+def require_no_aten_norm(tr, what):
+    """Fail unless a trace_share() record of an encoder loop holds E1-E3's
+    kernels and no ATen softmax or layer_norm kernel."""
+    if tr["idle_share"] == "not measured":
+        raise AssertionError(f"{what}: no trace to read the kernels from")
+    # (a window's edge may cut a forward's first kernel: E1 is asked for
+    # in the window, not in every forward)
+    if tr["aten_norm_softmax_kernels"] or \
+            not tr["fused_kernels_per_forward"]["embed_layernorm"]:
+        raise AssertionError(f"{what}: ATen kernels "
+                             f"{tr['aten_norm_softmax_kernels']} left, E1-E3 "
+                             f"a forward {tr['fused_kernels_per_forward']}")
 
 
 def reset_counts(wrapper):
@@ -427,6 +518,7 @@ def phase_setup():
     from concurrent.futures import ThreadPoolExecutor
     from neighborhoodwatch_tpu_torch.utils import cuda_build
     from neighborhoodwatch_tpu_torch.ops import attention_kernel as ak
+    from neighborhoodwatch_tpu_torch.ops import encoder_fused as ef
     from neighborhoodwatch_tpu_torch.ops import fused_core as fc
     from neighborhoodwatch_tpu_torch.ops import maxsim_kernel as mk
     from neighborhoodwatch_tpu_torch.ops import screen_kernel as sk
@@ -434,7 +526,7 @@ def phase_setup():
     # one nvcc per source, all started together
     shutil.rmtree(cuda_build.BUILD_DIR, ignore_errors=True)
     names = ("screen_keys", "maxsim_keys", "masked_attention",
-             "verified_select") + FUSED_KERNELS
+             "verified_select") + FUSED_KERNELS + ENCODER_KERNELS
     t = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         reports = [r for _, r in pool.map(cuda_build.build, names)]
@@ -443,6 +535,7 @@ def phase_setup():
     ak.load_library()
     vk.load_library()
     fc.load_libraries()
+    ef.load_libraries()
     log(f"kernel builds ({', '.join(names)}): "
         f"{time.perf_counter() - t:.2f} s "
         f"(nvcc {' '.join(cuda_build.NVCC_FLAGS)})")
@@ -1176,6 +1269,7 @@ def phase_ck(rec, workdir):
     )
     from neighborhoodwatch_tpu_torch.io import fvec
     from neighborhoodwatch_tpu_torch.models import graphed
+    from neighborhoodwatch_tpu_torch.models.bert import COLBERT_BASE_CONFIG
     from neighborhoodwatch_tpu_torch.models.colbert import (
         ColbertEmbeddingGenerator,
     )
@@ -1210,12 +1304,14 @@ def phase_ck(rec, workdir):
     # the 512 query passages) traced
     t = time.perf_counter()
     with graph_forwards() as forwards, contextlib.redirect_stdout(tee), \
+            encoder_counted("ck"), \
             traced_window(ColbertEmbeddingGenerator, 1001, 512,
                           os.path.join(workdir, "ck_trace")) as window:
         ck_main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     require_graphed(forwards, "ck_main")
+    require_encoder("ck", forwards, COLBERT_BASE_CONFIG.num_layers)
     sections, tokens = nw_sections(tee.kept.getvalue())
     rates = {name: toks / secs for name, (toks, secs) in tokens.items()
              if secs > 0}
@@ -1225,9 +1321,12 @@ def phase_ck(rec, workdir):
         f"{({n: round(r) for n, r in rates.items()})}; base encode, "
         f"{window['forwards']} one-passage forwards traced: graphed "
         f"{share_text(graph)}; eager (a) {share_text(eager)}")
+    require_no_aten_norm(eager, "ck's encoder loop (a), op by op")
+    require_no_aten_norm(graph, "ck_main's traced base encode")
     rec["ck_encoder"] = {"sections_s": sections,
                          "encoder_tokens_per_s": rates, "eager": eager,
-                         "graph_trace": graph, "forwards": forwards}
+                         "graph_trace": graph, "forwards": forwards,
+                         "fused_launches": ENCODER_LAUNCHES["ck"]}
     launches = mk.maxsim_keys.launches
     by_variant = dict(mk.maxsim_keys.launches_by_variant)
     if by_variant["mma"]:
@@ -1464,18 +1563,21 @@ def phase_nw(rec, workdir, Q=1000, B=100_000, k=100,
     t = time.perf_counter()
     with counted_repairs() as diags, contextlib.redirect_stdout(tee), \
             verified_counted("nw"), fused_counted("nw"), \
-            graph_forwards() as forwards, \
+            encoder_counted("nw"), graph_forwards() as forwards, \
             traced_window(E5EmbeddingGenerator, 4, 1, os.path.join(
                 workdir, "encode_trace")) as window:
         nw_main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     require_graphed(forwards, "nw_main")
+    require_encoder("nw", forwards, cfg.num_layers)
     graph = trace_share(os.path.join(workdir, "encode_trace"),
                         window["forwards"])
     log(f"  nw_main base encode, call 4 ({window['texts']} sentences, "
         f"{window['forwards']} forwards) traced: graphed {share_text(graph)}"
         f"; eager (a) {share_text(eager)}")
+    require_no_aten_norm(eager, "nw's encoder loop (a), op by op")
+    require_no_aten_norm(graph, "nw_main's traced base encode")
     launches = sk.screen_keys.launches
     by_variant = dict(sk.screen_keys.launches_by_variant)
     text = tee.kept.getvalue()
@@ -1614,7 +1716,8 @@ def phase_nw(rec, workdir, Q=1000, B=100_000, k=100,
         "knn_stages_s": stages, "wall_s": wall,
         "trace_top_kernels": top,
         "encoder": {"eager": eager, "graph_trace": graph,
-                    "forwards": forwards}}
+                    "forwards": forwards,
+                    "fused_launches": ENCODER_LAUNCHES["nw"]}}
     return files
 
 
@@ -3004,7 +3107,7 @@ def trace_busy(trace_file, region):
     """From a Chrome trace of utils/profiling.py:device_trace: the span of
     the user annotation `region` on the host's clock (ms), the card's busy
     ms inside it (the union of its kernel, memcpy and memset intervals)
-    and the kernels that started inside it."""
+    and the kernels that started inside it ({name: launches})."""
     with open(trace_file) as f:
         events = json.load(f).get("traceEvents", [])
     span = next(e for e in events if e.get("cat") == "user_annotation"
@@ -3019,24 +3122,34 @@ def trace_busy(trace_file, region):
         if b > a:
             busy += b - a
             end = b
-    kernels = sum(1 for e in events if e.get("cat") == "kernel"
-                  and t0 <= e["ts"] < t1)
+    kernels = {}
+    for e in events:
+        if e.get("cat") == "kernel" and t0 <= e["ts"] < t1:
+            kernels[e["name"]] = kernels.get(e["name"], 0) + 1
     return (t1 - t0) / 1e3, busy / 1e3, kernels
 
 
 def trace_share(trace_dir, forwards):
-    """{idle_share, busy / traced ms a forward, kernels a forward} of the
-    "encode_loop" region of the newest trace in `trace_dir` (removed
+    """{idle_share, busy / traced ms a forward, kernels a forward, E1-E3's
+    kernels a forward, the ATen softmax and layer_norm kernels left} of
+    the "encode_loop" region of the newest trace in `trace_dir` (removed
     after), or {"idle_share": "not measured"} without a trace."""
     trace_file = trace_top_kernels(trace_dir)[0]
     if trace_file is None:
         return {"idle_share": "not measured"}
     span, busy, kernels = trace_busy(trace_file, "encode_loop")
     shutil.rmtree(trace_dir, ignore_errors=True)
+    ours = {n: sum(c for k, c in kernels.items() if f"{n}_kernel" in k)
+            for n in ENCODER_KERNELS}
+    aten = sorted(k[:100] for k in kernels if ATEN_NORM_SOFTMAX.search(k)
+                  and not any(f"{n}_kernel" in k for n in ENCODER_KERNELS))
     return {"idle_share": 1 - busy / span, "traced_forwards": forwards,
             "traced_ms_per_forward": span / forwards,
             "busy_ms_per_forward": busy / forwards,
-            "kernels_per_forward": kernels / forwards}
+            "kernels_per_forward": sum(kernels.values()) / forwards,
+            "fused_kernels_per_forward": {n: c / forwards
+                                          for n, c in ours.items()},
+            "aten_norm_softmax_kernels": aten}
 
 
 def share_text(tr):
@@ -3045,7 +3158,10 @@ def share_text(tr):
     return (f"device idle share {tr['idle_share']:.4f}, busy "
             f"{tr['busy_ms_per_forward']:.3f} ms of "
             f"{tr['traced_ms_per_forward']:.3f} ms a forward, "
-            f"{tr['kernels_per_forward']:.1f} kernels a forward")
+            f"{tr['kernels_per_forward']:.1f} kernels a forward (E1-E3 "
+            f"{[round(v, 2) for v in tr['fused_kernels_per_forward'].values()]}"
+            f"; ATen softmax / layer_norm kernels "
+            f"{tr['aten_norm_softmax_kernels'] or 'none'})")
 
 
 def encoder_loop(gen, calls, workdir, label, traced):
@@ -3242,11 +3358,49 @@ def forward_turns(runner, ids, mask, rows):
             for name, v in got.items()}
 
 
-def shape_case(label, runner, ids, mask, rows, flops, cut_rows=None):
+def plain_chain_turns(label, runner, ids, mask, rows, compared):
+    """Phase 14(b): the forward at one padded shape on E1-E3 against the
+    plain chain they replace (a second runner whose graph is captured
+    under encoder_fused.forced_variant("plain")): the outputs' rows that
+    `compared(out)` keeps against each other (bf16 through every layer, E2's
+    one-ulp roundings carried along: max |d| <= 5e-2, cosine >= 0.999),
+    and device ms a forward by CUDA events in turns (plain, fused, fused,
+    plain)."""
+    import torch
+    from neighborhoodwatch_tpu_torch.models import graphed
+    from neighborhoodwatch_tpu_torch.ops import encoder_fused as ef
+    plain = graphed.GraphRunner(runner.fn, runner.device, 1,
+                                name=f"{runner.name} plain chain")
+    with ef.forced_variant("plain"):
+        want = plain(ids, mask, rows)           # captured op by op
+    got = runner(ids, mask, rows)
+    d, cos = embeddings_agree(compared(got).float().cpu(),
+                              compared(want).float().cpu())
+    if d > 5e-2 or cos < 0.999:
+        raise AssertionError(f"{label}: the forward on E1-E3 and on the "
+                             f"plain chain differ: max |d| {d:.3g}, least "
+                             f"cosine {cos:.6f}")
+    t = in_turns({"plain": lambda: plain(ids, mask, rows),
+                  "fused": lambda: runner(ids, mask, rows)}, event_ms)
+    del plain, want
+    torch.cuda.empty_cache()
+    log(f"      {label} {tuple(ids.shape)}: device ms a forward on E1-E3 "
+        f"{t['fused']:.3f}, on the plain chain {t['plain']:.3f} (graphs, "
+        f"in turns); max |d| {d:.3g}, least cosine {cos:.6f}")
+    return {"fused_device_ms": t["fused"], "plain_chain_device_ms":
+            t["plain"], "fused_vs_plain_max_abs": d,
+            "fused_vs_plain_cos": cos}
+
+
+def shape_case(label, runner, ids, mask, rows, flops, cut_rows=None,
+               layers=None, e3=True, compared=None):
     """Phase 14(b) at one padded shape through `runner`: the graph against
     the eager forward bit for bit, the padded forward against the unpadded
     one (cut_rows(out) gives the rows to compare and their unpadded
-    reference), and both timed in turns beside the tensor-core bound."""
+    reference), and both timed in turns beside the tensor-core bound; E1-E3
+    launched per replay as a forward of `layers` layers launches them (E3
+    none where K6 runs: `e3` False); with `compared`, the forward against
+    the plain chain (plain_chain_turns)."""
     import torch
     from neighborhoodwatch_tpu_torch.models import graphed
     graph = runner(ids, mask, rows)
@@ -3285,6 +3439,17 @@ def shape_case(label, runner, ids, mask, rows, flops, cut_rows=None):
         f"{r['eager_tokens_per_s']:.0f} / {r['graph_tokens_per_s']:.0f} "
         f"tokens/s; bound {r['bound_ms']:.3f} ms "
         f"({flops / 1e12:.3f} TFLOP at 989 TFLOP/s)")
+    if layers is not None:
+        path = f"{label} {ids.shape[0]}x{ids.shape[1]} replay"
+        with encoder_counted(path):
+            runner(ids, mask, rows)
+        if ENCODER_LAUNCHES[path] != per_forward(layers, e3):
+            raise AssertionError(f"{path}: E1-E3 launched "
+                                 f"{ENCODER_LAUNCHES[path]}, expected "
+                                 f"{per_forward(layers, e3)}")
+        r["fused_launches_per_replay"] = ENCODER_LAUNCHES[path]
+    if compared is not None:
+        r.update(plain_chain_turns(label, runner, ids, mask, rows, compared))
     return r
 
 
@@ -3334,7 +3499,8 @@ def phase_encoders(rec, e5, workdir):
             return o, want
         c = shape_case(f"{model} ({cfg.num_layers} layers)", e5.runner,
                        pids, pmask, n, forward_flops(cfg, 64, T),
-                       unpadded if n < 64 else None)
+                       unpadded if n < 64 else None, layers=cfg.num_layers,
+                       compared=(lambda o: o) if n == 64 else None)
         cases.append({**c, "ids": pids, "mask": pmask})
     replay_order(model, e5.runner, cases)
     out["e5"] = {f"{c['shape'][0]}x{c['shape'][1]}"
@@ -3360,10 +3526,15 @@ def phase_encoders(rec, e5, workdir):
                                  torch.from_numpy(mask).to("cuda"))
             keep = torch.from_numpy(mask.astype(bool)).to("cuda")
             return o[keep], want[keep]
+
+        def tokens(o, mask=pmask[:n]):
+            return o[torch.from_numpy(mask.astype(bool)).to("cuda")]
         c = shape_case(f"ColBERT ({col.config.num_layers} layers)",
                        runner, pids, pmask, n,
                        forward_flops(col.config, pids.shape[0], T, head=128),
-                       unpadded if n != pids.shape[0] else None)
+                       unpadded if n != pids.shape[0] else None,
+                       layers=col.config.num_layers,
+                       compared=tokens if n == 64 else None)
         got = col.encode_passages(texts)
         with graphed.forced_variant("eager"):
             want = col.encode_passages(texts)
@@ -3391,7 +3562,8 @@ def phase_encoders(rec, e5, workdir):
         flash.runner(ids, mask)                 # captures
         reset_counts(ak.masked_attention)
         c = shape_case(f"{model} flash", flash.runner, ids, mask, 64,
-                       forward_flops(cfg, 64, T))
+                       forward_flops(cfg, 64, T), layers=cfg.num_layers,
+                       e3=False)
         n = ak.masked_attention.launches_by_variant["wgmma"]
         reset_counts(ak.masked_attention)
         flash.runner(ids, mask)
@@ -3682,6 +3854,133 @@ def phase_fused():
     return recs
 
 
+# ------------------------------------------------------------ phase 16
+
+# the published shapes: e5-large-v2 at nw's bucket and two longer ones,
+# ColBERT (bert-base width) at 64 x 256; (rows, T, hidden, heads)
+ENCODER_SHAPES = {"e5_64x32": (64, 32, 1024, 16),
+                  "e5_64x128": (64, 128, 1024, 16),
+                  "e5_64x512": (64, 512, 1024, 16),
+                  "colbert_64x256": (64, 256, 768, 12)}
+VOCAB = 30522
+
+
+def rotation(bytes_per_call):
+    """Calls a rotating_ms timing takes: enough that their inputs and
+    outputs together are four times the L2 cache, at least 4."""
+    return max(4, min(64, -(-4 * L2_BYTES // bytes_per_call)))
+
+
+def encoder_fused_shape(label, rows, T, H, heads, g):
+    """Phase 16 at one shape: E1-E3 against their plain versions on the
+    same bf16 inputs (outputs_agree: one bf16 ulp, plus 1e-5 abs for the
+    LayerNorms' cancellations near 0), then each timed with
+    rotating_ms in turns with its plain version (plain, kernel, kernel,
+    plain), each call on its own inputs, beside its bytes bound. Returns
+    {kernel: numbers}."""
+    import torch
+    from neighborhoodwatch_tpu_torch.ops import encoder_fused as ef
+    bf16, d, eps = torch.bfloat16, H // heads, 1e-12
+    lengths = torch.randint(1, T + 1, (rows,), device="cuda", generator=g)
+    lengths[-1] = 0                              # a pad row
+    mask = torch.arange(T, device="cuda")[None, :] < lengths[:, None]
+    w = 1 + 0.1 * torch.randn(H, device="cuda", generator=g)
+    b = 0.1 * torch.randn(H, device="cuda", generator=g)
+    word = 0.05 * torch.randn(VOCAB, H, device="cuda", generator=g)
+    pos = 0.05 * torch.randn(512, H, device="cuda", generator=g)
+    typ = 0.05 * torch.randn(2, H, device="cuda", generator=g)
+    out = {}
+
+    def case(name, make, kernel, plain, bound_bytes, call_bytes):
+        """`bound_bytes(x)`: the bytes a call on input x must move."""
+        n = rotation(call_bytes)
+        inputs = [make() for _ in range(n)]
+        err = ef.outputs_agree(kernel(inputs[0]), plain(inputs[0]),
+                               0.0 if name == "masked_softmax" else
+                               ef.LN_ATOL)
+        t = in_turns({"plain": lambda: rotating_ms(plain, inputs),
+                      "kernel": lambda: rotating_ms(kernel, inputs)},
+                     lambda f: f())
+        bound = bound_bytes(inputs[0]) / PEAK_BYTES * 1e3
+        out[name] = {"ms": t["kernel"], "plain_ms": t["plain"],
+                     "bound_ms": bound, "max_abs_err": err, "calls": n}
+        log(f"  {name} {label}: kernel {t['kernel']:.4f} ms "
+            f"({t['kernel'] / bound:.2f}x the bytes bound {bound:.4f} ms), "
+            f"plain {t['plain']:.4f} ms (a CUDA graph of {n} calls, each on "
+            f"its own inputs, in turns); max |d - plain| {err:.3g}")
+        del inputs
+
+    def ids():
+        return torch.randint(0, VOCAB, (rows, T), device="cuda", generator=g)
+    out_bytes = rows * T * H * 2
+    # the ids, each distinct word row once, the position rows, the type
+    # row, the weights, the output
+    case("embed_layernorm", ids,
+         lambda i: ef.embed_layernorm(i, word, pos, typ, w, b, eps, bf16),
+         lambda i: ef.embed_layernorm_plain(i, word, pos, typ, w, b, eps,
+                                            bf16),
+         lambda i: (rows * T * 8 + int(torch.unique(i).numel()) * H * 4
+                    + (T + 3) * H * 4 + out_bytes),
+         rows * T * H * 4 + out_bytes)
+
+    def pair():
+        return (torch.randn(rows, T, H, device="cuda", generator=g).to(bf16),
+                torch.randn(rows, T, H, device="cuda", generator=g).to(bf16))
+    case("add_layernorm", pair,
+         lambda p: ef.add_layernorm(*p, w, b, eps),
+         lambda p: ef.add_layernorm_plain(*p, w, b, eps),
+         lambda p: 3 * out_bytes + 2 * H * 4, 3 * out_bytes)
+
+    def logits():
+        q = torch.randn(rows, heads, T, d, device="cuda", generator=g)
+        k = torch.randn(rows, heads, T, d, device="cuda", generator=g)
+        return (q.to(bf16) @ k.to(bf16).transpose(2, 3))
+    probs = rows * heads * T * T * 2
+    case("masked_softmax", logits,
+         lambda x: ef.masked_softmax(x, mask, d),
+         lambda x: ef.masked_softmax_plain(x, mask, d),
+         lambda x: 2 * probs + rows * T, 2 * probs)
+    del word, pos, typ
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_encoder_fused():
+    """Phase 16: E1-E3 against their plain versions at the published
+    shapes, timed in turns beside their bounds; returns their records for
+    the kernels line (ms, plain and bound at nw's 64 x 32; launches:
+    phase 8's nw_main, and per path)."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(16)
+    shapes = {label: encoder_fused_shape(label, *dims, g)
+              for label, dims in ENCODER_SHAPES.items()}
+    replaces = {"embed_layernorm": "neighborhoodwatch_tpu/models/"
+                                   "bert_flax.py:165",
+                "add_layernorm": "neighborhoodwatch_tpu/models/"
+                                 "bert_flax.py:145",
+                "masked_softmax": "neighborhoodwatch_tpu/models/"
+                                  "bert_flax.py:118"}
+    recs = []
+    for name in ENCODER_KERNELS:
+        main = shapes["e5_64x32"][name]
+        recs.append({
+            "name": name, "route": "cuda",
+            "source": f"neighborhoodwatch_tpu_torch/csrc/{name}.cu",
+            "replaces": replaces[name],
+            "launches": ENCODER_LAUNCHES.get("nw", {}).get(name, 0),
+            "launches_by_path": {p: v[name] for p, v in
+                                 ENCODER_LAUNCHES.items()},
+            "max_abs_err": max(v[name]["max_abs_err"]
+                               for v in shapes.values()),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": "bytes",
+            "library_ms": None,
+            "shapes": {label: v[name] for label, v in shapes.items()}})
+    log(f"  encoder fused kernels' launches by path (each counted from 0): "
+        f"{ENCODER_LAUNCHES}")
+    return recs
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3776,12 +4075,16 @@ def main():
         frecs = phase_fused()
         log(f"phase 15 the kNN core's fused kernels: ok, "
             f"{time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        erecs = phase_encoder_fused()
+        log(f"phase 16 the encoders' fused kernels: ok, "
+            f"{time.perf_counter() - t:.1f} s")
     finally:
         for w in workdirs:
             shutil.rmtree(w, ignore_errors=True)
     assert "jax" not in sys.modules
     log(f"total {time.perf_counter() - t0:.1f} s on {card}")
-    print(json.dumps({"kernels": [rec, mrec, arec, vrec, *frecs]}))
+    print(json.dumps({"kernels": [rec, mrec, arec, vrec, *frecs, *erecs]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -4,8 +4,13 @@ e5 models are plain BERT encoders + mean pooling, ColBERT is BERT + a
 128-d per-token linear head; both run on this one module. Matmul weights
 live in the config's activation dtype (bf16 by default: the same values
 the JAX module computes with, which casts its fp32 params per call),
-layernorm, embeddings and the softmax run in fp32. Attention is written
-out (matmul, masked softmax in fp32, matmul) unless the config opts into
+layernorm, embeddings and the softmax run in fp32. The elementwise passes
+XLA fuses in the reference's jitted forward run as one pass each
+(ops/encoder_fused.py: E1 the embeddings and their LayerNorm, E2 each
+residual add and LayerNorm, E3 the attention's scaled masked softmax):
+hand-written Hopper kernels on CUDA tensors, their plain versions on CPU
+tensors. Attention is written out (matmul, masked softmax in fp32,
+matmul) unless the config opts into
 the fused attention (`attention_impl="flash"`, JAX's library Pallas kernel
 on the TPU): where ops/attention_kernel.py:use_flash admits the shape, it
 runs the hand-written Hopper kernel csrc/masked_attention.cu on CUDA tensors
@@ -33,6 +38,9 @@ import torch.nn.functional as F
 
 from neighborhoodwatch_tpu_torch.ops.attention_kernel import (
     masked_attention, use_flash,
+)
+from neighborhoodwatch_tpu_torch.ops.encoder_fused import (
+    add_layernorm, embed_layernorm, masked_softmax,
 )
 
 
@@ -117,16 +125,14 @@ class BertSelfAttention(nn.Module):
 
 def written_out_attention(q, k, v, mask):
     """(B, T, H, D) q, k, v and a (B, T) bool key mask -> (B, T, H*D) context
-    of the written-out attention: (B, H, T, T) logits, scaled and masked in
-    fp32, stored in the activation dtype (bf16 keeps fp32's exponent range,
-    so the -1e9 mask survives) and widened again for a stable softmax."""
+    of the written-out attention: (B, H, T, T) logits in the activation
+    dtype, then E3 (ops/encoder_fused.py:masked_softmax: scaled and masked
+    in fp32, rounded to bf16 under bf16 activations, where the -1e9 mask
+    survives, and widened again for a stable softmax), then the product
+    with v."""
     b, t, _, d = q.shape
-    dt = q.dtype
     q, k, v = (x.transpose(1, 2) for x in (q, k, v))    # (B, H, T, D)
-    logits = (q @ k.transpose(2, 3)).float() / math.sqrt(d)
-    logits = torch.where(mask[:, None, None, :], logits,
-                         torch.full((), -1e9, device=logits.device))
-    probs = torch.softmax(logits.to(dt).float(), dim=-1).to(dt)
+    probs = masked_softmax(q @ k.transpose(2, 3), mask, d)
     return (probs @ v).transpose(1, 2).reshape(b, t, -1)
 
 
@@ -143,12 +149,17 @@ class BertLayer(nn.Module):
         self._gelu = "tanh" if _gelu_approximate(config) else "none"
 
     def forward(self, hidden, mask):
-        dt = hidden.dtype
         attn = self.attention(hidden, mask)
-        hidden = self.attention_ln((hidden + attn).float()).to(dt)
+        hidden = _add_layernorm(self.attention_ln, hidden, attn)
         mlp = F.gelu(self.intermediate(hidden), approximate=self._gelu)
         mlp = self.output(mlp)
-        return self.output_ln((hidden + mlp).float()).to(dt)
+        return _add_layernorm(self.output_ln, hidden, mlp)
+
+
+def _add_layernorm(ln: nn.LayerNorm, hidden, x):
+    """E2 with the module's fp32 weight, bias and eps: LayerNorm(hidden +
+    x) in fp32, in hidden's dtype."""
+    return add_layernorm(hidden, x, ln.weight, ln.bias, ln.eps)
 
 
 class BertEncoder(nn.Module):
@@ -167,11 +178,12 @@ class BertEncoder(nn.Module):
                                     for _ in range(config.num_layers))
 
     def forward(self, input_ids, attention_mask):
-        pos_ids = torch.arange(input_ids.shape[1], device=input_ids.device)
-        emb = (self.word_embeddings(input_ids)
-               + self.position_embeddings(pos_ids)[None]
-               + self.token_type_embeddings(torch.zeros_like(input_ids)))
-        hidden = self.embeddings_ln(emb).to(_dtype(self.config))
+        ln = self.embeddings_ln
+        hidden = embed_layernorm(
+            input_ids, self.word_embeddings.weight,
+            self.position_embeddings.weight,
+            self.token_type_embeddings.weight, ln.weight, ln.bias, ln.eps,
+            _dtype(self.config))
         mask = attention_mask.bool()
         for layer in self.layers:
             hidden = layer(hidden, mask)

@@ -37,7 +37,8 @@ replays, "eager" forwards op by op, on either device) and `captures`. A
 kernel wrapper counts on the host where its launch is issued, so a launch
 recorded into a graph would count once at capture and never at replay.
 The runner therefore takes the launches a capture records back out of
-each counted wrapper (`counted_kernels()`: K6's `masked_attention`), keeps
+each counted wrapper (`counted_kernels()`: K6's `masked_attention` and
+E1-E3, ops/encoder_fused.py), keeps
 them with the graph, and adds them at every replay; launches of the
 warm-up forwards ran on the card and stay counted.
 """
@@ -78,7 +79,11 @@ def counted_kernels():
     from neighborhoodwatch_tpu_torch.ops.attention_kernel import (
         masked_attention,
     )
-    return (masked_attention,)
+    from neighborhoodwatch_tpu_torch.ops.encoder_fused import (
+        add_layernorm, embed_layernorm, masked_softmax,
+    )
+    return (masked_attention, embed_layernorm, add_layernorm,
+            masked_softmax)
 
 
 def _counts():

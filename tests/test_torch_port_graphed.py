@@ -405,7 +405,9 @@ def test_counts_by_variant_and_k6_per_replay(
     assert tak.masked_attention.launches == k0 + want_k6
     assert tak.masked_attention.launches_by_variant["wgmma"] == w0 + want_k6
     for g in gen.runner.graphs.values():
-        assert g.held == [(k6, {"mma": 0, "wgmma": k6})]
+        # K6, then E1-E3, whose CPU forwards run their plain versions
+        assert g.held == [(k6, {"mma": 0, "wgmma": k6})] + \
+            [(0, {"kernel": 0, "plain": 0})] * 3
     with graphed.forced_variant("eager"):
         gen.generate_embedding(texts[:64])
     assert by["eager"] == by0["eager"] + 1
