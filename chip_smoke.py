@@ -8,9 +8,10 @@ Phases, each printing its own lines and seconds:
      csrc/maxsim_keys.cu, both on csrc/wgmma_mainloop.cuh,
      csrc/masked_attention.cu, csrc/verified_select.cu, the kNN core's
      csrc/prepare_base.cu, csrc/distance_tile.cu and csrc/rerank_rows.cu,
-     and the encoders' csrc/embed_layernorm.cu, csrc/add_layernorm.cu and
-     csrc/masked_softmax.cu (on csrc/row_pass.cuh), one nvcc each,
-     started together, into
+     the encoders' csrc/embed_layernorm.cu, csrc/add_layernorm.cu and
+     csrc/masked_softmax.cu (on csrc/row_pass.cuh), and the MaxSim
+     engines' csrc/maxsim_dense.cu and csrc/maxsim_pairs.cu (on
+     csrc/maxsim_tile.cuh), one nvcc each, started together, into
      neighborhoodwatch_tpu_torch/_build/) with ptxas' registers and spills
      per kernel variant (a spill fails the run);
   2. kernel against plain: the screen kernel and its plain PyTorch version
@@ -44,7 +45,12 @@ Phases, each printing its own lines and seconds:
      queries; the two variants timed in turns at 1/2/3 passes beside the
      bound, the plain version, a product-only torch.mm yardstick (the
      whole tile loop, measured), the call's stages; then
-     StreamingMaxSim over the first corpus in 8192-doc tiles;
+     StreamingMaxSim over the first corpus in 8192-doc tiles; every path
+     counts M1 and M2 from 0 (ops/maxsim_fused.py, phase 17) and must
+     launch M1 once a tile of every exact-engine call and every exact
+     tail tile, M2 once or twice a screened select; the exact engine (64
+     queries) and one stream tile's call and its exact engine are timed on
+     M1 / M2 / K7 and on the plain versions in turns;
   7. ck: (a) measured once, the ColBERT encoder loop as ck's source loop
      runs it (one passage a generate_embedding call) op by op ("eager"):
      host ms a forward split into tokenize, launch and copy, and the
@@ -59,7 +65,8 @@ Phases, each printing its own lines and seconds:
      must show E1-E3 and no ATen softmax or layer_norm kernel), the
      sections' seconds and the encoder's tokens/s, then
      validate_maxsim_files, the exported neighbours against the exact
-     MaxSim engine on the same parquet, and both kernel variants against
+     MaxSim engine on the same parquet (M1 and M2 counted as in 6), and
+     both kernel variants against
      the plain version on the run's own queries and first tile at 3/2/1
      passes;
   8. nw: (a) measured once, the e5 encoder loop as nw's base set runs it
@@ -211,6 +218,24 @@ Phases, each printing its own lines and seconds:
      its plain version beside its bytes bound. Their records join the
      kernels line: ms at nw's 64 x 32, launches from phase 8's nw_main,
      per path (7, 8) and per replay (14).
+ 17. the MaxSim engines' fused kernels (ops/maxsim_fused.py, on
+     csrc/maxsim_tile.cuh: fp32 products on the CUDA cores, the max over
+     doc tokens and the sum over query tokens in the tile), each against
+     its plain version (the library product or the gather, op by op) with
+     garbage planted (NaN and inf in valid and masked tokens, an all-masked
+     query and doc, ids outside the docs): M1 maxsim_dense
+     (csrc/maxsim_dense.cu) at the stream's exact fallback step (718 x 32
+     x 128 against 2,048 x 16), phase 6(b)'s Td = 64, the exact engine's
+     128-doc tile and a ragged 13 / 7 / 96 shape (every precision on the
+     small ones); M2 maxsim_pairs (csrc/maxsim_pairs.cu) at the re-rank's
+     1,000 x 256 candidates over 8,192 x 16 and 50,000 x 64 docs, the
+     class-A repair's 512 bin members and a ragged shape: scores within
+     1e-3, M1's -1e30 positions bit for bit, M2's NaN positions, two
+     launches bit for bit; timed in turns with the plain versions (a CUDA
+     graph of calls, each on its own inputs above the L2; phase 6(b)'s
+     shapes issued from the host) beside the fp32 FLOP and bytes bounds.
+     Their records join the kernels line: launches from phase 7's ck_main
+     and per path (6, 7, 11).
 The line before the last is one JSON object with the kernels' numbers;
 the last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 without that line; without a CUDA card it exits 2.
@@ -319,8 +344,9 @@ def ptxas_report(name, report):
                                   r"((?:L[ib]\d+E)*)E", sym)
                 args = re.findall(r"\d+", targs.group(1)) if targs else []
                 entry = f"{name}<{', '.join([dtype, *args])}>"
-            elif name in FUSED_KERNELS:
-                # F1-F3: the kernel's name, then its template arguments
+            elif name in FUSED_KERNELS or name in MAXSIM_KERNELS:
+                # F1-F3, M1-M2: the kernel's name, then its template
+                # arguments
                 targs = re.search(r"I((?:L[ib]\d+E)+)E", sym)
                 args = re.findall(r"\d+", targs.group(1)) if targs \
                     else []
@@ -384,6 +410,90 @@ def require_fused(path, kernels):
     missing = [n for n in kernels if got[n] < 1]
     if missing:
         raise AssertionError(f"{path} never launched {missing}: {got}")
+
+
+# the MaxSim engines' fused kernels (ops/maxsim_fused.py): M1, M2
+MAXSIM_KERNELS = ("maxsim_dense", "maxsim_pairs")
+# their launches on each path that runs them, counted from 0 just before
+# the path and read just after, beside what the path asked of them: M1
+# launches the exact engine's tiles call for (`dense_expected`: one a
+# tile of every _exact_topk call), and the screened selects
+# (`select_calls`; M2 launches once a select, once more where it repairs
+# bins): {path: {name: count}}
+MAXSIM_LAUNCHES = {}
+
+
+@contextlib.contextmanager
+def maxsim_counted(path):
+    from neighborhoodwatch_tpu_torch.ops import maxsim as M
+    from neighborhoodwatch_tpu_torch.ops import maxsim_fused as mf
+    exact, select = M._exact_topk, M._maxsim_select
+    rec = {"dense_expected": 0, "exact_calls": 0, "select_calls": 0}
+
+    def exact_topk(queries, q_mask, docs, d_mask, k, tile_docs, *a, **kw):
+        rec["exact_calls"] += 1
+        rec["dense_expected"] += -(-docs.shape[0] // tile_docs)
+        return exact(queries, q_mask, docs, d_mask, k, tile_docs, *a, **kw)
+
+    def maxsim_select(*a, **kw):
+        rec["select_calls"] += 1
+        return select(*a, **kw)
+    mf.reset_launches()
+    M._exact_topk, M._maxsim_select = exact_topk, maxsim_select
+    try:
+        yield rec
+    finally:
+        M._exact_topk, M._maxsim_select = exact, select
+    MAXSIM_LAUNCHES[path] = {**{n: getattr(mf, n).launches
+                                for n in MAXSIM_KERNELS}, **rec}
+
+
+def require_maxsim(path, tail_tiles=0):
+    """Fail unless `path` launched M1 once a tile of every exact-engine
+    call (and once for each of its `tail_tiles` exact stream tiles) and M2
+    once or twice a screened select, and at least one of them; print the
+    counts."""
+    got = MAXSIM_LAUNCHES[path]
+    dense, pairs = got["maxsim_dense"], got["maxsim_pairs"]
+    want = got["dense_expected"] + tail_tiles
+    sel = got["select_calls"]
+    if dense != want or not sel <= pairs <= 2 * sel or dense + pairs < 1:
+        raise AssertionError(f"{path}: M1 launched {dense} (expected {want})"
+                             f", M2 {pairs} ({sel} screened selects): {got}")
+    log(f"  {path}: M1 maxsim_dense launches {dense} ({got['exact_calls']} "
+        f"exact-engine calls + {tail_tiles} exact tail tiles), M2 "
+        f"maxsim_pairs {pairs} ({sel} screened selects)")
+
+
+@contextlib.contextmanager
+def plain_maxsim():
+    """The MaxSim engines as they ran before M1 and M2: the plain versions
+    of both (the library product and the gather, op by op) and the tile
+    step's stable sort, for timings in turns on the card."""
+    from neighborhoodwatch_tpu_torch.ops import maxsim as M
+    from neighborhoodwatch_tpu_torch.ops import maxsim_fused as mf
+    from neighborhoodwatch_tpu_torch.ops.topk import smallest_k
+    saved = mf.maxsim_dense, mf.maxsim_pairs, M._smallest_k
+    mf.maxsim_dense, mf.maxsim_pairs = (mf.maxsim_dense_plain,
+                                        mf.maxsim_pairs_plain)
+    M._smallest_k = smallest_k
+    try:
+        yield
+    finally:
+        mf.maxsim_dense, mf.maxsim_pairs, M._smallest_k = saved
+
+
+def plain_and_kernel_ms(fn, timer=None):
+    """{"plain": ms, "kernel": ms} of `fn` on the plain MaxSim engines and
+    on M1 / M2, in turns (plain, kernel, kernel, plain), each a median of
+    3 by `timer` (median_ms: host clock around synchronized calls)."""
+    timer = timer or median_ms
+    got = {"plain": [], "kernel": []}
+    for name in ("plain", "kernel", "kernel", "plain"):
+        with plain_maxsim() if name == "plain" else contextlib.nullcontext():
+            fn()
+            got[name].append(timer(fn))
+    return {n: float(np.mean(v)) for n, v in got.items()}
 
 
 # the encoders' fused kernels (ops/encoder_fused.py): E1, E2, E3
@@ -520,13 +630,15 @@ def phase_setup():
     from neighborhoodwatch_tpu_torch.ops import attention_kernel as ak
     from neighborhoodwatch_tpu_torch.ops import encoder_fused as ef
     from neighborhoodwatch_tpu_torch.ops import fused_core as fc
+    from neighborhoodwatch_tpu_torch.ops import maxsim_fused as mf
     from neighborhoodwatch_tpu_torch.ops import maxsim_kernel as mk
     from neighborhoodwatch_tpu_torch.ops import screen_kernel as sk
     from neighborhoodwatch_tpu_torch.ops import verified_kernel as vk
     # one nvcc per source, all started together
     shutil.rmtree(cuda_build.BUILD_DIR, ignore_errors=True)
     names = ("screen_keys", "maxsim_keys", "masked_attention",
-             "verified_select") + FUSED_KERNELS + ENCODER_KERNELS
+             "verified_select") + FUSED_KERNELS + ENCODER_KERNELS \
+        + MAXSIM_KERNELS
     t = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         reports = [r for _, r in pool.map(cuda_build.build, names)]
@@ -536,6 +648,7 @@ def phase_setup():
     vk.load_library()
     fc.load_libraries()
     ef.load_libraries()
+    mf.load_libraries()
     log(f"kernel builds ({', '.join(names)}): "
         f"{time.perf_counter() - t:.2f} s "
         f"(nvcc {' '.join(cuda_build.NVCC_FLAGS)})")
@@ -1066,9 +1179,11 @@ def phase_maxsim_engine(rec):
         reset_counts(mk.maxsim_keys)
         torch.cuda.synchronize()
         t = time.perf_counter()
-        s_s, i_s = M.maxsim_topk(q, qm, d, dm, k, engine="auto")
-        torch.cuda.synchronize()
+        with maxsim_counted(f"one-shot {label}"):
+            s_s, i_s = M.maxsim_topk(q, qm, d, dm, k, engine="auto")
+            torch.cuda.synchronize()
         first_s = time.perf_counter() - t
+        require_maxsim(f"one-shot {label}")
         launches = mk.maxsim_keys.launches
         by_variant = dict(mk.maxsim_keys.launches_by_variant)
         if launches < 1:
@@ -1088,12 +1203,18 @@ def phase_maxsim_engine(rec):
             f"fallbacks {M.counts.exact_fallbacks // 3}")
 
         n_chk = 64
-        exact_ms = median_ms(lambda: M.maxsim_topk(
-            q[:n_chk], qm[:n_chk], d, dm, k, engine="exact",
-            tile_docs=2048), runs=1)
-        s_e, i_e = M.maxsim_topk(q[:n_chk], qm[:n_chk], d, dm, k,
-                                 engine="exact", tile_docs=2048)
-        log(f"  [{label}] exact engine on {n_chk} queries: {exact_ms:.1f} ms")
+        with maxsim_counted(f"exact {label}"):
+            s_e, i_e = M.maxsim_topk(q[:n_chk], qm[:n_chk], d, dm, k,
+                                     engine="exact", tile_docs=2048)
+        require_maxsim(f"exact {label}")
+        exact = plain_and_kernel_ms(
+            lambda: M.maxsim_topk(q[:n_chk], qm[:n_chk], d, dm, k,
+                                  engine="exact", tile_docs=2048),
+            lambda f: median_ms(f, runs=1))
+        exact_ms = exact["kernel"]
+        log(f"  [{label}] exact engine on {n_chk} queries: {exact_ms:.1f} ms "
+            f"on M1 and K7, {exact['plain']:.1f} ms on the plain versions "
+            f"(in turns)")
         check_against_exact(s_s[:n_chk], i_s[:n_chk], s_e, i_e, k,
                             f"[{label}] screened vs exact")
 
@@ -1171,7 +1292,9 @@ def phase_maxsim_engine(rec):
             "product_yardstick_ms": mm_ms[3],
             "product_yardstick_ms_by_passes": {str(p): mm_ms[p]
                                                for p in mm_ms},
-            "call_ms": call_ms}
+            "call_ms": call_ms, "exact_ms": exact_ms,
+            "exact_plain_ms": exact["plain"],
+            "select_ms": select_ms}
         if label == "200k x 16":
             stream, stream_result = stream_maxsim(q, qm, d, dm, k, s_s,
                                                   i_s)
@@ -1213,10 +1336,11 @@ def stream_maxsim(q, qm, d, dm, k, s_one, i_one):
     M.counts.repaired = 0
     torch.cuda.synchronize()
     t = time.perf_counter()
-    acc = M.StreamingMaxSim(q, qm, k, screen_precision="auto")
-    for s in range(0, D, tile):
-        acc.update(d[s:s + tile], dm[s:s + tile])
-    torch.cuda.synchronize()
+    with maxsim_counted("stream"):
+        acc = M.StreamingMaxSim(q, qm, k, screen_precision="auto")
+        for s in range(0, D, tile):
+            acc.update(d[s:s + tile], dm[s:s + tile])
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches = mk.maxsim_keys.launches
     share = M.counts.exact_fallbacks / (q.shape[0] * max(n_full, 1))
@@ -1232,6 +1356,7 @@ def stream_maxsim(q, qm, d, dm, k, s_one, i_one):
         f"tile {M.counts.host_copies / max(n_full, 1):.2f}")
     if launches < n_full:
         raise AssertionError("a full tile did not launch the kernel")
+    require_maxsim("stream", tail_tiles=n_tiles - n_full)
     if mk.maxsim_keys.launches_by_variant["mma"]:
         raise AssertionError("the stream launched the 'mma' variant at "
                              "dim 128")
@@ -1257,8 +1382,35 @@ def stream_maxsim(q, qm, d, dm, k, s_one, i_one):
         f"{n_exact} queries whose "
         f"certificate failed); update() adds "
         f"{merge_ms:.1f} ms (running top-k merge)")
+    # the tile's call and its exact engine alone, on M1 / M2 against the
+    # plain versions (the engines as they ran before M1 and M2), in turns
+    ops = mk.prepare_operands(q, qm, tq, tm, 3, True)
+    cn, cd = mk.decode_keys(mk.maxsim_keys(*ops[:5], 3))
+    m, block, _ = M.maxsim_screen_plan(tile, k, d.shape[1], d.shape[2], 3)
+    ok = M._maxsim_select(q, qm, tq, tm, cn, cd, k, m, block=block,
+                          passes=3, doc_stats=ops[5])[2]
+    bad = torch.nonzero(~ok)[:, 0].to(q.device)
+    del ops, cn, cd
+    turns = plain_and_kernel_ms(lambda: M.maxsim_topk_screened(
+        q, qm, tq, tm, k, screen_precision="high", with_diagnostics=True))
+    exact = plain_and_kernel_ms(lambda: M._exact_topk(
+        q[bad], qm[bad], tq, tm, k, 2048))
+    log(f"  [stream] one 8192-doc tile in turns (plain, kernel, kernel, "
+        f"plain): call {turns['kernel']:.1f} ms on M1 / M2 / K7, "
+        f"{turns['plain']:.1f} ms on the plain versions; its exact engine "
+        f"alone for the {len(bad)} failed queries {exact['kernel']:.1f} ms, "
+        f"{exact['plain']:.1f} ms plain (share of the call "
+        f"{exact['kernel'] / turns['kernel']:.3f}, plain "
+        f"{exact['plain'] / turns['plain']:.3f})")
+    torch.cuda.empty_cache()
     return {"stream_launches": launches,
-            "stream_exact_fallback_share": share}, result
+            "stream_exact_fallback_share": share,
+            "stream_tile": {"call_ms": turns["kernel"],
+                            "call_plain_ms": turns["plain"],
+                            "exact_ms": exact["kernel"],
+                            "exact_plain_ms": exact["plain"],
+                            "failed_queries": len(bad),
+                            "per_tile_ms": wall * 1e3 / n_tiles}}, result
 
 
 def phase_ck(rec, workdir):
@@ -1274,6 +1426,7 @@ def phase_ck(rec, workdir):
         ColbertEmbeddingGenerator,
     )
     from neighborhoodwatch_tpu_torch.ops import maxsim as M
+    from neighborhoodwatch_tpu_torch.ops import maxsim_fused
     from neighborhoodwatch_tpu_torch.ops import maxsim_kernel as mk
     from neighborhoodwatch_tpu_torch.utils import naming
     from neighborhoodwatch_tpu_torch.validate import validate_maxsim_files
@@ -1304,7 +1457,7 @@ def phase_ck(rec, workdir):
     # the 512 query passages) traced
     t = time.perf_counter()
     with graph_forwards() as forwards, contextlib.redirect_stdout(tee), \
-            encoder_counted("ck"), \
+            encoder_counted("ck"), maxsim_counted("ck"), \
             traced_window(ColbertEmbeddingGenerator, 1001, 512,
                           os.path.join(workdir, "ck_trace")) as window:
         ck_main(argv)
@@ -1348,6 +1501,7 @@ def phase_ck(rec, workdir):
     if launches < tiles:
         raise AssertionError("ck --maxsim launched the kernel fewer times "
                              "than it had tiles")
+    require_maxsim("ck")
 
     model = "colbertv2.0"
     data_dir = naming.get_model_data_homedir(
@@ -1378,10 +1532,7 @@ def phase_ck(rec, workdir):
     # of its exact score, and no worse than the exact k-th score by more
     dev_t = [torch.as_tensor(x, device="cuda") for x in (qq, qqm, dd, ddm)]
     nb = torch.as_tensor(idx, device="cuda").long()
-    got = torch.cat([M._pair_scores(dev_t[0][s:s + 128], dev_t[1][s:s + 128],
-                                    dev_t[2][nb[s:s + 128]],
-                                    dev_t[3][nb[s:s + 128]])
-                     for s in range(0, n_q, 128)])
+    got = maxsim_fused.maxsim_pairs_plain(*dev_t, nb, 128)
     written = -torch.as_tensor(dist, device="cuda")
     worst = float((got - written).abs().max())
     below = float((s_e[:, k - 1:k] - got).max())
@@ -2140,7 +2291,7 @@ def counted_run(launches, name, wrapper, fn):
     reset_counts(wrapper)
     torch.cuda.synchronize()
     t = time.perf_counter()
-    with verified_counted(name):
+    with verified_counted(name), maxsim_counted(name):
         out = fn()
     torch.cuda.synchronize()
     launches[name] = dict(wrapper.launches_by_variant)
@@ -3981,6 +4132,224 @@ def phase_encoder_fused():
     return recs
 
 
+# ------------------------------------------------------------ phase 17
+
+# M1's shapes (Q, Tq, D, Td, dim): the stream's and ck's exact fallback
+# step (2,048-doc tiles), phase 6(b)'s Td, the exact engine's default
+# 128-doc tile, a ragged shape; M2's (B, M, N, Tq, Td, dim): the re-rank's
+# (1,000, m=256) candidates over an 8,192-doc tile, phase 6(b)'s 50,000 x
+# 64 docs, the class-A repair's 512 bin members a query, a ragged shape
+DENSE_SHAPES = {"stream_fallback": (718, 32, 2048, 16, 128),
+                "td64": (718, 32, 2048, 64, 128),
+                "exact_tile": (1000, 32, 128, 16, 128),
+                "ragged": (29, 13, 501, 7, 96)}
+PAIRS_SHAPES = {"rerank_8192": (1000, 256, 8192, 32, 16, 128),
+                "rerank_td64": (1000, 256, 50_000, 32, 64, 128),
+                "class_a": (64, 512, 8192, 32, 16, 128),
+                "ragged": (29, 37, 501, 13, 7, 96)}
+
+
+def planted_tokens(n, t, dim, gen, planted=True):
+    """(n, t, dim) unit tokens with (n, t) ragged masks on the card; with
+    `planted`: passage 1 all masked, passage 2 all masked too on the doc
+    side, NaN in a valid token (3) and in a masked one (6), +inf and -inf
+    in a valid token (5), inf in a masked token (4), NaN in the last
+    passage's last token, masked."""
+    import torch
+    x = unit_tokens(n, t, dim, gen)
+    m = torch.rand((n, t), device="cuda", generator=gen) < 0.8
+    m[:, 0] = True
+    if planted:
+        m[1:3] = False
+        m[2, 0] = True                 # a doc side keeps one token
+        x[3, 0, 0] = float("nan")
+        x[4, t - 1] = float("inf")
+        m[4, t - 1] = t == 1
+        x[5, 0, ::2] = float("inf")
+        x[5, 0, 1::2] = -float("inf")
+        x[6, t // 2] = float("nan")
+        m[6, t // 2] = t // 2 == 0
+        x[n - 1, t - 1, 0] = float("nan")
+        m[n - 1, t - 1] = t == 1
+    return x, m
+
+
+def scores_agree(got, want, nan_is_neg):
+    """Scores within 1e-3 relative (at least 1e-3 absolute), the MaxSim
+    tolerance; M1 (`nan_is_neg`): no NaN and the -1e30 positions equal bit
+    for bit; M2: the NaN positions equal; infinite positions equal.
+    Returns the largest |got - want| over the finite scores below 1e29."""
+    import torch
+    neg = float(np.float32(-1e30))
+    if nan_is_neg:
+        at = want == neg
+        if torch.isnan(got).any() or not torch.equal(got == neg, at) \
+                or not torch.equal(got[at], want[at]):
+            raise AssertionError("M1: the -1e30 (NaN) positions differ")
+    if not torch.equal(torch.isnan(got), torch.isnan(want)):
+        raise AssertionError("the NaN positions differ")
+    inf = torch.isinf(want)
+    if not torch.equal(got[inf], want[inf]):
+        raise AssertionError("the infinite positions differ")
+    fin = torch.isfinite(want) & (want != neg)
+    err = (got[fin].double() - want[fin].double()).abs()
+    tol = 1e-3 * want[fin].double().abs().clamp_min(1.0)
+    if bool((err > tol).any()):
+        raise AssertionError(f"scores beyond 1e-3: {float((err - tol).max())}")
+    # reported over the scores of real tokens: a doc with every token
+    # masked scores a multiple of -1e30, held above by the relative bound
+    real = (want[fin].abs() < 1e29).double()
+    return float((err * real).max()) if err.numel() else 0.0
+
+
+def dense_case(label, Q, Tq, D, Td, dim, gen, timed):
+    """M1 against its plain version at one shape (every precision where
+    the shape is small), planted garbage on both sides, two launches bit
+    for bit; `timed`: both timed by rotating_ms in turns."""
+    import torch
+    from neighborhoodwatch_tpu_torch.ops import maxsim_fused as mf
+    q, qm = planted_tokens(Q, Tq, dim, gen)
+    d, dm = planted_tokens(D, Td, dim, gen)
+    precisions = ("highest",) if Q * D > 200_000 else \
+        ("highest", "high", "default")
+    err = 0.0
+    for precision in precisions:
+        got = mf.maxsim_dense(q, qm, d, dm, precision)
+        again = mf.maxsim_dense(q, qm, d, dm, precision)
+        if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+            raise AssertionError(f"M1 {label}: two launches differ")
+        err = max(err, scores_agree(got, mf.maxsim_dense_plain(
+            q, qm, d, dm, precision), True))
+    rec = {"shape": [Q, Tq, D, Td, dim], "max_abs_err": err,
+           "precisions": list(precisions)}
+    flops = 2.0 * Q * Tq * D * Td * dim
+    bytes_ = (Q * Tq + D * Td) * (dim * 4 + 1) + Q * D * 4
+    rec["bound_ms"] = max(flops / PEAK_FP32_FLOPS,
+                          bytes_ / PEAK_BYTES) * 1e3
+    rec["bound_by"] = "operations" if flops / PEAK_FP32_FLOPS \
+        >= bytes_ / PEAK_BYTES else "bytes"
+    if timed:
+        # each call on its own queries and docs, four times the L2 or more
+        n = rotation(bytes_)
+        inputs = [(q, qm, d, dm)] + [
+            (q.clone(), qm, d.clone(), dm) for _ in range(n - 1)]
+        graph = timed == "graph"
+        t = in_turns({"plain": lambda: rotating_ms(
+            lambda x: mf.maxsim_dense_plain(*x), inputs, graph),
+            "kernel": lambda: rotating_ms(lambda x: mf.maxsim_dense(*x),
+                                          inputs, graph)}, lambda f: f())
+        rec.update(ms=t["kernel"], plain_ms=t["plain"], calls=n,
+                   timing="a CUDA graph" if graph else "host-issued",
+                   tflops=flops / t["kernel"] / 1e9)
+        del inputs
+    log(f"  M1 maxsim_dense {label} {Q} x {Tq} vs {D} x {Td} x {dim} "
+        f"({'/'.join(precisions)}): max |score - plain| {err:.3g}, NaN -> "
+        f"-1e30 and masked positions equal, two launches bit for bit"
+        + (f"; kernel {rec['ms']:.3f} ms ({rec['tflops']:.1f} TFLOP/s, "
+           f"{rec['ms'] / rec['bound_ms']:.2f}x the {rec['bound_by']} "
+           f"bound {rec['bound_ms']:.3f} ms), plain {rec['plain_ms']:.3f} "
+           f"ms ({rec['timing']} run of {n} calls, each on its own inputs, "
+           f"in turns)" if timed else ""))
+    return rec
+
+
+def pairs_case(label, B, M, N, Tq, Td, dim, gen, timed):
+    """M2 against its plain version (the gather in the engine's blocks) at
+    one shape, planted garbage and ids outside the docs, two launches bit
+    for bit; `timed`: both timed by rotating_ms in turns."""
+    import torch
+    from neighborhoodwatch_tpu_torch.ops import maxsim as MS
+    from neighborhoodwatch_tpu_torch.ops import maxsim_fused as mf
+    q, qm = planted_tokens(B, Tq, dim, gen)
+    d, dm = planted_tokens(N, Td, dim, gen)
+    ids = torch.randint(0, N, (B, M), device="cuda", generator=gen)
+    ids[0, :2] = torch.tensor([-1, N])          # outside the docs: NaN
+    ids[2, :3] = torch.tensor([2, 3, 5])        # the garbage docs
+    block = MS.maxsim_screen_plan(N, 100, Td, dim)[1]
+    got = mf.maxsim_pairs(q, qm, d, dm, ids)
+    again = mf.maxsim_pairs(q, qm, d, dm, ids)
+    if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+        raise AssertionError(f"M2 {label}: two launches differ")
+    err = scores_agree(got, mf.maxsim_pairs_plain(q, qm, d, dm, ids, block),
+                       False)
+    if not bool(torch.isnan(got[0, :2]).all() & torch.isnan(got[2, 1])):
+        raise AssertionError(f"M2 {label}: a planted NaN did not pass")
+    distinct = int(torch.unique(ids.clamp(0, N - 1)).numel())
+    flops = 2.0 * B * M * Tq * Td * dim
+    bytes_ = (B * Tq * (dim * 4 + 1) + distinct * Td * (dim * 4 + 1)
+              + B * M * 12)
+    rec = {"shape": [B, M, N, Tq, Td, dim], "max_abs_err": err,
+           "distinct_docs": distinct, "plain_block": block,
+           "bound_ms": max(flops / PEAK_FP32_FLOPS,
+                           bytes_ / PEAK_BYTES) * 1e3,
+           "bound_by": "operations" if flops / PEAK_FP32_FLOPS
+           >= bytes_ / PEAK_BYTES else "bytes"}
+    if timed:
+        per_call = B * Tq * dim * 4 + N * Td * dim * 4 + B * M * 12
+        n = rotation(per_call)
+        inputs = [(q, qm, d, dm, ids)] + [
+            (q.clone(), qm, d.clone(), dm, ids.clone())
+            for _ in range(n - 1)]
+        graph = timed == "graph"
+        t = in_turns({"plain": lambda: rotating_ms(
+            lambda x: mf.maxsim_pairs_plain(*x, block), inputs, graph),
+            "kernel": lambda: rotating_ms(lambda x: mf.maxsim_pairs(*x),
+                                          inputs, graph)}, lambda f: f())
+        rec.update(ms=t["kernel"], plain_ms=t["plain"], calls=n,
+                   timing="a CUDA graph" if graph else "host-issued",
+                   tflops=flops / t["kernel"] / 1e9)
+        del inputs
+    log(f"  M2 maxsim_pairs {label} {B} x {M} candidates of {N} x {Td} "
+        f"(Tq {Tq}, dim {dim}; {distinct:,} distinct): max |score - plain| "
+        f"{err:.3g}, NaN positions equal, two launches bit for bit"
+        + (f"; kernel {rec['ms']:.3f} ms ({rec['tflops']:.1f} TFLOP/s, "
+           f"{rec['ms'] / rec['bound_ms']:.2f}x the {rec['bound_by']} "
+           f"bound {rec['bound_ms']:.3f} ms), plain (gather in blocks of "
+           f"{block}) {rec['plain_ms']:.3f} ms ({rec['timing']} run of {n} "
+           f"calls, each on its own inputs, in turns)" if timed else ""))
+    return rec
+
+
+def phase_maxsim_fused():
+    """Phase 17: M1 and M2 against their plain versions at the main
+    path's shapes, with garbage planted, timed in turns beside their
+    bounds; returns their records for the kernels line (launches: phase
+    7's ck_main, and per path)."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(17)
+    # the main shapes in a CUDA graph; phase 6(b)'s, whose plain version
+    # writes 12 GB a call, issued from the host
+    timed = {"stream_fallback": "graph", "td64": "host",
+             "rerank_8192": "graph", "rerank_td64": "host"}
+    dense = {label: dense_case(label, *shape, g, timed.get(label))
+             for label, shape in DENSE_SHAPES.items()}
+    torch.cuda.empty_cache()
+    pairs = {label: pairs_case(label, *shape, g, timed.get(label))
+             for label, shape in PAIRS_SHAPES.items()}
+    torch.cuda.empty_cache()
+    recs = []
+    for name, shapes, main, replaces in (
+            ("maxsim_dense", dense, "stream_fallback",
+             "neighborhoodwatch_tpu/ops/maxsim.py:33"),
+            ("maxsim_pairs", pairs, "rerank_8192",
+             "neighborhoodwatch_tpu/ops/maxsim.py:260")):
+        top = shapes[main]
+        recs.append({
+            "name": name, "route": "cuda",
+            "source": f"neighborhoodwatch_tpu_torch/csrc/{name}.cu",
+            "replaces": replaces,
+            "launches": MAXSIM_LAUNCHES.get("ck", {}).get(name, 0),
+            "launches_by_path": {p: v[name] for p, v in
+                                 MAXSIM_LAUNCHES.items()},
+            "max_abs_err": max(v["max_abs_err"] for v in shapes.values()),
+            "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "library_ms": None, "shapes": shapes})
+    log(f"  MaxSim fused kernels' launches by path (each counted from 0): "
+        f"{MAXSIM_LAUNCHES}")
+    return recs
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4079,12 +4448,17 @@ def main():
         erecs = phase_encoder_fused()
         log(f"phase 16 the encoders' fused kernels: ok, "
             f"{time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        mrecs = phase_maxsim_fused()
+        log(f"phase 17 the MaxSim engines' fused kernels: ok, "
+            f"{time.perf_counter() - t:.1f} s")
     finally:
         for w in workdirs:
             shutil.rmtree(w, ignore_errors=True)
     assert "jax" not in sys.modules
     log(f"total {time.perf_counter() - t0:.1f} s on {card}")
-    print(json.dumps({"kernels": [rec, mrec, arec, vrec, *frecs, *erecs]}))
+    print(json.dumps({"kernels": [rec, mrec, arec, vrec, *frecs, *erecs,
+                                  *mrecs]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -35,6 +35,20 @@ def _safe_normalize(x):
     return x / torch.where(norm == 0.0, torch.ones_like(norm), norm)
 
 
+def bf16_operands(query, base, precision: str):
+    """The bf16 operands (a, b) of the product at "default" (the roundings
+    of the fp32 rows) or "high" (hi, hi, lo and hi, lo, hi concatenated
+    along the last axis, so a . b = hi.hi + hi.lo + lo.hi)."""
+    if precision not in ("default", "high"):
+        raise ValueError(f"no bf16 operands at precision {precision!r}")
+    # the conversion rounds to nearest even
+    a, b = query.to(torch.bfloat16), base.to(torch.bfloat16)
+    if precision == "high":
+        a, b = (torch.cat([a, a, (query - a.float()).to(torch.bfloat16)], -1),
+                torch.cat([b, (base - b.float()).to(torch.bfloat16), b], -1))
+    return a, b
+
+
 def products(query, base, precision: str = "highest"):
     """(Q, d) x (B, d) -> (Q, B) fp32 dot products at `precision`."""
     if precision == "highest":
@@ -42,11 +56,7 @@ def products(query, base, precision: str = "highest"):
     if precision not in PRECISIONS:
         raise ValueError(f"unknown precision {precision!r}; must be one of "
                          f"{PRECISIONS}")
-    # the conversion rounds to nearest even
-    a, b = query.to(torch.bfloat16), base.to(torch.bfloat16)
-    if precision == "high":
-        a, b = (torch.cat([a, a, (query - a.float()).to(torch.bfloat16)], 1),
-                torch.cat([b, (base - b.float()).to(torch.bfloat16), b], 1))
+    a, b = bf16_operands(query, base, precision)
     if a.device.type == "cuda":
         return torch.mm(a, b.T, out_dtype=torch.float32)
     return a.float() @ b.float().T

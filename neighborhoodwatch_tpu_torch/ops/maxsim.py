@@ -2,15 +2,18 @@
 
     score(q, doc) = sum_{i in q tokens} max_{j in doc tokens} <q_i, d_j>
 
-- "exact": one (Q*Tq, tile*Td) fp32 matmul per document tile with the
-  max/sum reductions, a stable per-tile top-k and a running merge.
+- "exact": MaxSim scores per document tile (`maxsim_scores`: on the card
+  M1, ops/maxsim_fused.py, the products and the max/sum reductions in one
+  kernel; on the CPU a matmul and the reductions op by op), a per-tile
+  top-k and a running merge (lowest position wins ties).
 - "screened": the fused screen kernel (ops/maxsim_kernel.py) keeps the 4
   best packed keys per lane bin, the merged candidates are re-ranked
-  exactly in fp32, and per-query bin + count certificates prove the result
-  exact. Bin collisions with an intact count certificate are repaired by
-  re-ranking the suspicious bins' members (class A); what remains escalates
-  to the 3-pass screen and from there to the exact engine. The eps math is
-  a line-for-line port of the JAX engine.
+  exactly in fp32 (M2, read by id on the card), and per-query bin +
+  count certificates prove the result exact. Bin collisions with an
+  intact count certificate are repaired by re-ranking the suspicious
+  bins' members (class A); what remains escalates to the 3-pass screen
+  and from there to the exact engine. The eps math is a line-for-line
+  port of the JAX engine.
 - "auto" picks "screened" for CUDA tensors when the tile holds >= 4096 docs
   and the kernel takes the shape, "exact" otherwise (and always on the
   CPU). engine="screened" on CPU tensors runs the kernel's plain version.
@@ -32,17 +35,17 @@ import numpy as np
 import torch
 
 from neighborhoodwatch_tpu_torch import resolve_device
+from neighborhoodwatch_tpu_torch.ops import maxsim_fused
 from neighborhoodwatch_tpu_torch.ops import maxsim_kernel as mk
-from neighborhoodwatch_tpu_torch.ops.distance import products
 from neighborhoodwatch_tpu_torch.ops.knn import (
     REPAIR_BINS, _chernoff_budget, _first_rows, _merge_select,
-    _check_precision,
+    _check_precision, _smallest_k,
 )
 from neighborhoodwatch_tpu_torch.ops.screen_kernel import LANES, PASSES
 from neighborhoodwatch_tpu_torch.ops.topk import merge_topk, smallest_k
 from neighborhoodwatch_tpu_torch.utils.misc import round_up
 
-NEG = -1e30
+NEG = maxsim_fused.NEG
 _INF = float("inf")
 # what the screened engine did, for the smoke run and the tests to read:
 # device-to-host copies made by the select, queries repaired from their
@@ -74,18 +77,10 @@ def maxsim_scores(queries, q_mask, docs, d_mask, precision: str = "highest"):
     """Dense MaxSim scores (Q, D) of tensors on one device, the token
     products at `precision` (ops/distance.py), fp32 sums and maxima.
     A doc whose score is NaN (inf/NaN garbage tokens) scores NEG, so it
-    loses in every engine, like the screen's NaN -> +inf key."""
-    q_n, tq = queries.shape[:2]
-    d_n, td = docs.shape[:2]
-    q2 = queries.reshape(q_n * tq, queries.shape[-1])
-    d2 = docs.reshape(d_n * td, docs.shape[-1])
-    sims = products(q2, d2, precision)                      # (Qt, D*Td)
-    sims = torch.where(d_mask.reshape(1, d_n * td), sims, _scalar(NEG, sims))
-    per_qtok = sims.view(q_n * tq, d_n, td).amax(dim=2)     # (Qt, D)
-    per_qtok = torch.where(q_mask.reshape(q_n * tq, 1), per_qtok,
-                           _scalar(0.0, sims))
-    scores = per_qtok.view(q_n, tq, d_n).sum(dim=1)         # (Q, D)
-    return torch.where(torch.isnan(scores), _scalar(NEG, sims), scores)
+    loses in every engine, like the screen's NaN -> +inf key. On the card
+    one launch of M1 (ops/maxsim_fused.py), on the CPU its plain version."""
+    return maxsim_fused.maxsim_dense(queries, q_mask, docs, d_mask,
+                                     precision)
 
 
 def pad_token_lists(token_lists, dim, max_tokens=None):
@@ -113,11 +108,14 @@ def _maxsim_tile_step(run_s, run_i, queries, q_mask, tile, tmask, start: int,
     valid = torch.arange(tile_docs, device=tile.device) + start < n_docs
     scores = torch.where(valid[None, :], scores, _scalar(-_INF, scores))
     # larger score is better: negate into the smaller-is-better selection
-    # (stable, lowest index wins ties)
-    td_, ti = smallest_k(-scores, min(k, tile_docs))
+    # (lowest position wins ties; K7 on the card, the stable sort on the
+    # CPU). The scores carry no NaN: maxsim_scores maps it to NEG
+    td_, ti = _smallest_k(-scores, min(k, tile_docs))
     ti = (ti + start).to(torch.int32)
-    md, mi = merge_topk(-run_s, run_i, td_, ti, k)
-    return -md, mi
+    # the running list first: on ties the earlier (lower) doc ids win
+    md, sel = _smallest_k(torch.cat([-run_s, td_], dim=1), k)
+    mi = torch.gather(torch.cat([run_i, ti], dim=1), 1, sel)
+    return -md, mi.to(torch.int32)
 
 
 def maxsim_kernel_shape_ok(tq: int, dim: int, device) -> bool:
@@ -211,16 +209,6 @@ def _maxsim_tier_eps(queries, q_mask, q_scale, d_max, dlo_max, rerank_acc,
     return eps + qres_scale * 1.004 * d_max
 
 
-def _pair_scores(qb, qmb, cb, cmb):
-    """Exact fp32 MaxSim of each query against its own candidate docs:
-    (B, tq, dim), (B, tq), (B, m, td, dim), (B, m, td) -> (B, m)."""
-    sims = torch.einsum("btd,bmsd->btms", qb, cb)
-    sims = torch.where(cmb[:, None, :, :], sims, _scalar(NEG, sims))
-    per_tok = sims.amax(dim=3)                    # (B, tq, m)
-    per_tok = torch.where(qmb[:, :, None], per_tok, _scalar(0.0, sims))
-    return per_tok.sum(dim=1)
-
-
 def _maxsim_select(queries, q_mask, docs, d_mask, cand_neg, cand_doc,
                    k: int, m: int, block: int = 128, passes: int = 3,
                    doc_stats=None, with_diagnostics: bool = False):
@@ -241,7 +229,6 @@ def _maxsim_select(queries, q_mask, docs, d_mask, cand_neg, cand_doc,
     `ok`, the prediction and the count that decides whether the repair
     runs reach the host in ONE device-to-host copy."""
     q_count, tq, dim = queries.shape
-    td = docs.shape[1]
     n_docs = docs.shape[0]
     keep, lanes = mk.KEEP, mk.LANES
     dev = queries.device
@@ -254,11 +241,10 @@ def _maxsim_select(queries, q_mask, docs, d_mask, cand_neg, cand_doc,
     scr, doc_m = _merge_select(merge_n, merge_d, m)
     doc_m = torch.clamp_max(doc_m, n_docs - 1)   # last mega decodes past D
 
-    s_exact = torch.empty((q_count, m), device=dev)
-    for s in range(0, q_count, block):
-        ib = doc_m[s:s + block].long()
-        s_exact[s:s + block] = _pair_scores(
-            queries[s:s + block], q_mask[s:s + block], docs[ib], d_mask[ib])
+    # exact fp32 scores of each query's own candidates (M2 on the card, read
+    # by id; the plain version gathers `block` queries' candidates at once)
+    s_exact = maxsim_fused.maxsim_pairs(queries, q_mask, docs, d_mask, doc_m,
+                                        block=block)
     # huge negated screen values are padding bins/docs, never candidates
     s_exact = torch.where(scr > 1e29, _scalar(-_INF, s_exact), s_exact)
 
@@ -355,9 +341,6 @@ def _maxsim_select(queries, q_mask, docs, d_mask, cand_neg, cand_doc,
         rows = rows_a[:n_take]
         members = mk.MEGA_DOCS // lanes               # 64 docs per bin
         w = REPAIR_BINS * members
-        # bound the live (blk, w, td, dim) gather at ~256 MB
-        blk = min(128, max(8, (1 << 28) // max(1, w * td * dim * 4)))
-        blk = 1 << (blk.bit_length() - 1)
         bins_a = _first_rows(sflat[rows], REPAIR_BINS)   # (n, S)
         mega_a = bins_a // lanes
         lane_a = bins_a % lanes
@@ -366,16 +349,14 @@ def _maxsim_select(queries, q_mask, docs, d_mask, cand_neg, cand_doc,
               + lane_a[..., None]).reshape(n_take, w)
         valid = rg < n_docs          # the last mega's decode runs past D
         rgc = torch.clamp_max(rg, n_docs - 1)
-        qa, qma = queries[rows], q_mask[rows]
-        s_bin = torch.empty((n_take, w), device=dev)
-        for s in range(0, n_take, blk):
-            rb = rgc[s:s + blk]
-            sc = _pair_scores(qa[s:s + blk], qma[s:s + blk], docs[rb],
-                              d_mask[rb])
-            # NaN scores and phantom rows must lose: the gather pulls bin
-            # rows by position, so the screen's NaN handling never saw them
-            keep_s = valid[s:s + blk] & ~torch.isnan(sc)
-            s_bin[s:s + blk] = torch.where(keep_s, sc, _scalar(-_INF, sc))
+        # the bins' members scored by id (M2 on the card; the plain version
+        # bounds its gather at ~256 MB)
+        sc = maxsim_fused.maxsim_pairs(queries[rows], q_mask[rows], docs,
+                                       d_mask, rgc)
+        # NaN scores and phantom rows must lose: the repair pulls bin rows
+        # by position, so the screen's NaN handling never saw them
+        keep_s = valid & ~torch.isnan(sc)
+        s_bin = torch.where(keep_s, sc, _scalar(-_INF, sc))
         # dedup: a returned top-k doc living in a gathered bin has its
         # exact score in s_bin already
         sk_a = sk[rows]
