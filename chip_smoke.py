@@ -184,7 +184,11 @@ Phases, each printing its own lines and seconds:
      64 x 32 / 128 / 512 and ColBERT 64 x 220 the forward on E1-E3 against
      the plain chain (a second graph captured under
      encoder_fused.forced_variant("plain")), outputs within 5e-2 and
-     cosine 0.999, device ms in turns (plain, fused, fused, plain); (c)
+     cosine 0.999, and the default variants (E2 "rowpass", E3 "staged")
+     against "rowpass" alone (PR 13's kernels: a third graph captured
+     under forced_variant("rowpass")), outputs bit for bit; device ms in
+     turns (plain, rowpass, default, default, rowpass, plain);
+     (c)
      every shape replayed out of its capture order, bit for bit; (d) K6
      launches per replay under "flash" (24, all "wgmma"); (e)
      generate_embedding over 10,000 base
@@ -208,16 +212,27 @@ Phases, each printing its own lines and seconds:
      kernels line, launches from phase 8's nw_main and per path.
  16. the encoders' fused kernels (ops/encoder_fused.py), each against its
      plain version (the op-by-op chain) on bf16 inputs at the published
-     shapes: e5-large-v2 64 x 32 / 128 / 512 (1024 hidden, 16 heads) and
-     ColBERT 64 x 256 (768, 12), ragged masks with a pad row: E1
-     embed_layernorm (csrc/embed_layernorm.cu), E2 add_layernorm
-     (csrc/add_layernorm.cu), E3 masked_softmax (csrc/masked_softmax.cu),
-     within one bf16 ulp (plus 1e-5 for the LayerNorms' cancellations near
-     0); each timed by rotating_ms (a CUDA graph of calls, each on its own
-     inputs, inputs and outputs four times the L2 or more) in turns with
-     its plain version beside its bytes bound. Their records join the
-     kernels line: ms at nw's 64 x 32, launches from phase 8's nw_main,
-     per path (7, 8) and per replay (14).
+     shapes: e5-large-v2 64 x 32 / 128 / 512 (1024 hidden, 16 heads),
+     ColBERT 64 x 256 and ck's one-passage replay 1 x 32 (768, 12), ragged
+     masks with a pad row: E1 embed_layernorm (csrc/embed_layernorm.cu),
+     E2 add_layernorm (csrc/add_layernorm.cu), E3 masked_softmax
+     (csrc/masked_softmax.cu), within one bf16 ulp (plus 1e-5 for the
+     LayerNorms' cancellations near 0). E1 timed by rotating_ms (a CUDA
+     graph of calls, each on its own inputs, inputs and outputs four times
+     the L2 or more) in turns with its plain version; E2 and E3's variants
+     "rowpass" and "staged" equal bit for bit on every input,
+     then plain, rowpass and staged in turns, cold (rotating_ms) and hot
+     (graph_ms: one input again and again, as the forward finds E2's
+     operands just written), beside the bytes bound and a yardstick never
+     called by the port (ATen's layer_norm of one bf16 (rows, n) tensor,
+     torch.softmax of the bf16 logits: one library row pass over about the
+     same bytes, not the same function). Their records join the kernels
+     line: ms at nw's 64 x 32 (the default variant; ms_rowpass and
+     ms_staged each variant's), launches
+     from phase 8's nw_main, per path (7, 8) and per replay (14), per
+     variant; phases 7 and 8 fail unless every E1-E3 launch went to its
+     default (E1, E2 "rowpass", E3 "staged"), or E3's to "rowpass" for a
+     shape the launch plan sent there.
  17. the MaxSim engines' fused kernels (ops/maxsim_fused.py, on
      csrc/maxsim_tile.cuh: fp32 products on the CUDA cores, the max over
      doc tokens and the sum over query tokens in the tile), each against
@@ -343,7 +358,8 @@ def ptxas_report(name, report):
                 targs = re.search(r"I(?:13__nv_bfloat16|6__half|f)"
                                   r"((?:L[ib]\d+E)*)E", sym)
                 args = re.findall(r"\d+", targs.group(1)) if targs else []
-                entry = f"{name}<{', '.join([dtype, *args])}>"
+                staged = " staged" if "_staged" in sym else ""
+                entry = f"{name}{staged}<{', '.join([dtype, *args])}>"
             elif name in FUSED_KERNELS or name in MAXSIM_KERNELS:
                 # F1-F3, M1-M2: the kernel's name, then its template
                 # arguments
@@ -499,8 +515,12 @@ def plain_and_kernel_ms(fn, timer=None):
 # the encoders' fused kernels (ops/encoder_fused.py): E1, E2, E3
 ENCODER_KERNELS = ("embed_layernorm", "add_layernorm", "masked_softmax")
 # their launches on each path that runs them, counted from 0 just before
-# the path and read just after: {path: {kernel: launches}}
+# the path and read just after: {path: {kernel: launches}}; per variant
+# ({path: {kernel: {variant: launches}}}) and the shapes the plan sent to
+# "rowpass" ({path: {kernel: {shape: reason}}})
 ENCODER_LAUNCHES = {}
+ENCODER_VARIANTS = {}
+ENCODER_ROWPASS = {}
 # an ATen kernel of the chains E1-E3 replace, by its name in a trace
 ATEN_NORM_SOFTMAX = re.compile(r"(?i)softmax|layer_?norm")
 
@@ -512,6 +532,32 @@ def encoder_counted(path):
     yield
     ENCODER_LAUNCHES[path] = {n: getattr(ef, n).launches
                               for n in ENCODER_KERNELS}
+    ENCODER_VARIANTS[path] = {n: dict(getattr(ef, n).launches_by_variant)
+                              for n in ENCODER_KERNELS}
+    ENCODER_ROWPASS[path] = {n: {str(k): v for k, v in
+                                 getattr(ef, n).rowpass_plans.items()}
+                             for n in ENCODER_KERNELS}
+
+
+def require_default_variant(path):
+    """Fail unless every E1-E3 launch of `path` went to its kernel's
+    default variant (encoder_fused.DEFAULT_VARIANT: nothing on the main
+    path forces one), or to "rowpass" where the launch plan sent a
+    "staged" shape there (counted, with the shapes and reasons logged),
+    and none ran the plain chain."""
+    from neighborhoodwatch_tpu_torch.ops import encoder_fused as ef
+    by, plans = ENCODER_VARIANTS[path], ENCODER_ROWPASS[path]
+    for name in ENCODER_KERNELS:
+        v, default = by[name], ef.DEFAULT_VARIANT[name]
+        other = "rowpass" if default == "staged" else "staged"
+        if v["plain"] or v[other] and not (other == "rowpass"
+                                           and plans[name]):
+            raise AssertionError(f"{path}: {name} launched {v}, not its "
+                                 f"default {default!r} alone")
+    log(f"  {path}'s E2 / E3 launches by variant: add_layernorm "
+        f"{by['add_layernorm']}, masked_softmax {by['masked_softmax']}; "
+        f"shapes the plan sent to 'rowpass': "
+        f"{ {n: p for n, p in plans.items() if p} or 'none'}")
 
 
 def per_forward(layers, e3=True):
@@ -1465,6 +1511,7 @@ def phase_ck(rec, workdir):
     wall = time.perf_counter() - t
     require_graphed(forwards, "ck_main")
     require_encoder("ck", forwards, COLBERT_BASE_CONFIG.num_layers)
+    require_default_variant("ck")
     sections, tokens = nw_sections(tee.kept.getvalue())
     rates = {name: toks / secs for name, (toks, secs) in tokens.items()
              if secs > 0}
@@ -1479,7 +1526,9 @@ def phase_ck(rec, workdir):
     rec["ck_encoder"] = {"sections_s": sections,
                          "encoder_tokens_per_s": rates, "eager": eager,
                          "graph_trace": graph, "forwards": forwards,
-                         "fused_launches": ENCODER_LAUNCHES["ck"]}
+                         "fused_launches": ENCODER_LAUNCHES["ck"],
+                         "fused_launches_by_variant": ENCODER_VARIANTS["ck"],
+                         "rowpass_plans": ENCODER_ROWPASS["ck"]}
     launches = mk.maxsim_keys.launches
     by_variant = dict(mk.maxsim_keys.launches_by_variant)
     if by_variant["mma"]:
@@ -1722,6 +1771,7 @@ def phase_nw(rec, workdir, Q=1000, B=100_000, k=100,
     wall = time.perf_counter() - t
     require_graphed(forwards, "nw_main")
     require_encoder("nw", forwards, cfg.num_layers)
+    require_default_variant("nw")
     graph = trace_share(os.path.join(workdir, "encode_trace"),
                         window["forwards"])
     log(f"  nw_main base encode, call 4 ({window['texts']} sentences, "
@@ -1868,7 +1918,9 @@ def phase_nw(rec, workdir, Q=1000, B=100_000, k=100,
         "trace_top_kernels": top,
         "encoder": {"eager": eager, "graph_trace": graph,
                     "forwards": forwards,
-                    "fused_launches": ENCODER_LAUNCHES["nw"]}}
+                    "fused_launches": ENCODER_LAUNCHES["nw"],
+                    "fused_launches_by_variant": ENCODER_VARIANTS["nw"],
+                    "rowpass_plans": ENCODER_ROWPASS["nw"]}}
     return files
 
 
@@ -3280,6 +3332,12 @@ def trace_busy(trace_file, region):
     return (t1 - t0) / 1e3, busy / 1e3, kernels
 
 
+def encoder_kernel(name, kernel):
+    """Whether a trace's kernel name is one of E1-E3's kernels `name` (the
+    "rowpass" `<name>_kernel`, or E2 / E3's `<name>_staged`)."""
+    return f"{name}_kernel" in kernel or f"{name}_staged" in kernel
+
+
 def trace_share(trace_dir, forwards):
     """{idle_share, busy / traced ms a forward, kernels a forward, E1-E3's
     kernels a forward, the ATen softmax and layer_norm kernels left} of
@@ -3290,10 +3348,10 @@ def trace_share(trace_dir, forwards):
         return {"idle_share": "not measured"}
     span, busy, kernels = trace_busy(trace_file, "encode_loop")
     shutil.rmtree(trace_dir, ignore_errors=True)
-    ours = {n: sum(c for k, c in kernels.items() if f"{n}_kernel" in k)
+    ours = {n: sum(c for k, c in kernels.items() if encoder_kernel(n, k))
             for n in ENCODER_KERNELS}
     aten = sorted(k[:100] for k in kernels if ATEN_NORM_SOFTMAX.search(k)
-                  and not any(f"{n}_kernel" in k for n in ENCODER_KERNELS))
+                  and not any(encoder_kernel(n, k) for n in ENCODER_KERNELS))
     return {"idle_share": 1 - busy / span, "traced_forwards": forwards,
             "traced_ms_per_forward": span / forwards,
             "busy_ms_per_forward": busy / forwards,
@@ -3514,9 +3572,12 @@ def plain_chain_turns(label, runner, ids, mask, rows, compared):
     plain chain they replace (a second runner whose graph is captured
     under encoder_fused.forced_variant("plain")): the outputs' rows that
     `compared(out)` keeps against each other (bf16 through every layer, E2's
-    one-ulp roundings carried along: max |d| <= 5e-2, cosine >= 0.999),
-    and device ms a forward by CUDA events in turns (plain, fused, fused,
-    plain)."""
+    one-ulp roundings carried along: max |d| <= 5e-2, cosine >= 0.999); the
+    default variants (the runner's own graph: E2 "rowpass", E3 "staged")
+    against "rowpass" alone (a third runner captured under
+    forced_variant("rowpass")): the outputs bit for bit; device ms a
+    forward by CUDA events in turns (plain, rowpass, default, default,
+    rowpass, plain)."""
     import torch
     from neighborhoodwatch_tpu_torch.models import graphed
     from neighborhoodwatch_tpu_torch.ops import encoder_fused as ef
@@ -3524,7 +3585,15 @@ def plain_chain_turns(label, runner, ids, mask, rows, compared):
                                 name=f"{runner.name} plain chain")
     with ef.forced_variant("plain"):
         want = plain(ids, mask, rows)           # captured op by op
+    rowpass = graphed.GraphRunner(runner.fn, runner.device, 1,
+                                  name=f"{runner.name} rowpass")
+    with ef.forced_variant("rowpass"):
+        first = rowpass(ids, mask, rows)        # captured on "rowpass"
     got = runner(ids, mask, rows)
+    if not torch.equal(got, first):
+        raise AssertionError(f"{label}: the forward on the defaults and on "
+                             f"'rowpass' differ: max |d| "
+                             f"{float((got - first).abs().max())}")
     d, cos = embeddings_agree(compared(got).float().cpu(),
                               compared(want).float().cpu())
     if d > 5e-2 or cos < 0.999:
@@ -3532,15 +3601,18 @@ def plain_chain_turns(label, runner, ids, mask, rows, compared):
                              f"plain chain differ: max |d| {d:.3g}, least "
                              f"cosine {cos:.6f}")
     t = in_turns({"plain": lambda: plain(ids, mask, rows),
-                  "fused": lambda: runner(ids, mask, rows)}, event_ms)
-    del plain, want
+                  "rowpass": lambda: rowpass(ids, mask, rows),
+                  "default": lambda: runner(ids, mask, rows)}, event_ms)
+    del plain, rowpass, want, first
     torch.cuda.empty_cache()
     log(f"      {label} {tuple(ids.shape)}: device ms a forward on E1-E3 "
-        f"{t['fused']:.3f}, on the plain chain {t['plain']:.3f} (graphs, "
-        f"in turns); max |d| {d:.3g}, least cosine {cos:.6f}")
-    return {"fused_device_ms": t["fused"], "plain_chain_device_ms":
-            t["plain"], "fused_vs_plain_max_abs": d,
-            "fused_vs_plain_cos": cos}
+        f"the defaults {t['default']:.3f}, 'rowpass' {t['rowpass']:.3f} (equal "
+        f"bit for bit), on the plain chain {t['plain']:.3f} (graphs, in "
+        f"turns); max |d| {d:.3g}, least cosine {cos:.6f}")
+    return {"fused_device_ms": t["default"],
+            "rowpass_device_ms": t["rowpass"],
+            "plain_chain_device_ms": t["plain"],
+            "fused_vs_plain_max_abs": d, "fused_vs_plain_cos": cos}
 
 
 def shape_case(label, runner, ids, mask, rows, flops, cut_rows=None,
@@ -4008,12 +4080,17 @@ def phase_fused():
 # ------------------------------------------------------------ phase 16
 
 # the published shapes: e5-large-v2 at nw's bucket and two longer ones,
-# ColBERT (bert-base width) at 64 x 256; (rows, T, hidden, heads)
+# ColBERT (bert-base width) at 64 x 256 and at ck's one-passage replay (its
+# synthetic passages of 17 tokens fill bucket 32, one row a forward);
+# (rows, T, hidden, heads)
 ENCODER_SHAPES = {"e5_64x32": (64, 32, 1024, 16),
                   "e5_64x128": (64, 128, 1024, 16),
                   "e5_64x512": (64, 512, 1024, 16),
-                  "colbert_64x256": (64, 256, 768, 12)}
+                  "colbert_64x256": (64, 256, 768, 12),
+                  "colbert_1x32": (1, 32, 768, 12)}
 VOCAB = 30522
+# E2 and E3's CUDA variants, timed in turns with the plain chain
+STAGED_TURNS = ("plain", "rowpass", "staged")
 
 
 def rotation(bytes_per_call):
@@ -4022,18 +4099,68 @@ def rotation(bytes_per_call):
     return max(4, min(64, -(-4 * L2_BYTES // bytes_per_call)))
 
 
+def under_variant(variant, fn):
+    """`fn` called under encoder_fused.forced_variant(variant) (so a graph
+    captured of it holds that variant's launches)."""
+    from neighborhoodwatch_tpu_torch.ops import encoder_fused as ef
+
+    def call(x):
+        with ef.forced_variant(variant):
+            return fn(x)
+    return call
+
+
+def variant_turns(name, inputs, wrapper, plain, yardstick):
+    """E2 or E3 on `inputs`: "rowpass" against "staged" bit for bit on
+    every input (fails otherwise); then plain, "rowpass" and
+    "staged" in turns, cold (rotating_ms: each call on its own input, the
+    calls' bytes four times the L2 or more) and hot (graph_ms: one input
+    again and again, as the forward finds E2's operands just written),
+    beside the yardstick (one ATen row pass over about the same bytes, not
+    the same function), cold and hot."""
+    import torch
+    from neighborhoodwatch_tpu_torch.ops import encoder_fused as ef
+    staged = under_variant("staged", wrapper)
+    rowpass = under_variant("rowpass", wrapper)
+    for x in inputs:
+        a, b = staged(x), rowpass(x)
+        if not torch.equal(a.view(torch.uint8), b.view(torch.uint8)):
+            d = float((a.float() - b.float()).abs().max())
+            raise AssertionError(f"{name}: 'staged' and 'rowpass' differ "
+                                 f"at {tuple(a.shape)}: max |d| {d}")
+    plan = getattr(ef, name).last_plan
+    fns = {"plain": plain, "rowpass": rowpass, "staged": staged}
+    cold = in_turns({v: (lambda f=fns[v]: rotating_ms(f, inputs))
+                     for v in STAGED_TURNS}, lambda f: f())
+    hot = in_turns({v: (lambda f=fns[v]: graph_ms(lambda: f(inputs[0])))
+                    for v in STAGED_TURNS}, lambda f: f())
+    yard = (rotating_ms(yardstick, inputs),
+            graph_ms(lambda: yardstick(inputs[0])))
+    default = ef.DEFAULT_VARIANT[name]
+    return {"variant": default, "ms": cold[default],
+            "ms_rowpass": cold["rowpass"], "ms_staged": cold["staged"],
+            "plain_ms": cold["plain"], "hot_ms": hot[default],
+            "hot_ms_rowpass": hot["rowpass"], "hot_ms_staged": hot["staged"],
+            "hot_plain_ms": hot["plain"],
+            "yardstick_ms": yard[0], "hot_yardstick_ms": yard[1],
+            "plan": dict(vars(plan)) if plan is not None else None}
+
+
 def encoder_fused_shape(label, rows, T, H, heads, g):
     """Phase 16 at one shape: E1-E3 against their plain versions on the
     same bf16 inputs (outputs_agree: one bf16 ulp, plus 1e-5 abs for the
-    LayerNorms' cancellations near 0), then each timed with
-    rotating_ms in turns with its plain version (plain, kernel, kernel,
-    plain), each call on its own inputs, beside its bytes bound. Returns
-    {kernel: numbers}."""
+    LayerNorms' cancellations near 0); E1 timed with rotating_ms in turns
+    with its plain version (plain, kernel, kernel, plain), each call on
+    its own inputs; E2 and E3 by variant_turns ("staged" == "rowpass" bit
+    for bit, the three timed in turns cold and hot, the ATen yardstick);
+    each beside its bytes bound. Returns {kernel: numbers}."""
     import torch
+    import torch.nn.functional as F
     from neighborhoodwatch_tpu_torch.ops import encoder_fused as ef
     bf16, d, eps = torch.bfloat16, H // heads, 1e-12
     lengths = torch.randint(1, T + 1, (rows,), device="cuda", generator=g)
-    lengths[-1] = 0                              # a pad row
+    if rows > 1:
+        lengths[-1] = 0                          # a pad row
     mask = torch.arange(T, device="cuda")[None, :] < lengths[:, None]
     w = 1 + 0.1 * torch.randn(H, device="cuda", generator=g)
     b = 0.1 * torch.randn(H, device="cuda", generator=g)
@@ -4042,23 +4169,43 @@ def encoder_fused_shape(label, rows, T, H, heads, g):
     typ = 0.05 * torch.randn(2, H, device="cuda", generator=g)
     out = {}
 
-    def case(name, make, kernel, plain, bound_bytes, call_bytes):
+    def case(name, make, kernel, plain, bound_bytes, call_bytes,
+             yardstick=None):
         """`bound_bytes(x)`: the bytes a call on input x must move."""
         n = rotation(call_bytes)
         inputs = [make() for _ in range(n)]
         err = ef.outputs_agree(kernel(inputs[0]), plain(inputs[0]),
                                0.0 if name == "masked_softmax" else
                                ef.LN_ATOL)
-        t = in_turns({"plain": lambda: rotating_ms(plain, inputs),
-                      "kernel": lambda: rotating_ms(kernel, inputs)},
-                     lambda f: f())
         bound = bound_bytes(inputs[0]) / PEAK_BYTES * 1e3
-        out[name] = {"ms": t["kernel"], "plain_ms": t["plain"],
-                     "bound_ms": bound, "max_abs_err": err, "calls": n}
-        log(f"  {name} {label}: kernel {t['kernel']:.4f} ms "
-            f"({t['kernel'] / bound:.2f}x the bytes bound {bound:.4f} ms), "
-            f"plain {t['plain']:.4f} ms (a CUDA graph of {n} calls, each on "
-            f"its own inputs, in turns); max |d - plain| {err:.3g}")
+        if yardstick is None:
+            t = in_turns({"plain": lambda: rotating_ms(plain, inputs),
+                          "kernel": lambda: rotating_ms(kernel, inputs)},
+                         lambda f: f())
+            out[name] = {"ms": t["kernel"], "plain_ms": t["plain"],
+                         "bound_ms": bound, "max_abs_err": err, "calls": n}
+            log(f"  {name} {label}: kernel {t['kernel']:.4f} ms "
+                f"({t['kernel'] / bound:.2f}x the bytes bound {bound:.4f} "
+                f"ms), plain {t['plain']:.4f} ms (a CUDA graph of {n} "
+                f"calls, each on its own inputs, in turns); max |d - "
+                f"plain| {err:.3g}")
+        else:
+            r = variant_turns(name, inputs, kernel, plain, yardstick)
+            out[name] = {**r, "bound_ms": bound, "max_abs_err": err,
+                         "calls": n}
+            log(f"  {name} {label}: 'rowpass' == 'staged' bit for bit on "
+                f"{n} inputs; cold (a CUDA graph of {n} calls, each on its "
+                f"own inputs, in turns): rowpass {r['ms_rowpass']:.4f} ms "
+                f"({r['ms_rowpass'] / bound:.2f}x the bytes bound "
+                f"{bound:.4f} ms), staged {r['ms_staged']:.4f} "
+                f"({r['ms_staged'] / bound:.2f}x), plain "
+                f"{r['plain_ms']:.4f}, yardstick {r['yardstick_ms']:.4f}; "
+                f"hot (one input, {REPS} calls): rowpass "
+                f"{r['hot_ms_rowpass']:.4f}, staged "
+                f"{r['hot_ms_staged']:.4f}, plain "
+                f"{r['hot_plain_ms']:.4f}, yardstick "
+                f"{r['hot_yardstick_ms']:.4f}; plan {r['plan']}; max |d - "
+                f"plain| {err:.3g}")
         del inputs
 
     def ids():
@@ -4077,20 +4224,27 @@ def encoder_fused_shape(label, rows, T, H, heads, g):
     def pair():
         return (torch.randn(rows, T, H, device="cuda", generator=g).to(bf16),
                 torch.randn(rows, T, H, device="cuda", generator=g).to(bf16))
+    wb16, bb16 = w.to(bf16), b.to(bf16)
+    # yardstick: ATen's LayerNorm of one bf16 (rows, n) tensor (a read and
+    # a write of it: two thirds of E2's bytes)
     case("add_layernorm", pair,
          lambda p: ef.add_layernorm(*p, w, b, eps),
          lambda p: ef.add_layernorm_plain(*p, w, b, eps),
-         lambda p: 3 * out_bytes + 2 * H * 4, 3 * out_bytes)
+         lambda p: 3 * out_bytes + 2 * H * 4, 3 * out_bytes,
+         yardstick=lambda p: F.layer_norm(p[0], (H,), wb16, bb16, eps))
 
     def logits():
         q = torch.randn(rows, heads, T, d, device="cuda", generator=g)
         k = torch.randn(rows, heads, T, d, device="cuda", generator=g)
         return (q.to(bf16) @ k.to(bf16).transpose(2, 3))
     probs = rows * heads * T * T * 2
+    # yardstick: ATen's softmax over the bf16 logits (E3's bytes, without
+    # the scale, the mask and the fp32 widening)
     case("masked_softmax", logits,
          lambda x: ef.masked_softmax(x, mask, d),
          lambda x: ef.masked_softmax_plain(x, mask, d),
-         lambda x: 2 * probs + rows * T, 2 * probs)
+         lambda x: 2 * probs + rows * T, 2 * probs,
+         yardstick=lambda x: torch.softmax(x, dim=-1))
     del word, pos, typ
     torch.cuda.empty_cache()
     return out
@@ -4098,9 +4252,11 @@ def encoder_fused_shape(label, rows, T, H, heads, g):
 
 def phase_encoder_fused():
     """Phase 16: E1-E3 against their plain versions at the published
-    shapes, timed in turns beside their bounds; returns their records for
-    the kernels line (ms, plain and bound at nw's 64 x 32; launches:
-    phase 8's nw_main, and per path)."""
+    shapes, E2 and E3's variants against each other, timed in turns beside
+    their bounds; returns their records for the kernels line (ms, plain
+    and bound at nw's 64 x 32, ms on each kernel's default variant, E2
+    and E3 each variant's as ms_rowpass and ms_staged; launches: phase
+    8's nw_main, and per path)."""
     import torch
     g = torch.Generator(device="cuda").manual_seed(16)
     shapes = {label: encoder_fused_shape(label, *dims, g)
@@ -4114,21 +4270,31 @@ def phase_encoder_fused():
     recs = []
     for name in ENCODER_KERNELS:
         main = shapes["e5_64x32"][name]
-        recs.append({
+        rec = {
             "name": name, "route": "cuda",
             "source": f"neighborhoodwatch_tpu_torch/csrc/{name}.cu",
             "replaces": replaces[name],
             "launches": ENCODER_LAUNCHES.get("nw", {}).get(name, 0),
             "launches_by_path": {p: v[name] for p, v in
                                  ENCODER_LAUNCHES.items()},
+            "launches_by_variant": ENCODER_VARIANTS.get("nw", {}).get(name),
             "max_abs_err": max(v[name]["max_abs_err"]
                                for v in shapes.values()),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": "bytes",
             "library_ms": None,
-            "shapes": {label: v[name] for label, v in shapes.items()}})
+            "shapes": {label: v[name] for label, v in shapes.items()}}
+        if name != "embed_layernorm":
+            rec.update(variant=main["variant"],
+                       ms_rowpass=main["ms_rowpass"],
+                       ms_staged=main["ms_staged"],
+                       yardstick_ms=main["yardstick_ms"],
+                       yardstick="ATen " + ("layer_norm" if name ==
+                                            "add_layernorm" else "softmax")
+                       + ", not the same function")
+        recs.append(rec)
     log(f"  encoder fused kernels' launches by path (each counted from 0): "
-        f"{ENCODER_LAUNCHES}")
+        f"{ENCODER_LAUNCHES}; by variant {ENCODER_VARIANTS}")
     return recs
 
 

@@ -12,19 +12,37 @@ are not Pallas kernels but single passes over HBM on the TPU.
      written-out attention's scale, -1e9 key mask, round to bf16 and fp32
      softmax between the two library products.
 
-Each wrapper launches its kernel on CUDA tensors (and counts the launch)
-or raises: on a build or launch failure, a dtype outside bf16/fp16/fp32, a
-width the kernel does not take. On CPU tensors it runs the plain PyTorch
+Each wrapper launches a kernel on CUDA tensors (and counts the launch) or
+raises: on a build or launch failure, a dtype outside bf16/fp16/fp32, a
+width the kernels do not take. On CPU tensors it runs the plain PyTorch
 version beside it, which is the encoder's op-by-op code of before.
-`forced_variant("plain")` runs the plain version on CUDA tensors too, for
-timings that hold the two against each other; nothing on the main path
-uses it. Launches are counted in all (`launches`: the kernel's alone) and
-per variant (`launches_by_variant`, "kernel" and "plain"). Nothing is
-built at import: the kernels build at first use (utils/cuda_build.py).
+
+Variants (`VARIANTS`; the default a kernel's in `DEFAULT_VARIANT`;
+`forced_variant(name)` selects one for timings that hold them against
+each other; nothing on the main path forces one):
+  "rowpass" the first kernels (csrc/row_pass.cuh: each row loaded by its
+            own lanes, one row a row group): E1's only kernel, and E2's
+            default.
+  "staged"  E2 and E3 on the launch plan of `row_plan`: a grid of at most
+            the blocks the card holds at once, each block a step of
+            consecutive rows in several passes; E2's w and b come into
+            shared memory by one bulk copy a block (csrc/row_stream.cuh),
+            E3 loads a pass's rows before the previous pass's arithmetic.
+            Rows it cannot take (a width not a multiple of 8, unaligned
+            pointers) go to "rowpass" by the plan, counted there and
+            logged once a shape. E3's default: on the card it was faster
+            than "rowpass" at the shapes the encoders run, E2's was not.
+  "plain"   the plain version on CUDA tensors too.
+"staged" and "rowpass" give the same bits. Launches are counted in all
+(`launches`: either kernel) and per variant (`launches_by_variant`); the
+shapes the plan sent to "rowpass" are in `rowpass_plans`. Nothing is built
+at import: the kernels build at first use (utils/cuda_build.py).
 """
 
 import contextlib
 import ctypes
+import dataclasses
+import logging
 import math
 
 import torch
@@ -36,17 +54,29 @@ MAX_SEQ = 512                 # E3: a row of T <= 512 keys in registers
 LN_ATOL = 1e-5                # E1, E2 against their plain versions
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}
 
-VARIANTS = ("kernel", "plain")
+VARIANTS = ("staged", "rowpass", "plain")
+# each kernel's variant on CUDA tensors unless one is forced: the faster
+# on the card at the encoders' shapes (PERF.md)
+DEFAULT_VARIANT = {"embed_layernorm": "rowpass", "add_layernorm": "rowpass",
+                   "masked_softmax": "staged"}
 _forced_variant = None
+_log = logging.getLogger(__name__)
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
-# each source's C launch function, `<name>_launch`, and its arguments
+# each source's C functions, `<name>_<entry>`, and their arguments
 _ARGTYPES = {
-    "embed_layernorm": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _I, _F,
-                        _P],
-    "add_layernorm": [_P, _P, _P, _P, _P, _LL, _I, _I, _F, _P],
-    "masked_softmax": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "embed_layernorm": {
+        "launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _I, _F, _P]},
+    "add_layernorm": {
+        "launch": [_P, _P, _P, _P, _P, _LL, _I, _I, _F, _P],
+        "staged_launch": [_P, _P, _P, _P, _P, _LL, _I, _I, _F, _I, _I, _I,
+                          _P],
+        "staged_resident": [_I, _I, _I]},
+    "masked_softmax": {
+        "launch": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
+        "staged_launch": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P],
+        "staged_resident": [_I, _I, _I]},
 }
 # the device types whose tensors launch the kernels
 _ON_CARD = ("cuda",)
@@ -54,8 +84,10 @@ _ON_CARD = ("cuda",)
 
 @contextlib.contextmanager
 def forced_variant(name: str):
-    """Run CUDA tensors through `name` ("kernel" or "plain") instead of the
-    default "kernel", for timings that hold the two against each other."""
+    """Run CUDA tensors through `name` ("staged", "rowpass" or "plain")
+    instead of each kernel's default (DEFAULT_VARIANT), for timings that
+    hold them against each other. Under "staged" the plan still sends the
+    rows it cannot take to "rowpass"; E1 has "rowpass" alone."""
     global _forced_variant
     if name not in VARIANTS:
         raise ValueError(f"variant {name!r} not in {VARIANTS}")
@@ -67,16 +99,18 @@ def forced_variant(name: str):
         _forced_variant = before
 
 
-def _launcher(name: str):
-    """Build (at first use) and load csrc/<name>.cu; its launch function."""
+def _launcher(name: str, entry: str = "launch"):
+    """Build (at first use) and load csrc/<name>.cu; its C function
+    `<name>_<entry>`."""
     from neighborhoodwatch_tpu_torch.utils import cuda_build
     lib = cuda_build.load(name)
-    fn = getattr(lib, f"{name}_launch")
     if not getattr(lib, "_nw_typed", False):
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
+        for e, argtypes in _ARGTYPES[name].items():
+            fn = getattr(lib, f"{name}_{e}")
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         lib._nw_typed = True
-    return fn
+    return getattr(lib, f"{name}_{entry}")
 
 
 def load_libraries():
@@ -89,33 +123,179 @@ def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def _launch(name: str, dev, *args) -> None:
-    """csrc/<name>.cu's launch on dev's current stream; raises on an
+def _launch(name: str, dev, *args, entry: str = "launch") -> None:
+    """csrc/<name>.cu's `entry` on dev's current stream; raises on an
     error code."""
     with torch.cuda.device(dev):
-        err = _launcher(name)(*args, _stream(dev))
+        err = _launcher(name, entry)(*args, _stream(dev))
     if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+        what = "" if entry == "launch" else " (staged)"
+        raise RuntimeError(f"{name} kernel launch failed{what}: CUDA error "
+                           f"{err}")
 
 
-def _route(wrapper, t) -> bool:
-    """True where `t` takes the kernel, False for the plain version (CPU
-    tensors, or CUDA tensors under forced_variant("plain"), counted);
-    raises for any other device."""
+def _route(wrapper, t):
+    """The variant a tensor `t` takes: None for the plain version (CPU
+    tensors, or CUDA tensors under forced_variant("plain"), counted), else
+    the wrapper's default (DEFAULT_VARIANT) or the forced variant; raises
+    for any other device."""
     if t.device.type == "cpu":
-        return False
+        return None
     if t.device.type not in _ON_CARD:
         raise ValueError(f"{wrapper.__name__}: unsupported device "
                          f"{t.device}")
     if _forced_variant == "plain":
         wrapper.launches_by_variant["plain"] += 1
-        return False
-    return True
+        return None
+    return _forced_variant or DEFAULT_VARIANT[wrapper.__name__]
 
 
-def _count(wrapper) -> None:
+def _count(wrapper, variant: str) -> None:
     wrapper.launches += 1
-    wrapper.launches_by_variant["kernel"] += 1
+    wrapper.launches_by_variant[variant] += 1
+
+
+# ------------------------------------------------------- the launch plan
+
+THREADS = 256                 # a block of the row kernels
+MAX_STAGED_ROWS = 2 ** 30     # "staged" counts rows in 32 bits
+
+
+@dataclasses.dataclass(frozen=True)
+class RowPlan:
+    """A launch of E2 or E3. "staged": `grid` blocks (never more than the
+    card holds at once), block i the `rows_per_step` consecutive rows from
+    i x rows_per_step, in `passes` passes of the block's rows a pass;
+    `smem_bytes` of dynamic shared memory a block. "rowpass": the first
+    kernel, which lays out its own launch; nothing planned (the numbers
+    0), for the reason given."""
+    variant: str            # "staged" or "rowpass"
+    reason: str             # why "rowpass" ("" for "staged")
+    lanes: int              # lanes a row
+    passes: int
+    rows_per_step: int      # E3: rows of the flattened (B H T, T) logits
+    grid: int
+    smem_bytes: int
+
+
+def row_lanes(kernel: str, width: int) -> int:
+    """Lanes a row, as both variants lay it out: E2 a warp (four above
+    1,024 values), E3 a lane for 8 of the T keys (4 to 64 lanes)."""
+    if kernel == "add_layernorm":
+        return 32 if width <= 1024 else 128
+    for lanes in (4, 8, 16, 32):
+        if width <= 8 * lanes:
+            return lanes
+    return 64
+
+
+def pass_rows(kernel: str, width: int) -> int:
+    """Rows a block of THREADS takes in one pass: E2 a row a warp (or a
+    four-warp group), E3 THREADS / lanes."""
+    lanes = row_lanes(kernel, width)
+    return THREADS // (max(32, lanes) if kernel == "add_layernorm"
+                       else lanes)
+
+
+def staged_bytes(kernel: str, width: int) -> int:
+    """Dynamic shared memory of a "staged" block, as the C launch functions
+    recompute it: E2 w and b in fp32, E3 none."""
+    return 8 * width if kernel == "add_layernorm" else 0
+
+
+def row_plan(kernel: str, rows: int, width: int, aligned: bool, sms: int,
+             resident) -> RowPlan:
+    """The "staged" launch of E2 ("add_layernorm": `rows` rows of `width`
+    values) or E3 ("masked_softmax": the B H T rows of T = `width` keys) on
+    a card of `sms` SMs where `resident(smem_bytes)` blocks of the kernel
+    fit an SM (registers, threads and shared memory; the occupancy query).
+
+    "staged" where the weights take a bulk copy and the rows 16-byte loads
+    (width % 8 == 0, `aligned`: every pointer 16-byte aligned, E3's mask
+    8) and there are fewer than MAX_STAGED_ROWS: the fewest passes that
+    fit the rows into the blocks the card holds at once, and a block for
+    each step of that many passes. Else "rowpass", with the reason."""
+    if kernel not in ("add_layernorm", "masked_softmax"):
+        raise ValueError(f"no launch plan for {kernel!r}")
+    if rows < 0 or width < 1 or sms < 1:
+        raise ValueError(f"rows={rows}, width={width}, sms={sms}: nothing "
+                         f"to plan")
+
+    def rowpass(reason):
+        return RowPlan("rowpass", reason, 0, 0, 0, 0, 0)
+    if rows == 0:
+        return rowpass("empty")
+    if rows >= MAX_STAGED_ROWS:
+        return rowpass("rows")
+    if width % 8:
+        return rowpass("width")
+    if not aligned:
+        return rowpass("unaligned")
+    smem = staged_bytes(kernel, width)
+    held = int(resident(smem))
+    if held < 1:
+        return rowpass("occupancy")
+    per_pass = pass_rows(kernel, width)
+    passes = -(-rows // (per_pass * sms * held))
+    step = passes * per_pass
+    return RowPlan("staged", "", row_lanes(kernel, width), passes, step,
+                   -(-rows // step), smem)
+
+
+_sms: dict = {}
+_resident_cache: dict = {}
+_plans: dict = {}
+
+
+def _sm_count(dev) -> int:
+    """The device's SM count, asked once per device."""
+    n = _sms.get(dev)
+    if n is None:
+        n = _sms[dev] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return n
+
+
+def _resident(kernel, dev, width, code, smem_bytes) -> int:
+    """Blocks of the "staged" kernel an SM holds at `smem_bytes`: the C
+    library's occupancy query, asked once per device, width, dtype and
+    size (so a launch inside a graph capture asks nothing new)."""
+    key = (kernel, dev, width, code, smem_bytes)
+    n = _resident_cache.get(key)
+    if n is None:
+        with torch.cuda.device(dev):
+            n = _launcher(kernel, "staged_resident")(width, code, smem_bytes)
+        if n < 0:
+            raise RuntimeError(f"{kernel} occupancy query failed: CUDA "
+                               f"error {-n}")
+        _resident_cache[key] = n
+    return n
+
+
+def _aligned(*tensors, mask=None) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors) and \
+        (mask is None or mask.data_ptr() % 8 == 0)
+
+
+def _plan(wrapper, dev, rows, width, dtype, aligned) -> RowPlan:
+    """row_plan on this device, once per shape; a shape sent to "rowpass"
+    is kept in `wrapper.rowpass_plans` and logged the first time."""
+    kernel = wrapper.__name__
+    key = (kernel, dev, rows, width, dtype, aligned)
+    pl = _plans.get(key)
+    if pl is None:
+        code = _DTYPE_CODE[dtype]
+        pl = _plans[key] = row_plan(
+            kernel, rows, width, aligned, _sm_count(dev),
+            lambda b: _resident(kernel, dev, width, code, b))
+    if pl.variant == "rowpass":
+        shape = (rows, width, str(dtype).removeprefix("torch."), aligned)
+        if shape not in wrapper.rowpass_plans:
+            _log.info("%s: %s rows of %s (%s, aligned %s) take 'rowpass' "
+                      "by the plan: %s", kernel, *shape, pl.reason)
+        wrapper.rowpass_plans[shape] = pl.reason
+    wrapper.last_plan = pl
+    return pl
 
 
 def _activation(t, name):
@@ -168,7 +348,7 @@ def embed_layernorm(ids, word, position, token_type, weight, bias,
     within one ulp of `dtype`; an id outside the table gives a row of NaN,
     with no host sync to check the ids), the plain version on CPU
     tensors."""
-    if not _route(embed_layernorm, ids):
+    if _route(embed_layernorm, ids) is None:
         return embed_layernorm_plain(ids, word, position, token_type, weight,
                                      bias, eps, dtype)
     if dtype not in _DTYPE_CODE:
@@ -203,7 +383,7 @@ def embed_layernorm(ids, word, position, token_type, weight, bias,
             position.data_ptr(), token_type[0].data_ptr(), weight.data_ptr(),
             bias.data_ptr(), out.data_ptr(), b, seq, h, word.shape[0],
             _DTYPE_CODE[dtype], float(eps))
-    _count(embed_layernorm)
+    _count(embed_layernorm, "rowpass")      # E1 has the row-pass kernel
     return out
 
 
@@ -220,9 +400,10 @@ def add_layernorm_plain(hidden, x, weight, bias, eps: float):
 def add_layernorm(hidden, x, weight, bias, eps: float):
     """`add_layernorm_plain`'s function over the last dimension: E2 on CUDA
     tensors (the add bit for bit the plain version's, LayerNorm within one
-    ulp of the activation dtype; a warp a row, no atomics), the plain
-    version on CPU tensors."""
-    if not _route(add_layernorm, hidden):
+    ulp of the activation dtype; a warp a row, no atomics; "rowpass" by
+    default, or "staged" on its plan), the plain version on CPU tensors."""
+    variant = _route(add_layernorm, hidden)
+    if variant is None:
         return add_layernorm_plain(hidden, x, weight, bias, eps)
     code = _activation(hidden, "hidden")
     if x.dtype != hidden.dtype or x.shape != hidden.shape:
@@ -234,10 +415,19 @@ def add_layernorm(hidden, x, weight, bias, eps: float):
     weight, bias = _f32_row(weight, "weight", h), _f32_row(bias, "bias", h)
     hidden, x = hidden.contiguous(), x.contiguous()
     out = torch.empty_like(hidden)
-    _launch("add_layernorm", hidden.device, hidden.data_ptr(), x.data_ptr(),
-            weight.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            hidden.numel() // h, h, code, float(eps))
-    _count(add_layernorm)
+    rows, dev = hidden.numel() // h, hidden.device
+    args = (hidden.data_ptr(), x.data_ptr(), weight.data_ptr(),
+            bias.data_ptr(), out.data_ptr(), rows, h, code, float(eps))
+    if variant == "staged":
+        pl = _plan(add_layernorm, dev, rows, h, hidden.dtype,
+                   _aligned(hidden, x, weight, bias, out))
+        variant = pl.variant
+    if variant == "staged":
+        _launch("add_layernorm", dev, *args, pl.grid, pl.passes,
+                pl.smem_bytes, entry="staged_launch")
+    else:
+        _launch("add_layernorm", dev, *args)
+    _count(add_layernorm, variant)
     return out
 
 
@@ -262,11 +452,13 @@ def masked_softmax_plain(logits, mask, head_dim: int):
 
 
 def masked_softmax(logits, mask, head_dim: int):
-    """`masked_softmax_plain`'s function: E3 on CUDA tensors (a warp a
-    query row held in registers, one read of the logits and one write;
-    within one ulp of the activation dtype; an all-masked row gives the
-    uniform row), the plain version on CPU tensors."""
-    if not _route(masked_softmax, logits):
+    """`masked_softmax_plain`'s function: E3 on CUDA tensors (a query row
+    held in the registers of 4 to 64 lanes, one read of the logits and one
+    write; within one ulp of the activation dtype; an all-masked row gives
+    the uniform row; "staged" on its plan by default, or "rowpass"), the
+    plain version on CPU tensors."""
+    variant = _route(masked_softmax, logits)
+    if variant is None:
         return masked_softmax_plain(logits, mask, head_dim)
     code = _activation(logits, "logits")
     if logits.dim() != 4 or logits.shape[2] != logits.shape[3]:
@@ -283,18 +475,30 @@ def masked_softmax(logits, mask, head_dim: int):
     _same_device("masked_softmax", logits, mask)
     logits, mask = logits.contiguous(), mask.contiguous()
     out = torch.empty_like(logits)
-    _launch("masked_softmax", logits.device, logits.data_ptr(),
-            mask.data_ptr(), out.data_ptr(), b, heads, seq, code,
-            math.sqrt(head_dim))
-    _count(masked_softmax)
+    dev = logits.device
+    args = (logits.data_ptr(), mask.data_ptr(), out.data_ptr(), b, heads,
+            seq, code, math.sqrt(head_dim))
+    if variant == "staged":
+        pl = _plan(masked_softmax, dev, b * heads * seq, seq, logits.dtype,
+                   _aligned(logits, out, mask=mask))
+        variant = pl.variant
+    if variant == "staged":
+        _launch("masked_softmax", dev, *args, pl.grid, pl.passes,
+                pl.smem_bytes, entry="staged_launch")
+    else:
+        _launch("masked_softmax", dev, *args)
+    _count(masked_softmax, variant)
     return out
 
 
 def reset_launches() -> None:
-    """Set every wrapper's launch counts to 0."""
+    """Set every wrapper's launch counts to 0 and forget the shapes its
+    plan sent to "rowpass"."""
     for w in (embed_layernorm, add_layernorm, masked_softmax):
         w.launches = 0
         w.launches_by_variant = {v: 0 for v in VARIANTS}
+        w.rowpass_plans = {}
+        w.last_plan = None
 
 
 reset_launches()

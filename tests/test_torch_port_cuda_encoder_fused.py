@@ -17,7 +17,13 @@ Each kernel is held against its plain version in bf16, fp16 and fp32, at
 hidden widths 384, 768, 1024 and 200 (not a multiple of 8: single-value
 loads) and T in {1, 31, 32, 64, 128, 256, 300, 512}, on ragged masks
 with an all-padding row; E1 and E2 also on rows wider than a warp holds
-(1,030 and 4,096: four warps a row). Tolerance (ops/encoder_fused.py:outputs_agree): one ulp
+(1,030 and 4,096: four warps a row). E2 and E3 have two variants
+("rowpass", E2's default, and "staged", E3's, on the launch plan of
+ops/encoder_fused.py:row_plan): every case runs on both, and "staged"
+equals "rowpass" bit for bit (where the plan sends a shape to "rowpass",
+both are the same launch); their own cases add partial last steps, plans
+of many passes a block, unaligned views, and NaN and inf planted.
+Tolerance (ops/encoder_fused.py:outputs_agree): one ulp
 of the activation dtype in bf16 and fp16 (for E1 and E2 plus 1e-5 abs:
 a LayerNorm output near 0 is a cancellation whose fp32 rounding is
 absolute), 1e-5 abs in fp32; the sums and
@@ -37,6 +43,7 @@ from neighborhoodwatch_tpu_torch.ops import attention_kernel as ak
 from neighborhoodwatch_tpu_torch.ops import encoder_fused as ef
 
 DTYPES = [torch.bfloat16, torch.float16, torch.float32]
+VARIANTS = ["staged", "rowpass"]
 WIDTHS = [384, 768, 1024, 200]
 # the tokenizer's buckets, 1, 31, and 300 (single values over two warps)
 SEQS = [1, 31, 32, 64, 128, 256, 300, 512]
@@ -70,6 +77,23 @@ def _twice_equal(fn):
     return a
 
 
+def _bits(t):
+    return t.contiguous().view(torch.uint8)
+
+
+def _on_variant(variant, fn):
+    """`fn` twice under `variant` (equal bit for bit), and, for "staged",
+    equal bit for bit to "rowpass" on the same inputs."""
+    with ef.forced_variant(variant):
+        got = _twice_equal(fn)
+    if variant == "staged":
+        with ef.forced_variant("rowpass"):
+            other = fn()
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(got), _bits(other))
+    return got
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("T", SEQS)
 @pytest.mark.parametrize("H", WIDTHS)
@@ -91,9 +115,10 @@ def test_embed_layernorm_matches_plain(cuda, dtype, H, T):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("variant", VARIANTS)
 @pytest.mark.parametrize("H", [1030, 4096])
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_wide_rows_match_plain(cuda, dtype, H):
+def test_wide_rows_match_plain(cuda, dtype, H, variant):
     g = _gen(H)
     # 93 rows: the last block holds one of its two rows
     ids = torch.randint(0, 50, (3, 31), device="cuda", generator=g)
@@ -106,7 +131,8 @@ def test_wide_rows_match_plain(cuda, dtype, H):
     ef.outputs_agree(got, ef.embed_layernorm_plain(*args), ef.LN_ATOL)
     hidden, x = (torch.randn(3, 31, H, device="cuda", generator=g).to(dtype)
                  for _ in range(2))
-    got = _twice_equal(lambda: ef.add_layernorm(hidden, x, w, b, 1e-12))
+    got = _on_variant(variant,
+                      lambda: ef.add_layernorm(hidden, x, w, b, 1e-12))
     ef.outputs_agree(got, ef.add_layernorm_plain(hidden, x, w, b, 1e-12),
                      ef.LN_ATOL)
 
@@ -134,26 +160,29 @@ def test_embed_layernorm_bad_id_gives_nan(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("variant", VARIANTS)
 @pytest.mark.parametrize("T", SEQS)
 @pytest.mark.parametrize("H", WIDTHS)
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_add_layernorm_matches_plain(cuda, dtype, H, T):
+def test_add_layernorm_matches_plain(cuda, dtype, H, T, variant):
     g = _gen(2 * H + T)
     hidden = (3 * torch.randn(4, T, H, device="cuda", generator=g)).to(dtype)
     x = torch.randn(4, T, H, device="cuda", generator=g).to(dtype)
     x[3] = 0.0                                   # an all-zero residual
     w = 1 + 0.1 * torch.randn(H, device="cuda", generator=g)
     b = 0.1 * torch.randn(H, device="cuda", generator=g)
-    got = _twice_equal(lambda: ef.add_layernorm(hidden, x, w, b, 1e-12))
+    got = _on_variant(variant,
+                      lambda: ef.add_layernorm(hidden, x, w, b, 1e-12))
     ef.outputs_agree(got, ef.add_layernorm_plain(hidden, x, w, b, 1e-12),
                      ef.LN_ATOL)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("variant", VARIANTS)
 @pytest.mark.parametrize("T", SEQS)
 @pytest.mark.parametrize("H", WIDTHS)
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_masked_softmax_matches_plain(cuda, dtype, H, T):
+def test_masked_softmax_matches_plain(cuda, dtype, H, T, variant):
     """Logits as the product gives them (q k^T in the activation dtype),
     ragged keys and an all-padding row: the all-masked rows come out
     uniform, never NaN."""
@@ -163,7 +192,7 @@ def test_masked_softmax_matches_plain(cuda, dtype, H, T):
     k = torch.randn(4, heads, T, d, device="cuda", generator=g).to(dtype)
     logits = q @ k.transpose(2, 3)
     mask = _mask(T)
-    got = _twice_equal(lambda: ef.masked_softmax(logits, mask, d))
+    got = _on_variant(variant, lambda: ef.masked_softmax(logits, mask, d))
     ef.outputs_agree(got, ef.masked_softmax_plain(logits, mask, d))
     assert bool(torch.isfinite(got).all())
     uniform = torch.tensor(1.0 / T).to(dtype)
@@ -171,10 +200,11 @@ def test_masked_softmax_matches_plain(cuda, dtype, H, T):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("variant", VARIANTS)
 @pytest.mark.parametrize("B,heads,T", [(3, 5, 8), (3, 5, 16), (3, 5, 32),
                                        (3, 5, 64), (1, 3, 128), (1, 3, 300)])
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_masked_softmax_partial_blocks(cuda, dtype, B, heads, T):
+def test_masked_softmax_partial_blocks(cuda, dtype, B, heads, T, variant):
     """Row counts that leave the last block part full: rows of 4 to 16
     lanes share a warp, and the rows past the end join its shuffles with
     no values."""
@@ -182,8 +212,83 @@ def test_masked_softmax_partial_blocks(cuda, dtype, B, heads, T):
     logits = (4 * torch.randn(B, heads, T, T, device="cuda",
                               generator=g)).to(dtype)
     mask = _mask(T, rows=B)
-    got = _twice_equal(lambda: ef.masked_softmax(logits, mask, 16))
+    got = _on_variant(variant, lambda: ef.masked_softmax(logits, mask, 16))
     ef.outputs_agree(got, ef.masked_softmax_plain(logits, mask, 16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sms", [1, 2, 5, 17, 64, None])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_staged_passes_equal_rowpass(cuda, dtype, sms, monkeypatch):
+    """Plans on a card of fewer SMs (so each block takes many passes: a
+    few blocks at 1 SM, one pass a block on the card's own count) and rows
+    no multiple of a step (a partial last step): E2 and E3 on "staged"
+    equal "rowpass" bit for bit."""
+    monkeypatch.setattr(ef, "_plans", {})
+    if sms is not None:
+        monkeypatch.setattr(ef, "_sm_count", lambda dev: sms)
+    g = _gen(sms or 0)
+    rows, H = 7 * 1024 + 5, 768
+    hidden = torch.randn(rows, H, device="cuda", generator=g).to(dtype)
+    x = torch.randn(rows, H, device="cuda", generator=g).to(dtype)
+    w = 1 + 0.1 * torch.randn(H, device="cuda", generator=g)
+    b = 0.1 * torch.randn(H, device="cuda", generator=g)
+    got = _on_variant("staged",
+                      lambda: ef.add_layernorm(hidden, x, w, b, 1e-12))
+    pl = ef.add_layernorm.last_plan
+    assert pl.variant == "staged"
+    assert pl.passes > 1 or sms is None or sms > 17
+    ef.outputs_agree(got, ef.add_layernorm_plain(hidden, x, w, b, 1e-12),
+                     ef.LN_ATOL)
+    B, heads, T = 9, 12, 64                      # 6,912 rows of 64 keys
+    logits = (4 * torch.randn(B, heads, T, T, device="cuda",
+                              generator=g)).to(dtype)
+    mask = _mask(T, rows=4).repeat(3, 1)[:B]
+    got = _on_variant("staged", lambda: ef.masked_softmax(logits, mask, 64))
+    pl = ef.masked_softmax.last_plan
+    assert pl.variant == "staged"
+    assert pl.passes > 1 or sms is None or sms > 17
+    ef.outputs_agree(got, ef.masked_softmax_plain(logits, mask, 64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_staged_unaligned_views_and_planted_values(cuda, dtype):
+    """Views one element past an aligned start (the plan sends them to
+    "rowpass", counted there), rows holding NaN and inf (NaN rows out of
+    E2, NaN or the plain version's values out of E3, at the same places),
+    and all-masked rows: "staged" equals "rowpass" bit for bit."""
+    g = _gen(77)
+    H = 1024
+    base = torch.randn(2 * 300 * H + 1, device="cuda", generator=g).to(dtype)
+    hidden, x = base[1:300 * H + 1].view(300, H), base[:300 * H].view(300, H)
+    w = 1 + 0.1 * torch.randn(H, device="cuda", generator=g)
+    b = 0.1 * torch.randn(H, device="cuda", generator=g)
+    ef.reset_launches()
+    got = _on_variant("staged",
+                      lambda: ef.add_layernorm(hidden, x, w, b, 1e-12))
+    assert ef.add_layernorm.last_plan.reason == "unaligned"
+    assert ef.add_layernorm.rowpass_plans
+    ef.outputs_agree(got, ef.add_layernorm_plain(hidden, x, w, b, 1e-12),
+                     ef.LN_ATOL)
+    # planted NaN and inf, aligned rows ("staged" on the plan)
+    h2 = torch.randn(4000, H, device="cuda", generator=g).to(dtype)
+    x2 = torch.randn(4000, H, device="cuda", generator=g).to(dtype)
+    h2[5, 3], h2[77, 0], x2[1999, H - 1] = float("nan"), float("inf"), \
+        float("-inf")
+    got = _on_variant("staged", lambda: ef.add_layernorm(h2, x2, w, b, 1e-12))
+    assert ef.add_layernorm.last_plan.variant == "staged"
+    ef.outputs_agree(got, ef.add_layernorm_plain(h2, x2, w, b, 1e-12),
+                     ef.LN_ATOL)
+    T, heads = 128, 12
+    logits = torch.randn(6, heads, T, T, device="cuda", generator=g).to(dtype)
+    logits[0, 1, 2, 3] = float("nan")
+    logits[1, 0, 5, 7] = float("inf")
+    logits[2, 3, 9, 0] = float("-inf")
+    mask = _mask(T, rows=4).repeat(2, 1)[:6]
+    got = _on_variant("staged", lambda: ef.masked_softmax(logits, mask, 64))
+    assert ef.masked_softmax.last_plan.variant == "staged"
+    ef.outputs_agree(got, ef.masked_softmax_plain(logits, mask, 64))
 
 
 def _small_encoder(impl, hidden=256, heads=4, layers=2):
@@ -222,18 +327,25 @@ def test_launches_per_replay(cuda, impl, T):
     k6 = ak.masked_attention.launches
     got = runner(ids, mask)
     e3 = 0 if impl == "flash" else L
-    assert _counts() == [(1, {"kernel": 1, "plain": 0}),
-                         (2 * L, {"kernel": 2 * L, "plain": 0}),
-                         (e3, {"kernel": e3, "plain": 0})]
+    assert _counts() == [(1, {"staged": 0, "rowpass": 1, "plain": 0}),
+                         (2 * L, {"staged": 0, "rowpass": 2 * L,
+                                  "plain": 0}),
+                         (e3, {"staged": e3, "rowpass": 0, "plain": 0})]
     assert ak.masked_attention.launches - k6 == (L if impl == "flash" else 0)
     with graphed.forced_variant("eager"):
         eager = runner(ids, mask)
+        with ef.forced_variant("staged"):
+            staged = runner(ids, mask)
+        with ef.forced_variant("rowpass"):
+            rowpass = runner(ids, mask)
         with ef.forced_variant("plain"):
             plain = runner(ids, mask)
     torch.cuda.synchronize()
     assert torch.equal(got, first) and torch.equal(got, eager)
+    assert torch.equal(got, staged) and torch.equal(got, rowpass)
     by = ef.add_layernorm.launches_by_variant
-    assert by["plain"] == 2 * L and ef.add_layernorm.launches == 4 * L
+    assert by["plain"] == 2 * L and by["staged"] == 2 * L
+    assert ef.add_layernorm.launches == 8 * L
     keep = torch.from_numpy(mask.astype(bool)).to("cuda")
     diff = (got - plain).abs()[keep]
     assert float(diff.max()) <= 2.0 ** -5 * float(plain[keep].abs().max()), \

@@ -274,42 +274,62 @@ def test_cpu_tensors_never_load_a_library(monkeypatch):
     for name in WRAPPERS:
         w = getattr(ef, name)
         assert w.launches == 0
-        assert w.launches_by_variant == {"kernel": 0, "plain": 0}
+        assert w.launches_by_variant == {"staged": 0, "rowpass": 0,
+                                         "plain": 0}
 
 
 def test_forced_variant_checks_and_restores():
     with pytest.raises(ValueError):
         with ef.forced_variant("eager"):
             pass
+    with pytest.raises(ValueError):          # PR 13's name, now two
+        with ef.forced_variant("kernel"):
+            pass
     assert ef._forced_variant is None
     with ef.forced_variant("plain"):
-        with ef.forced_variant("kernel"):
-            assert ef._forced_variant == "kernel"
+        with ef.forced_variant("rowpass"):
+            assert ef._forced_variant == "rowpass"
+            with ef.forced_variant("staged"):
+                assert ef._forced_variant == "staged"
+            assert ef._forced_variant == "rowpass"
         assert ef._forced_variant == "plain"
     assert ef._forced_variant is None
 
 
 class _FakeLibrary:
-    """Stands for a built library: its launch returns `err`."""
+    """Stands for a built library: its launches return `err` and are
+    recorded as (name, entry, args); its occupancy query answers
+    `resident` blocks an SM, recorded in `queries`."""
 
-    def __init__(self, err=0):
-        self.err, self.calls = err, []
+    def __init__(self, err=0, resident=4):
+        self.err, self.resident, self.calls, self.queries = \
+            err, resident, [], []
 
-    def launcher(self, name):
+    def launcher(self, name, entry="launch"):
+        if entry == "staged_resident":
+            def query(*args):
+                self.queries.append((name, args))
+                return self.resident
+            return query
+
         def launch(*args):
-            self.calls.append((name, args))
+            self.calls.append((name, entry, args))
             return self.err
         return launch
 
 
 @pytest.fixture()
 def card(monkeypatch):
-    """Meta tensors take the kernels' path, on a fake library; the plain
-    versions raise if called. Returns the library."""
+    """Meta tensors take the kernels' path, on a fake library of a
+    132-SM card; the plain versions raise if called. Returns the
+    library."""
     lib = _FakeLibrary()
     monkeypatch.setattr(ef, "_ON_CARD", ("cuda", "meta"))
     monkeypatch.setattr(ef, "_launcher", lib.launcher)
     monkeypatch.setattr(ef, "_stream", lambda dev: 7)
+    monkeypatch.setattr(ef, "_sm_count", lambda dev: 132)
+    monkeypatch.setattr(ef, "_plans", {})
+    monkeypatch.setattr(ef, "_resident_cache", {})
     monkeypatch.setattr(torch.cuda, "device",
                         lambda dev: contextlib.nullcontext())
     for name in WRAPPERS:
@@ -324,23 +344,34 @@ def card(monkeypatch):
                                    torch.float32])
 @pytest.mark.parametrize("name", WRAPPERS)
 def test_card_tensors_launch_and_count(card, name, dtype):
-    """A card tensor launches the kernel once, on the current stream, with
-    the shapes, dtype code and scale the C interface takes; counted."""
+    """A card tensor launches a kernel once, on the current stream, with
+    the shapes, dtype code and scale the C interface takes; counted. E1
+    and E2 take "rowpass" by default, with no launch plan asked for; E3
+    "staged", its plan's grid, passes and bytes after the arguments the
+    "rowpass" launch takes."""
     out = _calls("meta", dtype)[name]()
     assert out.device.type == "meta" and out.dtype == dtype
-    assert [c[0] for c in card.calls] == [name]
-    args = card.calls[0][1]
-    assert len(args) == len(ef._ARGTYPES[name]) and args[-1] == 7
+    variant = ef.DEFAULT_VARIANT[name]
+    assert variant == ("staged" if name == "masked_softmax" else "rowpass")
+    entry = "staged_launch" if variant == "staged" else "launch"
+    assert [c[:2] for c in card.calls] == [(name, entry)]
+    assert (card.queries == []) == (variant == "rowpass")
+    args = card.calls[0][2]
+    assert len(args) == len(ef._ARGTYPES[name][entry]) and args[-1] == 7
     code = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}[dtype]
+    w = getattr(ef, name)
     if name == "masked_softmax":
-        assert args[3:-1] == (2, 4, 16, code, math.sqrt(16))
+        assert args[3:8] == (2, 4, 16, code, math.sqrt(16))
+        pl = w.last_plan
+        assert pl.variant == "staged"
+        assert args[8:-1] == (pl.grid, pl.passes, pl.smem_bytes)
     elif name == "add_layernorm":
         assert args[5:8] == (2 * 16, 64, code)
+        assert w.last_plan is None
     else:
         assert args[7:12] == (2, 16, 64, 50, code)
-    w = getattr(ef, name)
-    assert w.launches == 1 and w.launches_by_variant == {"kernel": 1,
-                                                         "plain": 0}
+    assert w.launches == 1 and w.launches_by_variant == {
+        "staged": 0, "rowpass": 0, "plain": 0, variant: 1}
 
 
 @pytest.mark.parametrize("name", WRAPPERS)
@@ -441,3 +472,91 @@ def test_a_failed_build_raises(card, monkeypatch, tmp_path, name):
         _calls("meta")[name]()
     assert getattr(ef, name).launches == 0
     assert list(tmp_path.iterdir()) == []
+
+
+STAGED = ("add_layernorm", "masked_softmax")
+
+
+@pytest.mark.parametrize("name", STAGED)
+def test_staged_plan_is_asked_once_a_shape(card, name):
+    """Under forced_variant("staged") the occupancy queries behind a
+    shape's plan run at its first call only (a launch inside a graph
+    capture asks nothing new); the launch takes the plan's grid, passes
+    and bytes each time, counted as "staged"."""
+    call = _calls("meta")[name]
+    with ef.forced_variant("staged"):
+        call()
+        asked = len(card.queries)
+        assert asked >= 1
+        call()
+    assert len(card.queries) == asked
+    assert [c[1] for c in card.calls] == ["staged_launch"] * 2
+    pl = getattr(ef, name).last_plan
+    assert pl.variant == "staged"
+    assert all(len(c[2]) == len(ef._ARGTYPES[name]["staged_launch"]) and
+               c[2][-4:-1] == (pl.grid, pl.passes, pl.smem_bytes)
+               for c in card.calls)
+    w = getattr(ef, name)
+    assert w.launches_by_variant == {"staged": 2, "rowpass": 0, "plain": 0}
+    assert w.rowpass_plans == {}
+
+
+@pytest.mark.parametrize("name", STAGED)
+def test_rows_bulk_copies_cannot_take_go_to_rowpass_by_plan(card,
+                                                            monkeypatch,
+                                                            name):
+    """Under forced_variant("staged"), a width no multiple of 8 (hidden
+    36, T 12) or an unaligned pointer: the plan sends the launch to
+    "rowpass" (the first kernel's entry), counted there, the shape and
+    reason kept in `rowpass_plans`."""
+    odd = (_calls("meta", hidden=36, heads=3) if name == "add_layernorm"
+           else _calls("meta", seq=12))
+    w = getattr(ef, name)
+    with ef.forced_variant("staged"):
+        odd[name]()
+        assert [c[1] for c in card.calls] == ["launch"]
+        assert w.last_plan.reason == "width"
+        monkeypatch.setattr(ef, "_aligned", lambda *t, mask=None: False)
+        _calls("meta")[name]()
+    assert [c[1] for c in card.calls] == ["launch", "launch"]
+    assert w.last_plan.reason == "unaligned"
+    assert sorted(w.rowpass_plans.values()) == ["unaligned", "width"]
+    assert w.launches == 2 and w.launches_by_variant == {
+        "staged": 0, "rowpass": 2, "plain": 0}
+
+
+@pytest.mark.parametrize("name", STAGED)
+def test_forced_variants_on_card_tensors(card, monkeypatch, name):
+    """"rowpass" launches the first kernel without a plan, "staged" on its
+    plan, the default (E2 "rowpass", E3 "staged") as if forced; "plain"
+    runs the plain version, counted there only."""
+    with ef.forced_variant("rowpass"):
+        _calls("meta")[name]()
+    with ef.forced_variant("staged"):
+        _calls("meta")[name]()
+    _calls("meta")[name]()
+    default = "staged_launch" if name == "masked_softmax" else "launch"
+    assert [c[1] for c in card.calls] == ["launch", "staged_launch",
+                                          default]
+    ran = []
+    monkeypatch.setattr(ef, f"{name}_plain",
+                        lambda *a, **kw: ran.append(name) or a[0])
+    with ef.forced_variant("plain"):
+        _calls("meta")[name]()
+    w = getattr(ef, name)
+    assert ran == [name] and len(card.calls) == 3
+    staged = 2 if name == "masked_softmax" else 1
+    assert w.launches == 3 and w.launches_by_variant == {
+        "staged": staged, "rowpass": 3 - staged, "plain": 1}
+    assert w.rowpass_plans == {}
+
+
+@pytest.mark.parametrize("name", STAGED)
+def test_a_failed_occupancy_query_raises(card, name):
+    """A "staged" plan whose occupancy query fails raises before any
+    launch; no other variant is tried."""
+    card.resident = -98                      # cudaErrorInvalidDeviceFunction
+    with pytest.raises(RuntimeError, match="occupancy query failed"):
+        with ef.forced_variant("staged"):
+            _calls("meta")[name]()
+    assert card.calls == [] and getattr(ef, name).launches == 0

@@ -407,7 +407,7 @@ def test_counts_by_variant_and_k6_per_replay(
     for g in gen.runner.graphs.values():
         # K6, then E1-E3, whose CPU forwards run their plain versions
         assert g.held == [(k6, {"mma": 0, "wgmma": k6})] + \
-            [(0, {"kernel": 0, "plain": 0})] * 3
+            [(0, {"staged": 0, "rowpass": 0, "plain": 0})] * 3
     with graphed.forced_variant("eager"):
         gen.generate_embedding(texts[:64])
     assert by["eager"] == by0["eager"] + 1
