@@ -10,8 +10,9 @@ Phases, each printing its own lines and seconds:
      csrc/prepare_base.cu, csrc/distance_tile.cu and csrc/rerank_rows.cu,
      the encoders' csrc/embed_layernorm.cu, csrc/add_layernorm.cu and
      csrc/masked_softmax.cu (on csrc/row_pass.cuh), and the MaxSim
-     engines' csrc/maxsim_dense.cu and csrc/maxsim_pairs.cu (on
-     csrc/maxsim_tile.cuh), one nvcc each, started together, into
+     engines' csrc/maxsim_dense.cu and csrc/maxsim_pairs.cu (variants
+     "ffma" on csrc/maxsim_tile.cuh and "split" on csrc/maxsim_split.cuh),
+     one nvcc each, started together, into
      neighborhoodwatch_tpu_torch/_build/) with ptxas' registers and spills
      per kernel variant (a spill fails the run);
   2. kernel against plain: the screen kernel and its plain PyTorch version
@@ -46,11 +47,14 @@ Phases, each printing its own lines and seconds:
      bound, the plain version, a product-only torch.mm yardstick (the
      whole tile loop, measured), the call's stages; then
      StreamingMaxSim over the first corpus in 8192-doc tiles; every path
-     counts M1 and M2 from 0 (ops/maxsim_fused.py, phase 17) and must
-     launch M1 once a tile of every exact-engine call and every exact
-     tail tile, M2 once or twice a screened select; the exact engine (64
-     queries) and one stream tile's call and its exact engine are timed on
-     M1 / M2 / K7 and on the plain versions in turns;
+     counts M1 and M2 from 0 (ops/maxsim_fused.py, phase 17), per variant
+     too, and must launch M1 once a tile of every exact-engine call and
+     every exact tail tile, M2 once or twice a screened select, every
+     launch on the default variant ("split"); the one-shot call's, the
+     exact engine's and the stream's top-k held against float64 MaxSim on
+     16 queries (tie-tolerant at 1e-3); the exact engine (64 queries) and
+     one stream tile's call and its exact engine are timed on M1 / M2 / K7
+     and on the plain versions in turns;
   7. ck: (a) measured once, the ColBERT encoder loop as ck's source loop
      runs it (one passage a generate_embedding call) op by op ("eager"):
      host ms a forward split into tokenize, launch and copy, and the
@@ -65,7 +69,8 @@ Phases, each printing its own lines and seconds:
      must show E1-E3 and no ATen softmax or layer_norm kernel), the
      sections' seconds and the encoder's tokens/s, then
      validate_maxsim_files, the exported neighbours against the exact
-     MaxSim engine on the same parquet (M1 and M2 counted as in 6), and
+     MaxSim engine on the same parquet and against float64 MaxSim on 16
+     queries (M1 and M2 counted as in 6), and
      both kernel variants against
      the plain version on the run's own queries and first tile at 3/2/1
      passes;
@@ -233,24 +238,33 @@ Phases, each printing its own lines and seconds:
      variant; phases 7 and 8 fail unless every E1-E3 launch went to its
      default (E1, E2 "rowpass", E3 "staged"), or E3's to "rowpass" for a
      shape the launch plan sent there.
- 17. the MaxSim engines' fused kernels (ops/maxsim_fused.py, on
-     csrc/maxsim_tile.cuh: fp32 products on the CUDA cores, the max over
-     doc tokens and the sum over query tokens in the tile), each against
-     its plain version (the library product or the gather, op by op) with
-     garbage planted (NaN and inf in valid and masked tokens, an all-masked
-     query and doc, ids outside the docs): M1 maxsim_dense
+ 17. the MaxSim engines' fused kernels (ops/maxsim_fused.py), each in both
+     variants: "split" (the default: csrc/maxsim_split.cuh, fp32-exact
+     bf16x6 products on the tensor cores, 16-dim chunks promoted into fp32,
+     on the launch plan of maxsim_fused.plan) and "ffma" (csrc/
+     maxsim_tile.cuh: fp32 FMA on the CUDA cores), against the plain
+     version (the library product or the gather, op by op) and a float64
+     oracle, with garbage planted (NaN and inf in valid and masked tokens,
+     an all-masked query and doc, ids outside the docs): M1 maxsim_dense
      (csrc/maxsim_dense.cu) at the stream's exact fallback step (718 x 32
      x 128 against 2,048 x 16), phase 6(b)'s Td = 64, the exact engine's
      128-doc tile and a ragged 13 / 7 / 96 shape (every precision on the
      small ones); M2 maxsim_pairs (csrc/maxsim_pairs.cu) at the re-rank's
      1,000 x 256 candidates over 8,192 x 16 and 50,000 x 64 docs, the
-     class-A repair's 512 bin members and a ragged shape: scores within
-     1e-3, M1's -1e30 positions bit for bit, M2's NaN positions, two
-     launches bit for bit; timed in turns with the plain versions (a CUDA
-     graph of calls, each on its own inputs above the L2; phase 6(b)'s
-     shapes issued from the host) beside the fp32 FLOP and bytes bounds.
-     Their records join the kernels line: launches from phase 7's ck_main
-     and per path (6, 7, 11).
+     class-A repair's 512 bin members a query and a ragged shape: scores
+     within 1e-3 of the plain version, M1's -1e30 positions bit for bit,
+     M2's NaN positions, two launches bit for bit, and the error against
+     float64 (in units of 2^-24 sum_t sum_k |q_tk d_sk| at the selected
+     pair) within each variant's error model (the "split" plan's bound or
+     dim, plus 64 for the token sum); the dots of an adversarial case
+     (heavy cancellation, exponents over 2^-20 .. 2^20, 3.3e38 x 1e-30)
+     within the model; plain, ffma and split timed in turns at every
+     shape and precision (a CUDA graph of calls, each on its own inputs
+     above the L2; phase 6(b)'s shapes issued from the host) beside the
+     fp32 FFMA bound and the split's tensor bound, with a product-only
+     yardstick (one torch.mm of M1's fp32 operands, TF32 off, never
+     called by the port). Their records join the kernels line: launches
+     from phase 7's ck_main, per path (6, 7, 11) and per variant.
 The line before the last is one JSON object with the kernels' numbers;
 the last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 without that line; without a CUDA card it exits 2.
@@ -460,15 +474,23 @@ def maxsim_counted(path):
         yield rec
     finally:
         M._exact_topk, M._maxsim_select = exact, select
-    MAXSIM_LAUNCHES[path] = {**{n: getattr(mf, n).launches
-                                for n in MAXSIM_KERNELS}, **rec}
+    MAXSIM_LAUNCHES[path] = {
+        **{n: getattr(mf, n).launches for n in MAXSIM_KERNELS},
+        **{f"{n}_by_variant": dict(getattr(mf, n).launches_by_variant)
+           for n in MAXSIM_KERNELS},
+        **{f"{n}_ffma_plans": {str(k): v for k, v in
+                               getattr(mf, n).ffma_plans.items()}
+           for n in MAXSIM_KERNELS}, **rec}
 
 
 def require_maxsim(path, tail_tiles=0):
     """Fail unless `path` launched M1 once a tile of every exact-engine
     call (and once for each of its `tail_tiles` exact stream tiles) and M2
-    once or twice a screened select, and at least one of them; print the
-    counts."""
+    once or twice a screened select, and at least one of them, every
+    launch on its default variant (DEFAULT_VARIANT) but for the shapes
+    the "split" plan sent to "ffma" (none at these dims and token counts);
+    print the counts."""
+    from neighborhoodwatch_tpu_torch.ops import maxsim_fused as mf
     got = MAXSIM_LAUNCHES[path]
     dense, pairs = got["maxsim_dense"], got["maxsim_pairs"]
     want = got["dense_expected"] + tail_tiles
@@ -476,9 +498,17 @@ def require_maxsim(path, tail_tiles=0):
     if dense != want or not sel <= pairs <= 2 * sel or dense + pairs < 1:
         raise AssertionError(f"{path}: M1 launched {dense} (expected {want})"
                              f", M2 {pairs} ({sel} screened selects): {got}")
-    log(f"  {path}: M1 maxsim_dense launches {dense} ({got['exact_calls']} "
+    for n in MAXSIM_KERNELS:
+        by = got[f"{n}_by_variant"]
+        if by[mf.DEFAULT_VARIANT[n]] != got[n] or got[f"{n}_ffma_plans"]:
+            raise AssertionError(f"{path}: {n} launched {by} (plan's ffma "
+                                 f"shapes {got[f'{n}_ffma_plans']}), not "
+                                 f"all {mf.DEFAULT_VARIANT[n]!r}")
+    log(f"  {path}: M1 maxsim_dense launches {dense} "
+        f"{got['maxsim_dense_by_variant']} ({got['exact_calls']} "
         f"exact-engine calls + {tail_tiles} exact tail tiles), M2 "
-        f"maxsim_pairs {pairs} ({sel} screened selects)")
+        f"maxsim_pairs {pairs} {got['maxsim_pairs_by_variant']} ({sel} "
+        f"screened selects)")
 
 
 @contextlib.contextmanager
@@ -1159,6 +1189,33 @@ def check_against_exact(s_a, i_a, s_e, i_e, k, what):
         raise AssertionError(f"{what} differs from the exact engine")
 
 
+def oracle_topk_check(q, qm, d, dm, s_a, i_a, k, what, n=16):
+    """An engine's top-k of the first `n` query passages against float64
+    MaxSim over every doc (a NaN score as -inf, as the engines rank it):
+    each returned score within 1e-3 of its doc's float64 score, and none
+    worse than the float64 k-th score by more than 1e-3 (tie-tolerant)."""
+    import torch
+    qd = q[:n].double()
+    rows = []
+    for s in range(0, d.shape[0], 16_384):
+        dd = d[s:s + 16_384].double()
+        sims = torch.einsum("qtk,dsk->qtds", qd, dd)
+        sims = torch.where(dm[s:s + 16_384][None, None], sims, -1e30)
+        tok = sims.amax(3)
+        rows.append(torch.where(qm[:n, :, None], tok, 0.0).sum(1))
+    exact = torch.cat(rows, 1).nan_to_num(nan=-float("inf"))
+    kth = exact.topk(k, dim=1).values[:, k - 1:k]
+    ids = i_a[:n].long().to(exact.device)
+    at = exact.gather(1, ids)
+    err = float((at - s_a[:n].double().to(exact.device)).abs().max())
+    short = float((kth - at).max())
+    log(f"  {what} against float64 MaxSim on {n} queries: max |score - "
+        f"float64| {err:.3g}, worst shortfall against the float64 k-th "
+        f"score {short:.3g}")
+    if err > 1e-3 or short > 1e-3:
+        raise AssertionError(f"{what} differs from float64 MaxSim")
+
+
 def maxsim_stages(q, qm, d, dm, k, diagnostics=False):
     """The stages of one 3-pass maxsim_topk_screened call, run one by one
     (medians of 3; the kernel by CUDA events). Returns (prep_ms, kernel_ms,
@@ -1263,6 +1320,10 @@ def phase_maxsim_engine(rec):
             f"(in turns)")
         check_against_exact(s_s[:n_chk], i_s[:n_chk], s_e, i_e, k,
                             f"[{label}] screened vs exact")
+        oracle_topk_check(q, qm, d, dm, s_s, i_s, k,
+                          f"[{label}] maxsim_topk(auto)")
+        oracle_topk_check(q, qm, d, dm, s_e, i_e, k,
+                          f"[{label}] exact engine")
 
         # ---- stages of the call (3-pass tier), run one by one ----
         prep_ms, _, select_ms, ops3, keys = maxsim_stages(q, qm, d, dm, k)
@@ -1408,6 +1469,8 @@ def stream_maxsim(q, qm, d, dm, k, s_one, i_one):
                              "dim 128")
     check_against_exact(acc.state[0], acc.state[1], s_one, i_one, k,
                         "[stream] streamed vs one-shot")
+    oracle_topk_check(q, qm, d, dm, acc.state[0], acc.state[1], k,
+                      "[stream] StreamingMaxSim")
     result = {"s": acc.state[0].cpu(), "i": acc.state[1].cpu(),
               "seconds": wall}
     # where one streamed tile's time goes (3-pass tier with diagnostics,
@@ -1592,6 +1655,7 @@ def phase_ck(rec, workdir):
         f"{below:.3g}")
     if worst > 1e-3 or below > 1e-3:
         raise AssertionError("exported neighbours differ from exact MaxSim")
+    oracle_topk_check(*dev_t, written, nb, k, "ck's exported neighbours")
     rec["launches"] = rec["ck_launches"] = launches
     rec["launches_by_variant"] = by_variant
     rec["ck_exact_fallback_share"] = share
@@ -4368,61 +4432,205 @@ def scores_agree(got, want, nan_is_neg):
     return float((err * real).max()) if err.numel() else 0.0
 
 
-def dense_case(label, Q, Tq, D, Td, dim, gen, timed):
-    """M1 against its plain version at one shape (every precision where
-    the shape is small), planted garbage on both sides, two launches bit
-    for bit; `timed`: both timed by rotating_ms in turns."""
+MAXSIM_TURNS = ("plain", "ffma", "split")
+
+
+def maxsim_oracle(q, qm, d, dm, ids=None, chunk=8):
+    """float64 MaxSim on the card, query passages `chunk` at a time: the
+    scores (NaN kept; with `ids`, each passage against its own candidates,
+    an id outside the docs NaN) and two error scales a score: `sel`, the
+    sum over valid query tokens t of sum_k |q_tk d_sk| at the doc token s
+    the max selects, and `worst`, the same at the s with the largest such
+    sum (it bounds the error wherever the max falls)."""
     import torch
+    qd = q.double()
+    dd = d.double() if ids is None else None
+    scores, sels, worsts = [], [], []
+    for s in range(0, q.shape[0], chunk):
+        qs, on = qd[s:s + chunk], qm[s:s + chunk, :, None]
+        if ids is None:
+            sims = torch.einsum("qtk,dsk->qtds", qs, dd)
+            absd = torch.einsum("qtk,dsk->qtds", qs.abs(), dd.abs())
+            valid = dm[None, None]
+        else:
+            ib = ids[s:s + chunk].long()
+            inside = (ib >= 0) & (ib < d.shape[0])
+            cand = d[ib.clamp(0, d.shape[0] - 1)].double()
+            sims = torch.einsum("qtk,qmsk->qtms", qs, cand)
+            absd = torch.einsum("qtk,qmsk->qtms", qs.abs(), cand.abs())
+            valid = dm[ib.clamp(0, d.shape[0] - 1)][:, None]
+        absd = torch.nan_to_num(absd, nan=float("inf"))
+        sel = torch.where(valid, sims, -1e30)
+        tok = torch.where(torch.isnan(sel).any(3), float("nan"),
+                          sel.amax(3))
+        pick = torch.where(valid, sims, -float("inf")).nan_to_num(
+            nan=-float("inf")).argmax(3, keepdim=True)
+        a_sel = absd.gather(3, pick)[..., 0]
+        a_worst = torch.where(valid, absd, 0.0).amax(3)
+        score = torch.where(on, tok, 0.0).sum(1)
+        if ids is not None:
+            score = torch.where(inside, score, float("nan"))
+        scores.append(score)
+        sels.append(torch.where(on, a_sel, 0.0).sum(1))
+        worsts.append(torch.where(on, a_worst, 0.0).sum(1))
+    return torch.cat(scores), torch.cat(sels), torch.cat(worsts)
+
+
+def oracle_error(got, oracle, sel, worst, dot_bound, what):
+    """The largest |score - float64 score| over the finite scores (below
+    1e29), in units of 2^-24 sel (the selected pair's sum_t sum_k |q d|);
+    raises unless every one is within (dot_bound + 64) 2^-24 worst: the
+    dot's error model plus the token sum's 64 (maxsim_acc_rel's)."""
+    import torch
+    fin = torch.isfinite(oracle) & (oracle.abs() < 1e29) & \
+        torch.isfinite(worst)
+    err = (got.double() - oracle)[fin].abs()
+    if err.numel() == 0:
+        return 0.0
+    lim = (dot_bound + 64) * 2.0 ** -24 * worst[fin]
+    if bool((err > lim).any()):
+        raise AssertionError(f"{what}: error beyond the model, "
+                             f"{float((err / lim).max()):.3g} x its limit")
+    return float((err / (sel[fin].clamp_min(1e-300) * 2.0 ** -24)).max())
+
+
+def dot_bound_of(wrapper, variant, dim):
+    """The dot's error bound (units of 2^-24 sum_k |q d|) of the variant
+    that ran: the "split" plan's, or dim for "ffma" (fp32 FMA)."""
+    pl = wrapper.last_plan
+    if variant == "split" and pl is not None and pl.variant == "split":
+        return pl.error_bound
+    return float(dim)
+
+
+def maxsim_bounds(flops, pieces, dim_ops):
+    """The FFMA bound (fp32 FLOP at 67 TFLOP/s) and the split's tensor
+    bound (the bf16 products it runs at 989 TFLOP/s: six of the fp32
+    work at 3 pieces; one at 1 piece, of its `dim_ops`-wide operands), ms."""
+    return (flops / PEAK_FP32_FLOPS * 1e3,
+            flops * (6 if pieces == 3 else dim_ops) / PEAK_BF16_FLOPS * 1e3)
+
+
+def variant_checks(name, label, call, plain, oracle, dim, nan_is_neg):
+    """Each variant of one wrapper at one shape and precision: two
+    launches bit for bit, the plain version's scores (MaxSim tolerance,
+    planted positions), the float64 oracle within the variant's model.
+    Returns {variant: {err_plain, err_oracle, plan}}."""
+    import torch
+    from neighborhoodwatch_tpu_torch.ops import maxsim_fused as mf
+    wrapper = getattr(mf, name)
+    out = {}
+    for variant in mf.VARIANTS:
+        with mf.forced_variant(variant):
+            got = call()
+            again = call()
+        if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+            raise AssertionError(f"{name} {label} [{variant}]: two launches "
+                                 f"differ")
+        taken = wrapper.last_plan.variant if variant == "split" else "ffma"
+        out[variant] = {
+            "ran": taken,
+            "err_plain": scores_agree(got, plain, nan_is_neg),
+            "err_oracle": oracle_error(
+                got, oracle[0], oracle[1], oracle[2],
+                dot_bound_of(wrapper, variant, dim),
+                f"{name} {label} [{variant}]"),
+            "dot_bound": dot_bound_of(wrapper, variant, dim)}
+    return out
+
+
+def variant_timings(fns, inputs, graph):
+    """{variant: ms}: plain, ffma and split in turns (that order, then
+    reversed), each by rotating_ms over `inputs`."""
+    from neighborhoodwatch_tpu_torch.ops import maxsim_fused as mf
+
+    def timer(v):
+        if v == "plain":
+            return lambda: rotating_ms(fns["plain"], inputs, graph)
+
+        def run(x):
+            with mf.forced_variant(v):
+                return fns["kernel"](x)
+        return lambda: rotating_ms(run, inputs, graph)
+    return in_turns({v: timer(v) for v in MAXSIM_TURNS}, lambda f: f())
+
+
+def dense_case(label, Q, Tq, D, Td, dim, gen, timed):
+    """M1 at one shape, every precision where the shape is small, garbage
+    planted on both sides: each variant against the plain version and the
+    float64 oracle, two launches bit for bit; `timed`: plain, ffma and
+    split in turns by rotating_ms, beside both bounds."""
     from neighborhoodwatch_tpu_torch.ops import maxsim_fused as mf
     q, qm = planted_tokens(Q, Tq, dim, gen)
     d, dm = planted_tokens(D, Td, dim, gen)
     precisions = ("highest",) if Q * D > 200_000 else \
         ("highest", "high", "default")
-    err = 0.0
-    for precision in precisions:
-        got = mf.maxsim_dense(q, qm, d, dm, precision)
-        again = mf.maxsim_dense(q, qm, d, dm, precision)
-        if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
-            raise AssertionError(f"M1 {label}: two launches differ")
-        err = max(err, scores_agree(got, mf.maxsim_dense_plain(
-            q, qm, d, dm, precision), True))
-    rec = {"shape": [Q, Tq, D, Td, dim], "max_abs_err": err,
-           "precisions": list(precisions)}
+    rec = {"shape": [Q, Tq, D, Td, dim], "precisions": {}}
     flops = 2.0 * Q * Tq * D * Td * dim
     bytes_ = (Q * Tq + D * Td) * (dim * 4 + 1) + Q * D * 4
-    rec["bound_ms"] = max(flops / PEAK_FP32_FLOPS,
-                          bytes_ / PEAK_BYTES) * 1e3
-    rec["bound_by"] = "operations" if flops / PEAK_FP32_FLOPS \
-        >= bytes_ / PEAK_BYTES else "bytes"
+    for precision in precisions:
+        qo, do = mf.maxsim_operands(q, d, precision)
+        pieces = 3 if precision == "highest" else 1
+        plain = mf.maxsim_dense_plain(q, qm, d, dm, precision)
+        checks = variant_checks(
+            "maxsim_dense", label,
+            lambda: mf.maxsim_dense(q, qm, d, dm, precision), plain,
+            maxsim_oracle(qo, qm, do, dm), do.shape[2], True)
+        ffma_b, split_b = maxsim_bounds(flops, pieces, do.shape[2] // dim)
+        prec = {"checks": checks, "ffma_bound_ms": ffma_b,
+                "split_bound_ms": split_b,
+                "plan": dict(vars(mf.maxsim_dense.last_plan))}
+        if timed:
+            # each call on its own queries and docs, four times the L2 or
+            # more; the main shapes in a CUDA graph, phase 6(b)'s (whose
+            # plain version writes 12 GB a call) issued from the host
+            n = rotation(bytes_)
+            inputs = [(q, qm, d, dm)] + [
+                (q.clone(), qm, d.clone(), dm) for _ in range(n - 1)]
+            t = variant_timings(
+                {"plain": lambda x: mf.maxsim_dense_plain(*x, precision),
+                 "kernel": lambda x: mf.maxsim_dense(*x, precision)},
+                inputs, timed == "graph")
+            prec.update(ms=t, calls=n, timing="a CUDA graph" if timed ==
+                        "graph" else "host-issued",
+                        x_ffma_bound={v: t[v] / ffma_b for v in t},
+                        x_split_bound={v: t[v] / split_b for v in t},
+                        tflops={v: flops / t[v] / 1e9 for v in t})
+            del inputs
+        rec["precisions"][precision] = prec
+        log(f"  M1 maxsim_dense {label} {Q} x {Tq} vs {D} x {Td} x {dim} "
+            f"[{precision}]: " + "; ".join(
+                f"{v} ({c['ran']}) |score - plain| {c['err_plain']:.3g}, "
+                f"|score - float64| {c['err_oracle']:.3g} 2^-24 sum|q d| "
+                f"(model {c['dot_bound']:.1f} + 64)"
+                for v, c in checks.items())
+            + "; NaN -> -1e30 and masked positions equal, two launches "
+              "bit for bit"
+            + ("; " + ", ".join(
+                f"{v} {prec['ms'][v]:.3f} ms ({prec['tflops'][v]:.1f} "
+                f"TFLOP/s, {prec['x_ffma_bound'][v]:.2f}x the FFMA bound "
+                f"{ffma_b:.3f}, {prec['x_split_bound'][v]:.2f}x the split "
+                f"bound {split_b:.3f})" for v in MAXSIM_TURNS)
+               + f" ({prec['timing']} run of {prec['calls']} calls, each on "
+                 f"its own inputs, in turns)" if timed else ""))
+    main = rec["precisions"]["highest"]
+    rec["max_abs_err"] = max(c["err_plain"] for p in rec["precisions"].values()
+                             for c in p["checks"].values())
+    rec["bound_ms"] = main["split_bound_ms"]
+    rec["ffma_bound_ms"] = main["ffma_bound_ms"]
+    rec["bound_by"] = "operations" if flops / PEAK_FP32_FLOPS >= \
+        bytes_ / PEAK_BYTES else "bytes"
     if timed:
-        # each call on its own queries and docs, four times the L2 or more
-        n = rotation(bytes_)
-        inputs = [(q, qm, d, dm)] + [
-            (q.clone(), qm, d.clone(), dm) for _ in range(n - 1)]
-        graph = timed == "graph"
-        t = in_turns({"plain": lambda: rotating_ms(
-            lambda x: mf.maxsim_dense_plain(*x), inputs, graph),
-            "kernel": lambda: rotating_ms(lambda x: mf.maxsim_dense(*x),
-                                          inputs, graph)}, lambda f: f())
-        rec.update(ms=t["kernel"], plain_ms=t["plain"], calls=n,
-                   timing="a CUDA graph" if graph else "host-issued",
-                   tflops=flops / t["kernel"] / 1e9)
-        del inputs
-    log(f"  M1 maxsim_dense {label} {Q} x {Tq} vs {D} x {Td} x {dim} "
-        f"({'/'.join(precisions)}): max |score - plain| {err:.3g}, NaN -> "
-        f"-1e30 and masked positions equal, two launches bit for bit"
-        + (f"; kernel {rec['ms']:.3f} ms ({rec['tflops']:.1f} TFLOP/s, "
-           f"{rec['ms'] / rec['bound_ms']:.2f}x the {rec['bound_by']} "
-           f"bound {rec['bound_ms']:.3f} ms), plain {rec['plain_ms']:.3f} "
-           f"ms ({rec['timing']} run of {n} calls, each on its own inputs, "
-           f"in turns)" if timed else ""))
+        rec["ms_by_variant"] = main["ms"]
+        rec["plain_ms"] = main["ms"]["plain"]
     return rec
 
 
 def pairs_case(label, B, M, N, Tq, Td, dim, gen, timed):
-    """M2 against its plain version (the gather in the engine's blocks) at
-    one shape, planted garbage and ids outside the docs, two launches bit
-    for bit; `timed`: both timed by rotating_ms in turns."""
+    """M2 at one shape, garbage planted and ids outside the docs: each
+    variant against the plain version (the gather in the engine's blocks)
+    and the float64 oracle (on 32 queries), two launches bit for bit;
+    `timed`: plain, ffma and split in turns, beside both bounds."""
     import torch
     from neighborhoodwatch_tpu_torch.ops import maxsim as MS
     from neighborhoodwatch_tpu_torch.ops import maxsim_fused as mf
@@ -4432,22 +4640,31 @@ def pairs_case(label, B, M, N, Tq, Td, dim, gen, timed):
     ids[0, :2] = torch.tensor([-1, N])          # outside the docs: NaN
     ids[2, :3] = torch.tensor([2, 3, 5])        # the garbage docs
     block = MS.maxsim_screen_plan(N, 100, Td, dim)[1]
-    got = mf.maxsim_pairs(q, qm, d, dm, ids)
-    again = mf.maxsim_pairs(q, qm, d, dm, ids)
-    if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
-        raise AssertionError(f"M2 {label}: two launches differ")
-    err = scores_agree(got, mf.maxsim_pairs_plain(q, qm, d, dm, ids, block),
-                       False)
-    if not bool(torch.isnan(got[0, :2]).all() & torch.isnan(got[2, 1])):
-        raise AssertionError(f"M2 {label}: a planted NaN did not pass")
+    plain = mf.maxsim_pairs_plain(q, qm, d, dm, ids, block)
+    n_or = min(B, 32)
+    oracle = maxsim_oracle(q[:n_or], qm[:n_or], d, dm, ids[:n_or])
+    pad = [torch.full((B - n_or, M), float("nan"), device="cuda",
+                      dtype=torch.float64) for _ in range(3)]
+    oracle = tuple(torch.cat([o, p]) for o, p in zip(oracle, pad))
+    checks = variant_checks(
+        "maxsim_pairs", label, lambda: mf.maxsim_pairs(q, qm, d, dm, ids),
+        plain, oracle, dim, False)
+    for v in mf.VARIANTS:
+        with mf.forced_variant(v):
+            got = mf.maxsim_pairs(q, qm, d, dm, ids)
+        if not bool(torch.isnan(got[0, :2]).all() & torch.isnan(got[2, 1])):
+            raise AssertionError(f"M2 {label} [{v}]: a planted NaN did not "
+                                 f"pass")
     distinct = int(torch.unique(ids.clamp(0, N - 1)).numel())
     flops = 2.0 * B * M * Tq * Td * dim
     bytes_ = (B * Tq * (dim * 4 + 1) + distinct * Td * (dim * 4 + 1)
               + B * M * 12)
-    rec = {"shape": [B, M, N, Tq, Td, dim], "max_abs_err": err,
+    ffma_b, split_b = maxsim_bounds(flops, 3, 1)
+    rec = {"shape": [B, M, N, Tq, Td, dim], "checks": checks,
+           "max_abs_err": max(c["err_plain"] for c in checks.values()),
            "distinct_docs": distinct, "plain_block": block,
-           "bound_ms": max(flops / PEAK_FP32_FLOPS,
-                           bytes_ / PEAK_BYTES) * 1e3,
+           "plan": dict(vars(mf.maxsim_pairs.last_plan)),
+           "bound_ms": split_b, "ffma_bound_ms": ffma_b,
            "bound_by": "operations" if flops / PEAK_FP32_FLOPS
            >= bytes_ / PEAK_BYTES else "bytes"}
     if timed:
@@ -4456,43 +4673,118 @@ def pairs_case(label, B, M, N, Tq, Td, dim, gen, timed):
         inputs = [(q, qm, d, dm, ids)] + [
             (q.clone(), qm, d.clone(), dm, ids.clone())
             for _ in range(n - 1)]
-        graph = timed == "graph"
-        t = in_turns({"plain": lambda: rotating_ms(
-            lambda x: mf.maxsim_pairs_plain(*x, block), inputs, graph),
-            "kernel": lambda: rotating_ms(lambda x: mf.maxsim_pairs(*x),
-                                          inputs, graph)}, lambda f: f())
-        rec.update(ms=t["kernel"], plain_ms=t["plain"], calls=n,
-                   timing="a CUDA graph" if graph else "host-issued",
-                   tflops=flops / t["kernel"] / 1e9)
+        t = variant_timings(
+            {"plain": lambda x: mf.maxsim_pairs_plain(*x, block),
+             "kernel": lambda x: mf.maxsim_pairs(*x)},
+            inputs, timed == "graph")
+        rec.update(ms_by_variant=t, plain_ms=t["plain"], calls=n,
+                   timing="a CUDA graph" if timed == "graph" else
+                   "host-issued",
+                   x_ffma_bound={v: t[v] / ffma_b for v in t},
+                   x_split_bound={v: t[v] / split_b for v in t},
+                   tflops={v: flops / t[v] / 1e9 for v in t})
         del inputs
     log(f"  M2 maxsim_pairs {label} {B} x {M} candidates of {N} x {Td} "
-        f"(Tq {Tq}, dim {dim}; {distinct:,} distinct): max |score - plain| "
-        f"{err:.3g}, NaN positions equal, two launches bit for bit"
-        + (f"; kernel {rec['ms']:.3f} ms ({rec['tflops']:.1f} TFLOP/s, "
-           f"{rec['ms'] / rec['bound_ms']:.2f}x the {rec['bound_by']} "
-           f"bound {rec['bound_ms']:.3f} ms), plain (gather in blocks of "
-           f"{block}) {rec['plain_ms']:.3f} ms ({rec['timing']} run of {n} "
-           f"calls, each on its own inputs, in turns)" if timed else ""))
+        f"(Tq {Tq}, dim {dim}; {distinct:,} distinct): " + "; ".join(
+            f"{v} ({c['ran']}) |score - plain| {c['err_plain']:.3g}, "
+            f"|score - float64| {c['err_oracle']:.3g} 2^-24 sum|q d| "
+            f"(model {c['dot_bound']:.1f} + 64)" for v, c in checks.items())
+        + "; NaN positions equal, two launches bit for bit"
+        + ("; " + ", ".join(
+            f"{v} {t[v]:.3f} ms ({rec['tflops'][v]:.1f} TFLOP/s, "
+            f"{rec['x_ffma_bound'][v]:.2f}x the FFMA bound {ffma_b:.3f}, "
+            f"{rec['x_split_bound'][v]:.2f}x the split bound {split_b:.3f})"
+            for v in MAXSIM_TURNS)
+           + f" (plain: the gather in blocks of {block}; {rec['timing']} "
+             f"run of {n} calls, each on its own inputs, in turns)"
+           if timed else ""))
     return rec
 
 
-def phase_maxsim_fused():
-    """Phase 17: M1 and M2 against their plain versions at the main
-    path's shapes, with garbage planted, timed in turns beside their
-    bounds; returns their records for the kernels line (launches: phase
-    7's ck_main, and per path)."""
+def maxsim_adversarial():
+    """Dots that are hard for a split: heavy cancellation, a wide
+    exponent range, a value near FLT_MAX (64 one-token passages against
+    64 one-token docs, so a score is one dot), each variant within its
+    error model of the float64 dot. Returns {variant: worst error in
+    units of 2^-24 sum_k |q_k d_k|}."""
     import torch
+    from neighborhoodwatch_tpu_torch.ops import maxsim_fused as mf
+    rng = np.random.default_rng(17)
+    dim = 128
+    a = rng.standard_normal((64, dim)).astype(np.float32)
+    b = rng.standard_normal((64, dim)).astype(np.float32)
+    prod = rng.standard_normal(dim) * 1e3
+    prod[-1] = -prod[:-1].sum()
+    b[0] = (prod / np.where(a[0] == 0, 1, a[0])).astype(np.float32)
+    a[1] *= (2.0 ** rng.integers(-20, 20, dim)).astype(np.float32)
+    b[1] *= (2.0 ** rng.integers(-20, 20, dim)).astype(np.float32)
+    a[2, 0] = np.float32(3.3e38)
+    b[:, 0] = np.float32(1e-30)
+    q = torch.from_numpy(a[:, None]).cuda()
+    d = torch.from_numpy(b[:, None]).cuda()
+    m = torch.ones((64, 1), dtype=torch.bool, device="cuda")
+    exact = torch.from_numpy(a.astype(np.float64) @ b.astype(np.float64).T)
+    scale = torch.from_numpy(np.abs(a.astype(np.float64))
+                             @ np.abs(b.astype(np.float64)).T)
+    out = {}
+    for v in mf.VARIANTS:
+        with mf.forced_variant(v):
+            got = mf.maxsim_dense(q, m, d, m).double().cpu()
+        bound = dot_bound_of(mf.maxsim_dense, v, dim)
+        err = (got - exact).abs() / (scale * 2.0 ** -24)
+        if bool((err > bound).any()):
+            raise AssertionError(f"M1 [{v}] adversarial dots: "
+                                 f"{float(err.max()):.3g} > {bound:.1f}")
+        out[v] = float(err.max())
+    log(f"  M1 adversarial dots (cancellation, exponents 2^-20 .. 2^20, "
+        f"3.3e38 x 1e-30): worst error in 2^-24 sum|q d|: " + ", ".join(
+            f"{v} {e:.2f} (model {dot_bound_of(mf.maxsim_dense, v, dim):.1f}"
+            f")" for v, e in out.items()))
+    return out
+
+
+def product_yardstick_ms(Q, Tq, D, Td, dim, gen):
+    """One torch.mm of M1's fp32 operands at a shape, TF32 off: the
+    products alone, no mask, max or sum (a yardstick the port never
+    calls), by CUDA events around REPS calls."""
+    import torch
+    a = unit_tokens(Q, Tq, dim, gen).reshape(Q * Tq, dim)
+    b = unit_tokens(D, Td, dim, gen).reshape(D * Td, dim)
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        ms = per_call_ms(lambda: torch.mm(a, b.T))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+    del a, b
+    return ms
+
+
+def phase_maxsim_fused():
+    """Phase 17: M1 and M2, both variants, against their plain versions
+    and a float64 oracle at the main path's shapes, garbage planted,
+    timed in turns with the plain version beside both bounds; the
+    adversarial dots; returns their records for the kernels line
+    (launches: phase 7's ck_main, and per path)."""
+    import torch
+    from neighborhoodwatch_tpu_torch.ops import maxsim_fused as mf
     g = torch.Generator(device="cuda").manual_seed(17)
-    # the main shapes in a CUDA graph; phase 6(b)'s, whose plain version
-    # writes 12 GB a call, issued from the host
     timed = {"stream_fallback": "graph", "td64": "host",
-             "rerank_8192": "graph", "rerank_td64": "host"}
+             "exact_tile": "graph", "ragged": "graph",
+             "rerank_8192": "graph", "rerank_td64": "host",
+             "class_a": "graph"}
     dense = {label: dense_case(label, *shape, g, timed.get(label))
              for label, shape in DENSE_SHAPES.items()}
     torch.cuda.empty_cache()
-    pairs = {label: pairs_case(label, *shape, g, timed.get(label))
+    pairs = {label: pairs_case(label, *shape, g, timed.get(label,
+                                                           "graph"))
              for label, shape in PAIRS_SHAPES.items()}
     torch.cuda.empty_cache()
+    adversarial = maxsim_adversarial()
+    yard = product_yardstick_ms(*DENSE_SHAPES["stream_fallback"], g)
+    log(f"  product-only yardstick at M1's stream fallback step: torch.mm "
+        f"of the fp32 operands, TF32 off, {yard:.3f} ms (no mask, max or "
+        f"sum)")
     recs = []
     for name, shapes, main, replaces in (
             ("maxsim_dense", dense, "stream_fallback",
@@ -4500,17 +4792,28 @@ def phase_maxsim_fused():
             ("maxsim_pairs", pairs, "rerank_8192",
              "neighborhoodwatch_tpu/ops/maxsim.py:260")):
         top = shapes[main]
+        default = mf.DEFAULT_VARIANT[name]
         recs.append({
             "name": name, "route": "cuda",
             "source": f"neighborhoodwatch_tpu_torch/csrc/{name}.cu",
-            "replaces": replaces,
+            "replaces": replaces, "variant": default,
             "launches": MAXSIM_LAUNCHES.get("ck", {}).get(name, 0),
+            "launches_by_variant": MAXSIM_LAUNCHES.get("ck", {}).get(
+                f"{name}_by_variant", {}),
             "launches_by_path": {p: v[name] for p, v in
                                  MAXSIM_LAUNCHES.items()},
+            "launches_by_path_variant": {
+                p: v[f"{name}_by_variant"] for p, v in
+                MAXSIM_LAUNCHES.items()},
             "max_abs_err": max(v["max_abs_err"] for v in shapes.values()),
-            "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "ms": top["ms_by_variant"][default],
+            "ms_by_variant": top["ms_by_variant"],
+            "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "ffma_bound_ms": top["ffma_bound_ms"],
             "library_ms": None, "shapes": shapes})
+    recs[0]["product_yardstick_ms"] = yard
+    recs[0]["adversarial"] = adversarial
     log(f"  MaxSim fused kernels' launches by path (each counted from 0): "
         f"{MAXSIM_LAUNCHES}")
     return recs

@@ -41,3 +41,56 @@ extern "C" int maxsim_dense_launch(const void* q, const void* qm,
       (const uint8_t*)dm, nullptr, (float*)out, Q, Tq, D, Td, dim, 0,
       vec != 0, (cudaStream_t)stream);
 }
+
+// ---- variant "split" (csrc/maxsim_split.cuh) ----
+
+#include "maxsim_split.cuh"
+
+// The "split" variant on the plan of ops/maxsim_fused.py:plan, which this
+// function recomputes: pieces 3 (fp32 operands) or 1 (bf16-valued
+// operands), kc its chunk (16), tq_p / td_p the padded passage / doc
+// lengths, grid_y the doc tiles' stride, smem the dynamic shared memory. A
+// plan it would not make returns msplit::kErrPlan; q and d 16-byte
+// aligned.
+extern "C" int maxsim_dense_split_launch(
+    const void* q, const void* qm, const void* d, const void* dm, void* out,
+    int Q, int Tq, long long D, int Td, int dim, int pieces, int kc,
+    int tq_p, int td_p, int grid_y, int smem, void* stream) {
+  if (Q < 1 || D < 1 || D > 0x7fffffffLL || Tq < 1 || Tq > 64 || Td < 1 ||
+      Td > 64 || dim < 16 || (pieces != 1 && pieces != 3) ||
+      (uintptr_t)q % 16 || (uintptr_t)d % 16)
+    return (int)cudaErrorInvalidValue;
+  constexpr int N = 64, BC = 128;
+  const int dpt = msplit::slot_rows(false) / td_p;
+  const long long n_tiles = (D + dpt - 1) / dpt;
+  const int qpt = BC / tq_p;
+  const long long gx = (Q + qpt - 1) / qpt;
+  if (tq_p != msplit::pow2_at_least(Tq, 8) ||
+      td_p != msplit::pow2_at_least(Td, 8) ||
+      kc != msplit::kKC || !msplit::admits(dim, pieces) ||
+      msplit::b_bytes(BC, dim, pieces) > msplit::kMaxBBytes ||
+      msplit::stages_for(false, N, BC, dim, pieces) < 2 ||
+      smem != msplit::smem_bytes(false, N, BC, dim, pieces) || grid_y < 1 ||
+      grid_y > n_tiles || grid_y > 65535 || gx > 0x7fffffffLL)
+    return msplit::kErrPlan;
+  msplit::Args g = {};
+  g.q = (const float*)q;
+  g.qm = (const uint8_t*)qm;
+  g.d = (const float*)d;
+  g.dm = (const uint8_t*)dm;
+  g.out = (float*)out;
+  g.D = D;
+  g.Q = Q;
+  g.Tq = Tq;
+  g.Td = Td;
+  g.dim = dim;
+  g.tq_p = tq_p;
+  g.td_p = td_p;
+  g.qpt = qpt;
+  g.n_tiles = (int)n_tiles;
+  g.stages = msplit::stages_for(false, N, BC, dim, pieces);
+  cudaStream_t st = (cudaStream_t)stream;
+  return pieces == 3
+             ? msplit::launch<N, 3, false>(g, (int)gx, grid_y, smem, st)
+             : msplit::launch<N, 1, false>(g, (int)gx, grid_y, smem, st);
+}

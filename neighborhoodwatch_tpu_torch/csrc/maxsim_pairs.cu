@@ -41,3 +41,57 @@ extern "C" int maxsim_pairs_launch(const void* q, const void* qm,
       (const uint8_t*)dm, (const long long*)ids, (float*)out, B, Tq, N, Td,
       dim, M, vec != 0, (cudaStream_t)stream);
 }
+
+// ---- variant "split" (csrc/maxsim_split.cuh) ----
+
+#include "maxsim_split.cuh"
+
+// The "split" variant on the plan of ops/maxsim_fused.py:plan, which this
+// function recomputes: n the passage's padded length (the wgmma's N: 16,
+// 32 or 64), kc its chunk (16), td_p the padded doc length, cand_block the
+// candidates a block (blockIdx.y), smem the dynamic shared memory. A plan
+// it would not make returns msplit::kErrPlan; q and d 16-byte aligned.
+extern "C" int maxsim_pairs_split_launch(
+    const void* q, const void* qm, const void* d, const void* dm,
+    const void* ids, void* out, int B, int Tq, long long N, int Td, int dim,
+    int M, int kc, int n, int td_p, int cand_block, int smem,
+    void* stream) {
+  if (B < 1 || M < 1 || N < 1 || N > 0x7fffffffLL || Tq < 1 || Tq > 64 ||
+      Td < 1 || Td > 64 || dim < 16 || (uintptr_t)q % 16 ||
+      (uintptr_t)d % 16)
+    return (int)cudaErrorInvalidValue;
+  const int dpt = msplit::slot_rows(true) / td_p;
+  const long long grid_y =
+      cand_block > 0 ? (M + (long long)cand_block - 1) / cand_block : 0;
+  if (n != msplit::pow2_at_least(Tq, 16) ||
+      td_p != msplit::pow2_at_least(Td, 8) ||
+      kc != msplit::kKC || !msplit::admits(dim, 3) ||
+      msplit::b_bytes(n, dim, 3) > msplit::kMaxBBytes ||
+      msplit::stages_for(true, n, n, dim, 3) < 2 ||
+      smem != msplit::smem_bytes(true, n, n, dim, 3) || cand_block < dpt ||
+      cand_block % dpt || grid_y > 65535)
+    return msplit::kErrPlan;
+  msplit::Args g = {};
+  g.q = (const float*)q;
+  g.qm = (const uint8_t*)qm;
+  g.d = (const float*)d;
+  g.dm = (const uint8_t*)dm;
+  g.ids = (const long long*)ids;
+  g.out = (float*)out;
+  g.D = N;
+  g.Q = B;
+  g.Tq = Tq;
+  g.Td = Td;
+  g.dim = dim;
+  g.M = M;
+  g.tq_p = n;
+  g.td_p = td_p;
+  g.qpt = 1;
+  g.cand_block = cand_block;
+  g.stages = msplit::stages_for(true, n, n, dim, 3);
+  cudaStream_t st = (cudaStream_t)stream;
+  const int gy = (int)grid_y;
+  if (n == 16) return msplit::launch<16, 3, true>(g, B, gy, smem, st);
+  if (n == 32) return msplit::launch<32, 3, true>(g, B, gy, smem, st);
+  return msplit::launch<64, 3, true>(g, B, gy, smem, st);
+}

@@ -1,7 +1,9 @@
 """The MaxSim engines' fused kernels (ops/maxsim_fused.py: M1
-csrc/maxsim_dense.cu, M2 csrc/maxsim_pairs.cu, on csrc/maxsim_tile.cuh)
-against their plain PyTorch versions, and the engines that launch them
-against the same engines on the plain versions, on the card.
+csrc/maxsim_dense.cu, M2 csrc/maxsim_pairs.cu, in the variants "split"
+on csrc/maxsim_split.cuh, the default, and "ffma" on csrc/maxsim_tile.cuh)
+against their plain PyTorch versions and a float64 oracle, and the
+engines that launch them against the same engines on the plain versions,
+on the card.
 
 This file imports neither jax nor the JAX package, so it runs where the
 card is and JAX is not installed:
@@ -16,8 +18,10 @@ Tolerances: scores within 1e-3 relative (at least 1e-3 absolute), the
 MaxSim tolerance: fp32 sums of up to Tq token maxima, each a dim-long fp32
 dot product, taken in another order than the library product's. M1's
 NaN -> -1e30 positions equal bit for bit, M2's NaN positions equal. Two
-launches of a kernel equal bit for bit (no atomics). Engine ids
-tie-tolerant against a float64 oracle at 1e-3."""
+launches of a kernel equal bit for bit (no atomics). Against float64 each
+variant within its error model (the dot's bound, the "split" plan's or dim
+for "ffma", plus 64 for the token sum, in units of 2^-24 sum|q d|). Engine
+ids tie-tolerant against a float64 oracle at 1e-3."""
 
 import numpy as np
 import pytest
@@ -276,3 +280,203 @@ def test_tile_step_ties_take_the_lowest_position(cuda):
     dm = dm[:1].expand(300, -1).contiguous()
     s, i = tm._exact_topk(q, qm, d, dm, 10, 128)
     assert i.cpu().tolist() == [list(range(10))] * 4
+
+
+# ------------------------------------------- the variants: "split", "ffma"
+# Each variant against the plain version (MaxSim tolerance, planted
+# positions equal) and against a float64 oracle within its error model:
+# |score - oracle| <= (dot bound + 64) 2^-24 sum_t max_s sum_k |q_tk d_sk|,
+# the dot bound `error_bound` for "split" (the plan's) and dim for "ffma"
+# (maxsim_acc_rel's dot term), 64 the token sum's.
+
+VARIANT_DENSE = [(718, 32, 2048, 16, 128), (718, 32, 2048, 64, 128),
+                 (1000, 32, 128, 16, 128), (29, 13, 501, 7, 96),
+                 (50, 24, 300, 32, 128), (33, 8, 100, 8, 64),
+                 (11, 5, 300, 3, 64), (9, 13, 77, 7, 97)]
+VARIANT_PAIRS = [(1000, 256, 8192, 32, 16, 128),
+                 (300, 256, 50000, 32, 64, 128),
+                 (64, 512, 8192, 32, 16, 128), (29, 37, 501, 13, 7, 96),
+                 (40, 100, 300, 24, 32, 64), (7, 9, 50, 40, 3, 128),
+                 (9, 20, 77, 13, 7, 97)]
+
+
+def _oracle_dense(q, qm, d, dm):
+    """float64 scores (NaN kept) and the error scale sum_t max_s sum_k
+    |q_tk d_sk| over valid tokens, on the card, 16 passages at a time."""
+    qd, dd = q.double(), d.double()
+    scores, scales = [], []
+    for s in range(0, q.shape[0], 16):
+        qs = qd[s:s + 16]
+        sims = torch.einsum("qtk,dsk->qtds", qs, dd)
+        absd = torch.einsum("qtk,dsk->qtds", qs.abs().nan_to_num(0, 0, 0),
+                            dd.abs().nan_to_num(0, 0, 0))
+        sel = torch.where(dm[None, None], sims, -1e30)
+        tok = torch.where(torch.isnan(sel).any(3), np.nan, sel.amax(3))
+        on = qm[s:s + 16, :, None]
+        scores.append(torch.where(on, tok, 0.0).sum(1))
+        a = torch.where(dm[None, None], absd, 0.0).amax(3)
+        scales.append(torch.where(on, a, 0.0).sum(1))
+    return torch.cat(scores), torch.cat(scales)
+
+
+def _within_model(got, oracle, scale, dot_bound, nan_is_neg):
+    fin = torch.isfinite(oracle) & (oracle.abs() < 1e29)
+    err = (got.double() - oracle)[fin].abs()
+    lim = (dot_bound + 64) * 2.0 ** -24 * scale[fin]
+    assert bool((err <= lim + 1e-30).all()), float((err / lim).max())
+    return float((err / (scale[fin] * 2.0 ** -24)).max()) if err.numel() \
+        else 0.0
+
+
+def _dot_bound(variant, wrapper, dim):
+    if variant == "split" and wrapper.last_plan.variant == "split":
+        return wrapper.last_plan.error_bound
+    return float(dim)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", mf.VARIANTS)
+@pytest.mark.parametrize("shape", VARIANT_DENSE)
+def test_dense_variants_match_plain_and_oracle(cuda, variant, shape):
+    Q, Tq, D, Td, dim = shape
+    q, qm, d, dm = _on(cuda, *_corpus(sum(shape) + 1, *shape))
+    small = Q * D <= 200_000
+    for precision in ("highest", "high", "default") if small else \
+            ("highest",):
+        mf.reset_launches()
+        with mf.forced_variant(variant):
+            got = mf.maxsim_dense(q, qm, d, dm, precision)
+            again = mf.maxsim_dense(q, qm, d, dm, precision)
+        torch.cuda.synchronize()
+        taken = mf.maxsim_dense.last_plan.variant if variant == "split" \
+            else "ffma"
+        assert mf.maxsim_dense.launches_by_variant[taken] == 2
+        assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+        _assert_scores(got, mf.maxsim_dense_plain(q, qm, d, dm, precision),
+                       nan_is_neg=True)
+        if precision == "highest":
+            oracle, scale = _oracle_dense(q, qm, d, dm)
+            _within_model(got, oracle, scale,
+                          _dot_bound(variant, mf.maxsim_dense, dim), True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", mf.VARIANTS)
+@pytest.mark.parametrize("shape", VARIANT_PAIRS)
+def test_pairs_variants_match_plain_and_oracle(cuda, variant, shape):
+    B, M, N, Tq, Td, dim = shape
+    q, qm, d, dm = _on(cuda, *_corpus(sum(shape) + 2, B, Tq, N, Td, dim))
+    ids = torch.from_numpy(_ids(np.random.default_rng(B), B, M, N)).to(cuda)
+    mf.reset_launches()
+    with mf.forced_variant(variant):
+        got = mf.maxsim_pairs(q, qm, d, dm, ids)
+        again = mf.maxsim_pairs(q, qm, d, dm, ids)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    _assert_scores(got, mf.maxsim_pairs_plain(q, qm, d, dm, ids),
+                   nan_is_neg=False)
+    assert bool(torch.isnan(got[0, :2]).all())
+    # the oracle on 32 queries' candidates
+    rows = list(range(min(B, 32)))
+    for b in rows:
+        inside = (ids[b] >= 0) & (ids[b] < N)
+        cand = ids[b].clamp(0, N - 1)
+        oracle, scale = _oracle_dense(q[b:b + 1], qm[b:b + 1], d[cand],
+                                      dm[cand])
+        oracle = torch.where(inside[None], oracle, np.nan)
+        _within_model(got[b:b + 1], oracle, scale,
+                      _dot_bound(variant, mf.maxsim_pairs, dim), False)
+
+
+@pytest.mark.cuda
+def test_split_adversarial_dots_within_the_bound(cuda):
+    """Heavy cancellation, a wide exponent range and a value near FLT_MAX:
+    each dot of "split" within its error bound of the float64 dot."""
+    rng = np.random.default_rng(3)
+    dim = 128
+    a = rng.standard_normal((64, dim)).astype(np.float32)
+    b = rng.standard_normal((64, dim)).astype(np.float32)
+    prod = rng.standard_normal(dim) * 1e3
+    prod[-1] = -prod[:-1].sum()
+    b[0] = (prod / np.where(a[0] == 0, 1, a[0])).astype(np.float32)
+    a[1] *= (2.0 ** rng.integers(-20, 20, dim)).astype(np.float32)
+    b[1] *= (2.0 ** rng.integers(-20, 20, dim)).astype(np.float32)
+    a[2, 0] = np.float32(3.3e38)
+    b[:, 0] = np.float32(1e-30)
+    # one-token passages and docs: each score is one dot
+    q, d = _on(cuda, a[:, None, :], b[:, None, :])
+    qm = torch.ones((64, 1), dtype=torch.bool, device=cuda)
+    with mf.forced_variant("split"):
+        got = mf.maxsim_dense(q, qm, d, qm)
+    assert mf.maxsim_dense.last_plan.variant == "split"
+    exact = a.astype(np.float64) @ b.astype(np.float64).T
+    scale = np.abs(a.astype(np.float64)) @ np.abs(b.astype(np.float64)).T
+    err = np.abs(got.double().cpu().numpy() - exact)
+    bound = mf.maxsim_dense.last_plan.error_bound
+    assert (err <= bound * 2.0 ** -24 * scale).all(), float(
+        (err / (scale * 2.0 ** -24)).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,shape,want", [
+    # every td_p (8, 16, 32, 64), tq_p (8 ... 64), grid in y
+    ("maxsim_dense", (40, 5, 300, 3, 64), (8, 8)),
+    ("maxsim_dense", (40, 16, 300, 16, 128), (16, 16)),
+    ("maxsim_dense", (40, 32, 3000, 32, 128), (32, 32)),
+    ("maxsim_dense", (40, 64, 300, 64, 128), (64, 64)),
+    ("maxsim_dense", (7, 64, 300, 9, 128), (64, 16)),
+    # M2's N: 16, 32, 64
+    ("maxsim_pairs", (40, 30, 300, 13, 7, 128), (16, 8)),
+    ("maxsim_pairs", (40, 30, 300, 32, 64, 128), (32, 64)),
+    ("maxsim_pairs", (40, 30, 300, 40, 16, 128), (64, 16)),
+    ("maxsim_pairs", (9, 600, 300, 60, 32, 96), (64, 32)),
+])
+def test_each_plan_path_matches_plain(cuda, kernel, shape, want):
+    if kernel == "maxsim_dense":
+        Q, Tq, D, Td, dim = shape
+    else:
+        Q, M, D, Tq, Td, dim = shape
+    q, qm, d, dm = _on(cuda, *_corpus(sum(shape), Q, Tq, D, Td, dim))
+    wrapper = getattr(mf, kernel)
+    with mf.forced_variant("split"):
+        if kernel == "maxsim_dense":
+            got = mf.maxsim_dense(q, qm, d, dm)
+            want_s = mf.maxsim_dense_plain(q, qm, d, dm)
+        else:
+            ids = torch.from_numpy(_ids(np.random.default_rng(Q), Q, M,
+                                        D)).to(cuda)
+            got = mf.maxsim_pairs(q, qm, d, dm, ids)
+            want_s = mf.maxsim_pairs_plain(q, qm, d, dm, ids)
+    pl = wrapper.last_plan
+    assert pl.variant == "split" and (pl.tq_p, pl.td_p) == want
+    _assert_scores(got, want_s, nan_is_neg=kernel == "maxsim_dense")
+
+
+@pytest.mark.cuda
+def test_forced_variant_and_the_default(cuda):
+    """The default launches DEFAULT_VARIANT; forced_variant the other;
+    the plan's "ffma" shapes are counted there; both give the plain
+    version's scores."""
+    q, qm, d, dm = _on(cuda, *_corpus(4, 64, 32, 512, 16, 128))
+    ids = torch.from_numpy(_ids(np.random.default_rng(4), 64, 50,
+                                512)).to(cuda)
+    mf.reset_launches()
+    a = mf.maxsim_dense(q, qm, d, dm)
+    b = mf.maxsim_pairs(q, qm, d, dm, ids)
+    for w in (mf.maxsim_dense, mf.maxsim_pairs):
+        v = mf.DEFAULT_VARIANT[w.__name__]
+        assert w.launches_by_variant[v] == w.launches == 1
+    for v in mf.VARIANTS:
+        with mf.forced_variant(v):
+            _assert_scores(mf.maxsim_dense(q, qm, d, dm), a, True)
+            _assert_scores(mf.maxsim_pairs(q, qm, d, dm, ids), b, False)
+    for w in (mf.maxsim_dense, mf.maxsim_pairs):
+        assert w.launches == 3
+        assert sum(w.launches_by_variant.values()) == 3
+    # dim 97: the plan sends "split" to "ffma"
+    q, qm, d, dm = _on(cuda, *_corpus(5, 9, 13, 77, 7, 97))
+    mf.reset_launches()
+    with mf.forced_variant("split"):
+        mf.maxsim_dense(q, qm, d, dm)
+    assert mf.maxsim_dense.launches_by_variant == {"split": 0, "ffma": 1}
+    assert mf.maxsim_dense.last_plan.reason == "dim"

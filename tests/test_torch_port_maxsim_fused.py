@@ -283,6 +283,7 @@ def card(monkeypatch):
     monkeypatch.setattr(mf, "_ON_CARD", ("cuda", "meta"))
     monkeypatch.setattr(mf, "_launcher", lib.launcher)
     monkeypatch.setattr(mf, "_stream", lambda dev: 7)
+    monkeypatch.setattr(mf, "_sm_count", lambda dev: 132)
     monkeypatch.setattr(torch.cuda, "device",
                         lambda dev: contextlib.nullcontext())
     for name in WRAPPERS:
@@ -300,7 +301,8 @@ def test_card_tensors_launch_dense_and_count(card, precision, dim):
     assert out.device.type == "meta" and out.shape == (3, 10)
     assert [c[0] for c in card.calls] == ["maxsim_dense"]
     args = card.calls[0][1]
-    assert len(args) == len(mf._ARGTYPES["maxsim_dense"]) and args[-1] == 7
+    assert len(args) == len(mf._ARGTYPES["maxsim_dense"]["launch"]) and \
+        args[-1] == 7
     # Q, Tq, D, Td, dim (3 dim at "high": the split), the 16-byte copies
     assert args[5:11] == (3, 5, 10, 4, dim, 1)
     assert mf.maxsim_dense.launches == 1 and mf.maxsim_pairs.launches == 0
@@ -312,7 +314,8 @@ def test_card_tensors_launch_pairs_and_count(card, ids_dtype):
     assert out.device.type == "meta" and out.shape == (3, 6)
     assert [c[0] for c in card.calls] == ["maxsim_pairs"]
     args = card.calls[0][1]
-    assert len(args) == len(mf._ARGTYPES["maxsim_pairs"]) and args[-1] == 7
+    assert len(args) == len(mf._ARGTYPES["maxsim_pairs"]["launch"]) and \
+        args[-1] == 7
     # B, Tq, N, Td, dim, M, the 16-byte copies
     assert args[6:13] == (3, 5, 10, 4, 8, 6, 1)
     assert mf.maxsim_pairs.launches == 1 and mf.maxsim_dense.launches == 0
