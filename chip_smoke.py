@@ -189,7 +189,8 @@ Phases, each printing its own lines and seconds:
      64 x 32 / 128 / 512 and ColBERT 64 x 220 the forward on E1-E3 against
      the plain chain (a second graph captured under
      encoder_fused.forced_variant("plain")), outputs within 5e-2 and
-     cosine 0.999, and the default variants (E2 "rowpass", E3 "staged")
+     cosine 0.999, and the default variants (E1 and E2 "rowpass", E3
+     "staged")
      against "rowpass" alone (PR 13's kernels: a third graph captured
      under forced_variant("rowpass")), outputs bit for bit; device ms in
      turns (plain, rowpass, default, default, rowpass, plain);
@@ -210,11 +211,17 @@ Phases, each printing its own lines and seconds:
      engines' tile) and 1,000 x 8,192 (1024: nw's fallback), every metric
      and a shifted mask bit for bit, and the distances that differ from
      the old path's (torch's row sums as norms); (c) F3 rerank_rows
-     (csrc/rerank_rows.cu) on knn(auto)'s own 10,000 x 256 candidates
-     within 1e-5 of the gather and torch.bmm, its bound over the distinct
-     rows and over every candidate row; (d) the merge's top-m on K7
-     against the stable sort, equal and in turns. Their records join the
-     kernels line, launches from phase 8's nw_main and per path.
+     (csrc/rerank_rows.cu) on knn(auto)'s own 10,000 x 256 candidates and
+     on nw's own (phase 8's embeddings, 1,000 x m over 100,000 rows):
+     "rowwise" (the default) and "grouped" (the pairs sorted by id on the
+     card, each distinct row read once) bit for bit, within 1e-5 of the
+     plain version (the gather, torch.bmm), plain, rowwise and grouped in
+     turns, beside the bound over the distinct rows and over every
+     candidate row (ids int64: 12 bytes a pair with the distance); (d) the
+     merge's top-m on K7 against the stable sort, equal and in turns.
+     Their records join the kernels line, launches from phase 8's nw_main
+     and per path, F3's per variant (phases 3 and 8 fail unless every F3
+     launch went to its default, "rowwise").
  16. the encoders' fused kernels (ops/encoder_fused.py), each against its
      plain version (the op-by-op chain) on bf16 inputs at the published
      shapes: e5-large-v2 64 x 32 / 128 / 512 (1024 hidden, 16 heads),
@@ -222,21 +229,22 @@ Phases, each printing its own lines and seconds:
      masks with a pad row: E1 embed_layernorm (csrc/embed_layernorm.cu),
      E2 add_layernorm (csrc/add_layernorm.cu), E3 masked_softmax
      (csrc/masked_softmax.cu), within one bf16 ulp (plus 1e-5 for the
-     LayerNorms' cancellations near 0). E1 timed by rotating_ms (a CUDA
-     graph of calls, each on its own inputs, inputs and outputs four times
-     the L2 or more) in turns with its plain version; E2 and E3's variants
-     "rowpass" and "staged" equal bit for bit on every input,
-     then plain, rowpass and staged in turns, cold (rotating_ms) and hot
-     (graph_ms: one input again and again, as the forward finds E2's
-     operands just written), beside the bytes bound and a yardstick never
-     called by the port (ATen's layer_norm of one bf16 (rows, n) tensor,
-     torch.softmax of the bf16 logits: one library row pass over about the
-     same bytes, not the same function). Their records join the kernels
-     line: ms at nw's 64 x 32 (the default variant; ms_rowpass and
-     ms_staged each variant's), launches
+     LayerNorms' cancellations near 0). Each kernel's variants "rowpass"
+     and "staged" equal bit for bit on every input, then plain, rowpass
+     and staged in turns, cold (rotating_ms: a CUDA graph of calls, each
+     on its own inputs, inputs and outputs four times the L2 or more) and
+     hot (graph_ms: one input again and again, as the forward finds E2's
+     operands just written), beside the bytes bound (E1's at 1 x 32 too)
+     and, for E2 and E3, a yardstick never called by the port (ATen's
+     layer_norm of one bf16 (rows, n) tensor, torch.softmax of the bf16
+     logits: one library row pass over about the same bytes, not the same
+     function); where E1's plan sends a shape to "rowpass" (one full pass
+     a block: nw's 64 x 32) the staged kernel is timed past that rule
+     too. Their records join the kernels line: ms at nw's 64 x 32 (the
+     default variant; ms_rowpass and ms_staged each variant's), launches
      from phase 8's nw_main, per path (7, 8) and per replay (14), per
      variant; phases 7 and 8 fail unless every E1-E3 launch went to its
-     default (E1, E2 "rowpass", E3 "staged"), or E3's to "rowpass" for a
+     default (E1 and E2 "rowpass", E3 "staged"), or to "rowpass" for a
      shape the launch plan sent there.
  17. the MaxSim engines' fused kernels (ops/maxsim_fused.py), each in both
      variants: "split" (the default: csrc/maxsim_split.cuh, fp32-exact
@@ -357,6 +365,17 @@ def cluster_sweep_ms(mod, fn):
     return {size: float(np.mean(v)) for size, v in got.items()}
 
 
+def kernel_name(sym):
+    """A kernel's name from its mangled symbol: `<length><name>` after the
+    anonymous namespace's prefix, else the first `..._kernel`, else the
+    symbol."""
+    m = re.search(r"_GLOBAL__N_1(\d+)", sym)
+    if m:
+        return sym[m.end():m.end() + int(m.group(1))]
+    m = re.search(r"([a-z_]+_kernel)", sym)
+    return m.group(1) if m else sym
+
+
 def ptxas_report(name, report):
     """ptxas -v per kernel of one source: variant, pass count, registers,
     spills. Raises on any spill."""
@@ -380,8 +399,7 @@ def ptxas_report(name, report):
                 targs = re.search(r"I((?:L[ib]\d+E)+)E", sym)
                 args = re.findall(r"\d+", targs.group(1)) if targs \
                     else []
-                entry = (f"{re.search(r'([a-z_]+_kernel)', sym).group(1)}"
-                         f"<{', '.join(args)}>")
+                entry = f"{kernel_name(sym)}<{', '.join(args)}>"
             elif "verified_select" in sym:
                 # the adaptive variant's template arguments: resident keys,
                 # cluster
@@ -419,7 +437,8 @@ def ptxas_report(name, report):
 # the kNN core's fused kernels (ops/fused_core.py): F1, F2, F3
 FUSED_KERNELS = ("prepare_base", "distance_tile", "rerank_rows")
 # their launches on each path that runs them, counted from 0 just before
-# the path and read just after: {path: {kernel: launches}}
+# the path and read just after: {path: {kernel: launches}}, with F3's per
+# variant and the shapes its plan sent to "rowwise" (shape: reason)
 FUSED_LAUNCHES = {}
 
 
@@ -431,15 +450,30 @@ def fused_counted(path):
     FUSED_LAUNCHES[path] = {
         "prepare_base": fc.prepare_base.launches,
         "distance_tile": fc.distance_tile.launches,
-        "rerank_rows": fc.rerank_rows.launches}
+        "rerank_rows": fc.rerank_rows.launches,
+        "rerank_rows_by_variant": dict(fc.rerank_rows.launches_by_variant),
+        "rerank_rows_rowwise_plans": {
+            str(k): v for k, v in fc.rerank_rows.rowwise_plans.items()}}
 
 
 def require_fused(path, kernels):
-    """Fail unless every kernel in `kernels` launched on `path`."""
+    """Fail unless every kernel in `kernels` launched on `path`, and every
+    F3 launch there went to its default variant (fused_core.
+    DEFAULT_VARIANT: nothing on the main path forces one) or, were the
+    default "grouped", to "rowwise" for a shape the plan sent there; never
+    the plain version."""
+    from neighborhoodwatch_tpu_torch.ops import fused_core as fc
     got = FUSED_LAUNCHES[path]
     missing = [n for n in kernels if got[n] < 1]
     if missing:
         raise AssertionError(f"{path} never launched {missing}: {got}")
+    by, plans = got["rerank_rows_by_variant"], got["rerank_rows_rowwise_plans"]
+    default = fc.DEFAULT_VARIANT["rerank_rows"]
+    other = "rowwise" if default == "grouped" else "grouped"
+    if by["plain"] or by[other] and not (other == "rowwise" and plans):
+        raise AssertionError(f"{path}: F3 launched {by} (plan's rowwise "
+                             f"shapes {plans}), not its default "
+                             f"{default!r} alone")
 
 
 # the MaxSim engines' fused kernels (ops/maxsim_fused.py): M1, M2
@@ -821,7 +855,8 @@ def phase_engine(rec):
     if VERIFIED_LAUNCHES["knn_auto"] < 1:
         raise AssertionError("knn(auto)'s merge never launched K7")
     log(f"  knn(auto) -> engine {engine}, kernel launches {launches} "
-        f"{by_variant}, fused kernels {FUSED_LAUNCHES['knn_auto']}, K7 "
+        f"{by_variant}, fused kernels {FUSED_LAUNCHES['knn_auto']} (F3 by "
+        f"variant, and the shapes its plan sent to rowwise), K7 "
         f"{VERIFIED_LAUNCHES['knn_auto']}, first call {first_s:.3f} s")
 
     screened_ms = median_ms(lambda: K.knn(q, base, k, engine="auto"))
@@ -1864,7 +1899,8 @@ def phase_nw(rec, workdir, Q=1000, B=100_000, k=100,
     # the screened call: F1 prepares, F3 re-ranks, and the exact fallback
     # of the queries that fail the certificate runs its tiles on F2
     require_fused("nw", FUSED_KERNELS)
-    log(f"  nw_main's fused kernel launches: {FUSED_LAUNCHES['nw']}")
+    log(f"  nw_main's fused kernel launches: {FUSED_LAUNCHES['nw']} (F3 by "
+        f"variant, and the shapes its plan sent to rowwise)")
     if by_variant["mma"] or by_variant["wgmma"] != launches:
         raise AssertionError(f"nw launched {by_variant}: D={D} must take "
                              f"'wgmma'")
@@ -3221,14 +3257,10 @@ def verified_engine(rec, n_q=512, k=100):
     torch.cuda.empty_cache()
 
 
-def verified_nw_batch(rec, nw):
-    """(c): phase 8's screened kNN call with its exact fallback on the
-    stable sort ("exact") and on K7 ("verified"), in turns, and K7's
-    launches of one call."""
+def nw_embeddings(nw):
+    """Phase 8's query and base embeddings, on the card."""
     import torch
     from neighborhoodwatch_tpu_torch.io.parquet_io import read_embeddings
-    from neighborhoodwatch_tpu_torch.ops import knn as K
-    from neighborhoodwatch_tpu_torch.ops import verified_kernel as vk
     from neighborhoodwatch_tpu_torch.utils import naming
     Q, B, D, k, model = nw["Q"], nw["B"], nw["D"], nw["k"], nw["model"]
     data_dir = naming.get_model_data_homedir(nw["workdir"],
@@ -3238,6 +3270,18 @@ def verified_nw_batch(rec, nw):
     q = torch.as_tensor(read_embeddings(data_dir, qfile, Q, D), device="cuda")
     base = torch.as_tensor(read_embeddings(data_dir, bfile, B, D),
                            device="cuda")
+    return q, base
+
+
+def verified_nw_batch(rec, nw):
+    """(c): phase 8's screened kNN call with its exact fallback on the
+    stable sort ("exact") and on K7 ("verified"), in turns, and K7's
+    launches of one call."""
+    import torch
+    from neighborhoodwatch_tpu_torch.ops import knn as K
+    from neighborhoodwatch_tpu_torch.ops import verified_kernel as vk
+    Q, B, D, k = nw["Q"], nw["B"], nw["D"], nw["k"]
+    q, base = nw_embeddings(nw)
 
     def call():
         return K.screened_knn_traced(q, base, B, 0, k, "sqeuclidean",
@@ -3398,7 +3442,7 @@ def trace_busy(trace_file, region):
 
 def encoder_kernel(name, kernel):
     """Whether a trace's kernel name is one of E1-E3's kernels `name` (the
-    "rowpass" `<name>_kernel`, or E2 / E3's `<name>_staged`)."""
+    "rowpass" `<name>_kernel`, or the "staged" `<name>_staged`)."""
     return f"{name}_kernel" in kernel or f"{name}_staged" in kernel
 
 
@@ -3637,8 +3681,8 @@ def plain_chain_turns(label, runner, ids, mask, rows, compared):
     under encoder_fused.forced_variant("plain")): the outputs' rows that
     `compared(out)` keeps against each other (bf16 through every layer, E2's
     one-ulp roundings carried along: max |d| <= 5e-2, cosine >= 0.999); the
-    default variants (the runner's own graph: E2 "rowpass", E3 "staged")
-    against "rowpass" alone (a third runner captured under
+    default variants (the runner's own graph: E1 and E2 "rowpass", E3
+    "staged") against "rowpass" alone (a third runner captured under
     forced_variant("rowpass")): the outputs bit for bit; device ms a
     forward by CUDA events in turns (plain, rowpass, default, default,
     rowpass, plain)."""
@@ -4053,13 +4097,9 @@ def fused_distance_tiles():
         shapes=out)
 
 
-def fused_rerank(q, base, k=100):
-    """(c) F3 on knn(auto)'s own candidates at the headline shape (the
-    screen's merge, its top-m on K7) against its plain version (the
-    blocked gather and torch.bmm), within 1e-5, the two in turns; and (d)
-    the merge's top-m on K7 against the stable sort, equal and in turns."""
-    import torch
-    from neighborhoodwatch_tpu_torch.ops import fused_core as fc
+def merge_candidates(q, base, k):
+    """The screened engine's merge input at (q, base, k): the screen's
+    keys without each bin's last. Returns (merge_d, merge_i, m)."""
     from neighborhoodwatch_tpu_torch.ops import knn as K
     from neighborhoodwatch_tpu_torch.ops import screen_kernel as sk
     Q, D = q.shape
@@ -4070,21 +4110,106 @@ def fused_rerank(q, base, k=100):
                                      screen_precision="default", n_valid=B,
                                      bn_row=bn_row, bhi=bhi, sub=sub)
     del bn_row, bhi
-    _, m, block = K._screen_plan(B, k, D, sub, 1, lean=True)
+    _, m, _ = K._screen_plan(B, k, D, sub, 1, lean=True)
     keep, lanes = sk.KEEP, sk.LANES
     merge_d = cd.reshape(Q, -1, keep, lanes)[:, :, :keep - 1, :].reshape(
         Q, -1)
     merge_i = ci.reshape(Q, -1, keep, lanes)[:, :, :keep - 1, :].reshape(
         Q, -1)
-    del cd, ci
+    return merge_d, merge_i, m
+
+
+def rerank_turns(label, q, base, idx_m, block):
+    """F3 at (q, base, idx_m): "grouped" and "rowwise" bit for bit (fails
+    otherwise), both within 1e-5 of the plain version (the blocked gather
+    and torch.bmm); then plain, rowwise and grouped in turns (CUDA
+    events, plain, rowwise, grouped, grouped, rowwise, plain), beside the
+    bytes bound over the distinct candidate rows and over every candidate
+    row. Returns the numbers, "ms" the default variant's."""
+    import torch
+    from neighborhoodwatch_tpu_torch.ops import fused_core as fc
+    Q, D = q.shape
+    B, m = base.shape[0], idx_m.shape[1]
+    default = fc.DEFAULT_VARIANT["rerank_rows"]
+
+    def under(variant):
+        def call():
+            with fc.forced_variant(variant):
+                return fc.rerank_rows(q, base, idx_m, "sqeuclidean", block)
+        return call
+    fns = {v: under(v) for v in ("plain", "rowwise", "grouped")}
+    got = {v: fns[v]() for v in fns}
+    plan = fc.rerank_rows.last_plan           # the grouped call's
+    if plan.variant != "grouped":
+        raise AssertionError(f"F3 {label}: the grouped kernel refuses "
+                             f"{Q} x {m} x {D}: {plan.reason}")
+    if not torch.equal(got["grouped"].view(torch.int32),
+                       got["rowwise"].view(torch.int32)):
+        d = float((got["grouped"] - got["rowwise"]).abs().nan_to_num(0).max())
+        raise AssertionError(f"F3 {label}: 'grouped' and 'rowwise' differ, "
+                             f"max |d| {d}")
+    want = got["plain"]
+    fin = torch.isfinite(want)
+    err = float((got["rowwise"] - want).abs()[fin].max())
+    if not torch.equal(torch.isfinite(got["rowwise"]), fin) or err > 1e-5:
+        raise AssertionError(f"F3 {label} vs plain: max |d| {err:.3g}")
+    t = in_turns(fns, event_ms)
+    distinct = int(torch.unique(idx_m).numel())
+    # the queries read once, the ids (int64) and distances once a pair
+    small = Q * D * 4 + Q * m * (8 + 4)
+    bound = (distinct * D * 4 + small) / PEAK_BYTES * 1e3
+    bound_all = (Q * m * D * 4 + small) / PEAK_BYTES * 1e3
+    log(f"  (c) F3 rerank_rows {label}, {Q:,} x {m} candidates x {D} over "
+        f"{B:,} rows (default: {default}), "
+        f"'grouped' == 'rowwise' bit for bit, in turns: grouped "
+        f"{t['grouped']:.4f} ms ({t['grouped'] / bound:.2f}x the bytes bound "
+        f"{bound:.4f} ms over the {distinct:,} distinct rows), rowwise "
+        f"{t['rowwise']:.4f} ({t['rowwise'] / bound:.2f}x; "
+        f"{t['rowwise'] / bound_all:.2f}x {bound_all:.4f} ms over every "
+        f"candidate row), plain (blocks of {block} rows: gather, "
+        f"torch.bmm) {t['plain']:.2f} ms; max |d - plain| {err:.3g}")
+    return {"variant": default, "ms": t[default], "ms_grouped": t["grouped"],
+            "ms_rowwise": t["rowwise"], "plain_ms": t["plain"],
+            "bound_ms": bound, "bound_every_candidate_ms": bound_all,
+            "max_abs_err": err, "distinct_rows": distinct,
+            "shape": [Q, m, D, B]}
+
+
+def rerank_calls(q, base, k):
+    """The F3 calls of one knn(q, base, k) on the "auto" engine, as the
+    engine makes them (the select's re-rank, then the class-A repair's
+    where it repairs): [(query rows, ids, block), ...]."""
+    from neighborhoodwatch_tpu_torch.ops import knn as K
+    calls, real = [], K._exact_pair_dists
+
+    def spy(qb, b, ids, metric, block=None):
+        calls.append((qb, ids, block))
+        return real(qb, b, ids, metric, block)
+    K._exact_pair_dists = spy
+    try:
+        K.knn(q, base, k, engine="auto")
+    finally:
+        K._exact_pair_dists = real
+    return calls
+
+
+def fused_rerank(q, base, nw, k=100):
+    """(c) F3 on knn(auto)'s own calls at the headline shape (the select's
+    re-rank of the merge's top-m, the class-A repair's bin members) and
+    on nw's own (phase 8's embeddings), each by rerank_turns; and (d) the
+    merge's top-m on K7 against the stable sort, equal and in turns."""
+    import torch
+    from neighborhoodwatch_tpu_torch.ops import knn as K
+    merge_d, merge_i, m = merge_candidates(q, base, k)
+    Q = q.shape[0]
 
     def by_sort():
         sd, order = torch.sort(merge_d, dim=1, stable=True)
         return sd[:, :m], torch.gather(merge_i, 1, order[:, :m])
-    scr, idx_m = K._merge_select(merge_d, merge_i, m)
+    scr, idx_k7 = K._merge_select(merge_d, merge_i, m)
     s_scr, s_idx = by_sort()
     if not (torch.equal(scr.view(torch.int32), s_scr.view(torch.int32))
-            and torch.equal(idx_m, s_idx)):
+            and torch.equal(idx_k7, s_idx)):
         raise AssertionError("the merge's top-m on K7 differs from the "
                              "stable sort")
     tm = in_turns({"sort": by_sort,
@@ -4094,46 +4219,45 @@ def fused_rerank(q, base, k=100):
     log(f"  (d) the merge's top-{m} of {width:,} columns, "
         f"{Q:,} rows: K7 {tm['k7']:.3f} ms, stable sort {tm['sort']:.3f} ms "
         f"(in turns); equal, values bit for bit and ids in order")
-    want = fc.rerank_plain(q, base, idx_m, "sqeuclidean", block)
-    got = fc.rerank_rows(q, base, idx_m, "sqeuclidean")
-    fin = torch.isfinite(want)
-    err = float((got - want).abs()[fin].max())
-    if not torch.equal(torch.isfinite(got), fin) or err > 1e-5:
-        raise AssertionError(f"F3 vs plain: max |d| {err:.3g}")
-    t = in_turns({"plain": lambda: fc.rerank_plain(q, base, idx_m,
-                                                   "sqeuclidean", block),
-                  "kernel": lambda: fc.rerank_rows(q, base, idx_m,
-                                                   "sqeuclidean")}, event_ms)
-    distinct = int(torch.unique(idx_m).numel())
-    small = Q * D * 4 + Q * m * 4 * 2
-    bound = (distinct * D * 4 + small) / PEAK_BYTES * 1e3
-    bound_all = (Q * m * D * 4 + small) / PEAK_BYTES * 1e3
-    log(f"  (c) F3 rerank_rows {Q:,} x {m} candidates x {D}: kernel "
-        f"{t['kernel']:.3f} ms ({t['kernel'] / bound:.2f}x the bytes bound "
-        f"{bound:.3f} ms over the {distinct:,} distinct rows; "
-        f"{t['kernel'] / bound_all:.2f}x {bound_all:.3f} ms over every "
-        f"candidate row), plain (blocks of {block} rows: gather + torch.bmm)"
-        f" {t['plain']:.2f} ms, in turns; max |d - plain| {err:.3g}")
-    del merge_d, merge_i, scr, idx_m, s_scr, s_idx, want, got
+    del merge_d, merge_i, scr, idx_k7, s_scr, s_idx
+    shapes = {}
+    calls = rerank_calls(q, base, k)
+    for label, (qb, ids, blk) in zip(("knn_auto", "knn_auto_class_a"),
+                                     calls):
+        shapes[label] = rerank_turns(label, qb, base, ids, blk)
+    del calls
     torch.cuda.empty_cache()
+    nq, nbase = nw_embeddings(nw)
+    qb, ids, blk = rerank_calls(nq, nbase, nw["k"])[0]
+    shapes["nw"] = rerank_turns("nw", qb, nbase, ids, blk)
+    del nq, nbase, qb, ids
+    torch.cuda.empty_cache()
+    main = shapes["knn_auto"]
     return fused_record(
         "rerank_rows", "neighborhoodwatch_tpu/ops/knn.py:379",
-        max_abs_err=err, ms=t["kernel"], plain_ms=t["plain"],
-        bound_ms=bound, bound_every_candidate_ms=bound_all,
-        distinct_rows=distinct, shape=[Q, m, D],
+        max_abs_err=max(v["max_abs_err"] for v in shapes.values()),
+        variant=main["variant"], ms=main["ms"],
+        ms_grouped=main["ms_grouped"], ms_rowwise=main["ms_rowwise"],
+        plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+        bound_every_candidate_ms=main["bound_every_candidate_ms"],
+        distinct_rows=main["distinct_rows"], shape=main["shape"],
+        shapes=shapes,
+        launches_by_variant=FUSED_LAUNCHES.get("nw", {}).get(
+            "rerank_rows_by_variant"),
         merge_select={"k7_ms": tm["k7"], "sort_ms": tm["sort"],
                       "rows": Q, "width": width, "m": m})
 
 
-def phase_fused():
+def phase_fused(nw):
     """Phase 15: F1-F3 against their plain versions at the main path's
-    shapes, timed in turns beside their bounds; returns their records for
-    the kernels line (launches: phase 8's nw_main, and per path)."""
+    shapes (F3 also at phase 8's, `nw` its data), timed in turns beside
+    their bounds; returns their records for the kernels line (launches:
+    phase 8's nw_main, and per path)."""
     import torch
     q, base = engine_data()
     recs = [fused_prepare(base)]
     recs.append(fused_distance_tiles())
-    recs.append(fused_rerank(q, base))
+    recs.append(fused_rerank(q, base, nw))
     del q, base
     torch.cuda.empty_cache()
     log(f"  fused kernels' launches by path (each counted from 0): "
@@ -4174,14 +4298,39 @@ def under_variant(variant, fn):
     return call
 
 
-def variant_turns(name, inputs, wrapper, plain, yardstick):
-    """E2 or E3 on `inputs`: "rowpass" against "staged" bit for bit on
+@contextlib.contextmanager
+def staged_admitted():
+    """E1's "staged" planned where the plan sends a shape to "rowpass" for
+    its one full pass a block ("one pass"), so that the staged kernel can
+    be timed there."""
+    from neighborhoodwatch_tpu_torch.ops import encoder_fused as ef
+    real, cache = ef.row_plan, dict(ef._plans)
+
+    def admitted(kernel, rows, width, aligned, sms, resident, batch=None):
+        pl = real(kernel, rows, width, aligned, sms, resident, batch)
+        if pl.reason == "one pass":
+            pl = ef._embed_plan(rows, batch, width, sms, resident)
+        return pl
+    ef.row_plan = admitted
+    ef._plans.clear()
+    try:
+        yield
+    finally:
+        ef.row_plan = real
+        ef._plans.clear()
+        ef._plans.update(cache)
+
+
+def variant_turns(name, inputs, wrapper, plain, yardstick=None):
+    """E1, E2 or E3 on `inputs`: "rowpass" against "staged" bit for bit on
     every input (fails otherwise); then plain, "rowpass" and
     "staged" in turns, cold (rotating_ms: each call on its own input, the
     calls' bytes four times the L2 or more) and hot (graph_ms: one input
     again and again, as the forward finds E2's operands just written),
-    beside the yardstick (one ATen row pass over about the same bytes, not
-    the same function), cold and hot."""
+    beside the yardstick where there is one (E2, E3: one ATen row pass
+    over about the same bytes, not the same function), cold and hot.
+    "staged" is on its plan: where the plan sends a shape to "rowpass",
+    both time the same launch (the plan and its reason are returned)."""
     import torch
     from neighborhoodwatch_tpu_torch.ops import encoder_fused as ef
     staged = under_variant("staged", wrapper)
@@ -4199,7 +4348,8 @@ def variant_turns(name, inputs, wrapper, plain, yardstick):
     hot = in_turns({v: (lambda f=fns[v]: graph_ms(lambda: f(inputs[0])))
                     for v in STAGED_TURNS}, lambda f: f())
     yard = (rotating_ms(yardstick, inputs),
-            graph_ms(lambda: yardstick(inputs[0])))
+            graph_ms(lambda: yardstick(inputs[0]))) if yardstick else \
+        (None, None)
     default = ef.DEFAULT_VARIANT[name]
     return {"variant": default, "ms": cold[default],
             "ms_rowpass": cold["rowpass"], "ms_staged": cold["staged"],
@@ -4213,11 +4363,10 @@ def variant_turns(name, inputs, wrapper, plain, yardstick):
 def encoder_fused_shape(label, rows, T, H, heads, g):
     """Phase 16 at one shape: E1-E3 against their plain versions on the
     same bf16 inputs (outputs_agree: one bf16 ulp, plus 1e-5 abs for the
-    LayerNorms' cancellations near 0); E1 timed with rotating_ms in turns
-    with its plain version (plain, kernel, kernel, plain), each call on
-    its own inputs; E2 and E3 by variant_turns ("staged" == "rowpass" bit
-    for bit, the three timed in turns cold and hot, the ATen yardstick);
-    each beside its bytes bound. Returns {kernel: numbers}."""
+    LayerNorms' cancellations near 0); each by variant_turns ("staged" ==
+    "rowpass" bit for bit, the three timed in turns cold and hot; E2 and
+    E3 beside the ATen yardstick) beside its bytes bound. Returns {kernel:
+    numbers}."""
     import torch
     import torch.nn.functional as F
     from neighborhoodwatch_tpu_torch.ops import encoder_fused as ef
@@ -4242,34 +4391,45 @@ def encoder_fused_shape(label, rows, T, H, heads, g):
                                0.0 if name == "masked_softmax" else
                                ef.LN_ATOL)
         bound = bound_bytes(inputs[0]) / PEAK_BYTES * 1e3
-        if yardstick is None:
-            t = in_turns({"plain": lambda: rotating_ms(plain, inputs),
-                          "kernel": lambda: rotating_ms(kernel, inputs)},
-                         lambda f: f())
-            out[name] = {"ms": t["kernel"], "plain_ms": t["plain"],
-                         "bound_ms": bound, "max_abs_err": err, "calls": n}
-            log(f"  {name} {label}: kernel {t['kernel']:.4f} ms "
-                f"({t['kernel'] / bound:.2f}x the bytes bound {bound:.4f} "
-                f"ms), plain {t['plain']:.4f} ms (a CUDA graph of {n} "
-                f"calls, each on its own inputs, in turns); max |d - "
-                f"plain| {err:.3g}")
-        else:
-            r = variant_turns(name, inputs, kernel, plain, yardstick)
-            out[name] = {**r, "bound_ms": bound, "max_abs_err": err,
-                         "calls": n}
-            log(f"  {name} {label}: 'rowpass' == 'staged' bit for bit on "
-                f"{n} inputs; cold (a CUDA graph of {n} calls, each on its "
-                f"own inputs, in turns): rowpass {r['ms_rowpass']:.4f} ms "
-                f"({r['ms_rowpass'] / bound:.2f}x the bytes bound "
-                f"{bound:.4f} ms), staged {r['ms_staged']:.4f} "
-                f"({r['ms_staged'] / bound:.2f}x), plain "
-                f"{r['plain_ms']:.4f}, yardstick {r['yardstick_ms']:.4f}; "
-                f"hot (one input, {REPS} calls): rowpass "
-                f"{r['hot_ms_rowpass']:.4f}, staged "
-                f"{r['hot_ms_staged']:.4f}, plain "
-                f"{r['hot_plain_ms']:.4f}, yardstick "
-                f"{r['hot_yardstick_ms']:.4f}; plan {r['plan']}; max |d - "
-                f"plain| {err:.3g}")
+        r = variant_turns(name, inputs, kernel, plain, yardstick)
+        if (r["plan"] or {}).get("reason") == "one pass":
+            # the staged kernel itself, past the plan's rule, in turns with
+            # "rowpass", bit for bit
+            staged = under_variant("staged", kernel)
+            with staged_admitted():
+                if not torch.equal(staged(inputs[0]).view(torch.uint8),
+                                   under_variant("rowpass", kernel)(
+                                       inputs[0]).view(torch.uint8)):
+                    raise AssertionError(f"{name} {label}: the staged "
+                                         f"kernel differs from 'rowpass'")
+                t = in_turns({"rowpass": lambda: rotating_ms(
+                    under_variant("rowpass", kernel), inputs),
+                    "staged": lambda: rotating_ms(staged, inputs)},
+                    lambda f: f())
+                r["one_pass"] = {"ms_staged": t["staged"],
+                                 "ms_rowpass": t["rowpass"],
+                                 "plan": dict(vars(ef.embed_layernorm
+                                                   .last_plan))}
+            log(f"  {name} {label}: the plan sends it to 'rowpass' (one "
+                f"pass); the staged kernel past that rule, cold, in turns: "
+                f"staged {t['staged']:.4f} ms, rowpass {t['rowpass']:.4f} "
+                f"(plan {r['one_pass']['plan']})")
+        out[name] = {**r, "bound_ms": bound, "max_abs_err": err, "calls": n}
+        yard = "" if yardstick is None else (
+            f", yardstick {r['yardstick_ms']:.4f}")
+        hot_yard = "" if yardstick is None else (
+            f", yardstick {r['hot_yardstick_ms']:.4f}")
+        log(f"  {name} {label}: 'rowpass' == 'staged' bit for bit on "
+            f"{n} inputs; cold (a CUDA graph of {n} calls, each on its "
+            f"own inputs, in turns): rowpass {r['ms_rowpass']:.4f} ms "
+            f"({r['ms_rowpass'] / bound:.2f}x the bytes bound "
+            f"{bound:.4f} ms), staged {r['ms_staged']:.4f} "
+            f"({r['ms_staged'] / bound:.2f}x), plain "
+            f"{r['plain_ms']:.4f}{yard}; hot (one input, {REPS} calls): "
+            f"rowpass {r['hot_ms_rowpass']:.4f}, staged "
+            f"{r['hot_ms_staged']:.4f}, plain "
+            f"{r['hot_plain_ms']:.4f}{hot_yard}; plan {r['plan']}; max "
+            f"|d - plain| {err:.3g}")
         del inputs
 
     def ids():
@@ -4348,11 +4508,10 @@ def phase_encoder_fused():
             "bound_ms": main["bound_ms"], "bound_by": "bytes",
             "library_ms": None,
             "shapes": {label: v[name] for label, v in shapes.items()}}
+        rec.update(variant=main["variant"], ms_rowpass=main["ms_rowpass"],
+                   ms_staged=main["ms_staged"])
         if name != "embed_layernorm":
-            rec.update(variant=main["variant"],
-                       ms_rowpass=main["ms_rowpass"],
-                       ms_staged=main["ms_staged"],
-                       yardstick_ms=main["yardstick_ms"],
+            rec.update(yardstick_ms=main["yardstick_ms"],
                        yardstick="ATen " + ("layer_norm" if name ==
                                             "add_layernorm" else "softmax")
                        + ", not the same function")
@@ -4910,7 +5069,7 @@ def main():
         log(f"phase 14 encoders' CUDA graphs: ok, "
             f"{time.perf_counter() - t:.1f} s")
         t = time.perf_counter()
-        frecs = phase_fused()
+        frecs = phase_fused(kept["nw"])
         log(f"phase 15 the kNN core's fused kernels: ok, "
             f"{time.perf_counter() - t:.1f} s")
         t = time.perf_counter()

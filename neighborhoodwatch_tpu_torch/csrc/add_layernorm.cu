@@ -184,21 +184,8 @@ add_layernorm_staged(const T* __restrict__ hidden, const T* __restrict__ x,
     if (j > 0) load_pass(j);
     // LayerNorm as row_pass.cuh:layer_norm computes it, w and b from
     // shared memory
-    float s = 0.0f;
-#pragma unroll
-    for (int i = 0; i < kPer; ++i)
-      if (slot<kLanes, true>(lane, i) < n) s += v[i];
-    const float mean = __fdiv_rn(group_sum<kLanes>(s, red), (float)n);
-    float q2 = 0.0f;
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      if (slot<kLanes, true>(lane, i) < n) {
-        const float d = v[i] - mean;
-        q2 = fmaf(d, d, q2);
-      }
-    }
-    const float var = __fdiv_rn(group_sum<kLanes>(q2, red), (float)n);
-    const float rstd = rsqrtf(var + eps);
+    float mean, rstd;
+    row_stats<kLanes, kPer, true>(v, n, lane, eps, red, mean, rstd);
     if (j == 0) mbar_wait(&wb_bar, 0);   // w and b
     if (active) {
 #pragma unroll

@@ -1,4 +1,4 @@
-// Bulk copies for the encoders' "staged" kernels: E2 (add_layernorm.cu)
+// Async copies for the encoders' "staged" kernels: E2 (add_layernorm.cu)
 // brings a block's w and b into shared memory by 1-D bulk async copies
 // (cp.async.bulk, the Tensor Memory Accelerator's copy without a tensor
 // map), their arrival counted on an mbarrier, in flight while the block's
@@ -9,8 +9,12 @@
 // multiples of 16 bytes: the plan (ops/encoder_fused.py:row_plan) sends
 // other rows to the "rowpass" kernels.
 //
+// E1 (embed_layernorm.cu) stages its shared rows by cp.async, 16 bytes a
+// thread at a time (cp_async16).
+//
 // The host side: the SM count and the occupancy query behind the check
-// that a plan's grid fits on the card (E2 and E3).
+// that a plan's grid fits on the card (E1-E3; F3 rerank_rows.cu sizes its
+// persistent grid with them).
 
 #pragma once
 
@@ -72,6 +76,22 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
            "l"((const char*)src + off), "r"(n), "r"(smem_u32(bar))
         : "memory");
   }
+}
+
+// 16 bytes from device memory into this block's shared memory by the
+// asynchronous copy (cp.async, Ampere's: no registers held while it flies,
+// cached in L2 only); both addresses 16-byte aligned. E1's "staged" kernel
+// brings its shared rows in so, in flight beside its first id and word
+// loads. cp_async_wait: every copy this thread issued has landed (a block
+// barrier after it makes them visible to the other threads).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n"
+               ::: "memory");
 }
 
 // ---- host side: what the launch functions check a plan against

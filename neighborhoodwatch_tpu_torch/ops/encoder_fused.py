@@ -21,17 +21,23 @@ Variants (`VARIANTS`; the default a kernel's in `DEFAULT_VARIANT`;
 `forced_variant(name)` selects one for timings that hold them against
 each other; nothing on the main path forces one):
   "rowpass" the first kernels (csrc/row_pass.cuh: each row loaded by its
-            own lanes, one row a row group): E1's only kernel, and E2's
-            default.
-  "staged"  E2 and E3 on the launch plan of `row_plan`: a grid of at most
-            the blocks the card holds at once, each block a step of
-            consecutive rows in several passes; E2's w and b come into
-            shared memory by one bulk copy a block (csrc/row_stream.cuh),
-            E3 loads a pass's rows before the previous pass's arithmetic.
-            Rows it cannot take (a width not a multiple of 8, unaligned
-            pointers) go to "rowpass" by the plan, counted there and
-            logged once a shape. E3's default: on the card it was faster
-            than "rowpass" at the shapes the encoders run, E2's was not.
+            own lanes, one row a row group): E1's and E2's default.
+  "staged"  E1, E2 and E3 on the launch plan of `row_plan`: a grid of at
+            most the blocks the card holds at once, each block a step of
+            consecutive rows in several passes; E1's steps run through the
+            tokens position by position, its type-0, w, b and position
+            rows staged in shared memory once a block (cp.async) and each
+            group's next word row loaded while it normalizes this one;
+            E2's w and b come into shared memory by one bulk copy a block
+            (csrc/row_stream.cuh), E3 loads a pass's rows before the
+            previous pass's arithmetic. Rows it cannot take (a width not a
+            multiple of 8, unaligned pointers; for E1 also one full pass a
+            block, "rowpass"'s own layout, as at nw's 64 x 32) go to
+            "rowpass" by the plan, counted there and logged once a shape.
+            E3's default: on the card it was faster than "rowpass" at
+            the shapes the encoders run; E1's and E2's were not (E1's
+            ran at parity at ck's 1 x 32, nw's 64 x 32 is "rowpass"'s
+            by the plan).
   "plain"   the plain version on CUDA tensors too.
 "staged" and "rowpass" give the same bits. Launches are counted in all
 (`launches`: either kernel) and per variant (`launches_by_variant`); the
@@ -67,7 +73,10 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 # each source's C functions, `<name>_<entry>`, and their arguments
 _ARGTYPES = {
     "embed_layernorm": {
-        "launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _I, _F, _P]},
+        "launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _I, _F, _P],
+        "staged_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _I,
+                          _F, _I, _I, _I, _I, _P],
+        "staged_resident": [_I, _I, _I]},
     "add_layernorm": {
         "launch": [_P, _P, _P, _P, _P, _LL, _I, _I, _F, _P],
         "staged_launch": [_P, _P, _P, _P, _P, _LL, _I, _I, _F, _I, _I, _I,
@@ -87,7 +96,7 @@ def forced_variant(name: str):
     """Run CUDA tensors through `name` ("staged", "rowpass" or "plain")
     instead of each kernel's default (DEFAULT_VARIANT), for timings that
     hold them against each other. Under "staged" the plan still sends the
-    rows it cannot take to "rowpass"; E1 has "rowpass" alone."""
+    rows it cannot take to "rowpass"."""
     global _forced_variant
     if name not in VARIANTS:
         raise ValueError(f"variant {name!r} not in {VARIANTS}")
@@ -159,16 +168,18 @@ def _count(wrapper, variant: str) -> None:
 
 THREADS = 256                 # a block of the row kernels
 MAX_STAGED_ROWS = 2 ** 30     # "staged" counts rows in 32 bits
+SMEM_LIMIT = 232448           # dynamic shared memory a block may use
 
 
 @dataclasses.dataclass(frozen=True)
 class RowPlan:
-    """A launch of E2 or E3. "staged": `grid` blocks (never more than the
-    card holds at once), block i the `rows_per_step` consecutive rows from
-    i x rows_per_step, in `passes` passes of the block's rows a pass;
-    `smem_bytes` of dynamic shared memory a block. "rowpass": the first
-    kernel, which lays out its own launch; nothing planned (the numbers
-    0), for the reason given."""
+    """A launch of E1, E2 or E3. "staged": `grid` blocks (never more than
+    the card holds at once), block i the `rows_per_step` consecutive rows
+    from i x rows_per_step, in `passes` passes of the block's rows a pass
+    (E1: of the position-major order, row r the token (r % B, r // B); a
+    step touches at most `positions` positions); `smem_bytes` of dynamic
+    shared memory a block. "rowpass": the first kernel, which lays out its
+    own launch; nothing planned (the numbers 0), for the reason given."""
     variant: str            # "staged" or "rowpass"
     reason: str             # why "rowpass" ("" for "staged")
     lanes: int              # lanes a row
@@ -176,12 +187,13 @@ class RowPlan:
     rows_per_step: int      # E3: rows of the flattened (B H T, T) logits
     grid: int
     smem_bytes: int
+    positions: int = 0      # E1: position rows a block stages
 
 
 def row_lanes(kernel: str, width: int) -> int:
-    """Lanes a row, as both variants lay it out: E2 a warp (four above
-    1,024 values), E3 a lane for 8 of the T keys (4 to 64 lanes)."""
-    if kernel == "add_layernorm":
+    """Lanes a row, as both variants lay it out: E1 and E2 a warp (four
+    above 1,024 values), E3 a lane for 8 of the T keys (4 to 64 lanes)."""
+    if kernel != "masked_softmax":
         return 32 if width <= 1024 else 128
     for lanes in (4, 8, 16, 32):
         if width <= 8 * lanes:
@@ -190,39 +202,65 @@ def row_lanes(kernel: str, width: int) -> int:
 
 
 def pass_rows(kernel: str, width: int) -> int:
-    """Rows a block of THREADS takes in one pass: E2 a row a warp (or a
-    four-warp group), E3 THREADS / lanes."""
+    """Rows a block of THREADS takes in one pass: E1 and E2 a row a warp
+    (or a four-warp group), E3 THREADS / lanes."""
     lanes = row_lanes(kernel, width)
-    return THREADS // (max(32, lanes) if kernel == "add_layernorm"
+    return THREADS // (max(32, lanes) if kernel != "masked_softmax"
                        else lanes)
 
 
-def staged_bytes(kernel: str, width: int) -> int:
+def staged_positions(step: int, batch: int, seq: int) -> int:
+    """E1: the position rows a step of `step` consecutive position-major
+    rows touches at most, as the C launch function recomputes it: whole
+    positions where step is a multiple of the batch, one where it divides
+    the batch, else at most (step - 1) // batch + 2; never more than
+    `seq`."""
+    if step % batch == 0:
+        p = step // batch
+    elif batch % step == 0:
+        p = 1
+    else:
+        p = (step - 1) // batch + 2
+    return min(p, seq)
+
+
+def staged_bytes(kernel: str, width: int, positions: int = 0) -> int:
     """Dynamic shared memory of a "staged" block, as the C launch functions
-    recompute it: E2 w and b in fp32, E3 none."""
+    recompute it: E1 the type-0, w, b and `positions` position rows in
+    fp32, E2 w and b, E3 none."""
+    if kernel == "embed_layernorm":
+        return 4 * width * (3 + positions)
     return 8 * width if kernel == "add_layernorm" else 0
 
 
 def row_plan(kernel: str, rows: int, width: int, aligned: bool, sms: int,
-             resident) -> RowPlan:
-    """The "staged" launch of E2 ("add_layernorm": `rows` rows of `width`
-    values) or E3 ("masked_softmax": the B H T rows of T = `width` keys) on
-    a card of `sms` SMs where `resident(smem_bytes)` blocks of the kernel
-    fit an SM (registers, threads and shared memory; the occupancy query).
+             resident, batch: int | None = None) -> RowPlan:
+    """The "staged" launch of E1 ("embed_layernorm": the `rows` = `batch` x
+    T tokens of `width` values), E2 ("add_layernorm": `rows` rows of
+    `width` values) or E3 ("masked_softmax": the B H T rows of T = `width`
+    keys) on a card of `sms` SMs where `resident(smem_bytes)` blocks of the
+    kernel fit an SM (registers, threads and shared memory; the occupancy
+    query).
 
-    "staged" where the weights take a bulk copy and the rows 16-byte loads
-    (width % 8 == 0, `aligned`: every pointer 16-byte aligned, E3's mask
-    8) and there are fewer than MAX_STAGED_ROWS: the fewest passes that
-    fit the rows into the blocks the card holds at once, and a block for
-    each step of that many passes. Else "rowpass", with the reason."""
-    if kernel not in ("add_layernorm", "masked_softmax"):
+    "staged" where the rows take 16-byte loads and the weights a bulk or
+    async copy (width % 8 == 0, `aligned`: every pointer 16-byte aligned,
+    E3's mask 8) and there are fewer than MAX_STAGED_ROWS: the fewest
+    passes that fit the rows into the blocks the card holds at once, and a
+    block for each step of that many passes (E1: where the rows fill less
+    than a pass of every block, a step of fewer rows than a pass, so the
+    rows spread over the SMs; the shared memory its positions take). Else
+    "rowpass", with the reason."""
+    if kernel not in ("embed_layernorm", "add_layernorm", "masked_softmax"):
         raise ValueError(f"no launch plan for {kernel!r}")
     if rows < 0 or width < 1 or sms < 1:
         raise ValueError(f"rows={rows}, width={width}, sms={sms}: nothing "
                          f"to plan")
+    if kernel == "embed_layernorm" and (batch is None or batch < 1
+                                        or rows % batch):
+        raise ValueError(f"embed_layernorm: {rows} rows in batch rows of "
+                         f"{batch}")
 
-    def rowpass(reason):
-        return RowPlan("rowpass", reason, 0, 0, 0, 0, 0)
+    rowpass = _rowpass_plan
     if rows == 0:
         return rowpass("empty")
     if rows >= MAX_STAGED_ROWS:
@@ -231,6 +269,13 @@ def row_plan(kernel: str, rows: int, width: int, aligned: bool, sms: int,
         return rowpass("width")
     if not aligned:
         return rowpass("unaligned")
+    if kernel == "embed_layernorm":
+        pl = _embed_plan(rows, batch, width, sms, resident)
+        if pl.passes == 1 and pl.rows_per_step == pass_rows(kernel, width):
+            # a full pass a block, as "rowpass" lays the tokens out:
+            # nothing prefetched, the staging only adds (PERF.md)
+            return rowpass("one pass")
+        return pl
     smem = staged_bytes(kernel, width)
     held = int(resident(smem))
     if held < 1:
@@ -240,6 +285,50 @@ def row_plan(kernel: str, rows: int, width: int, aligned: bool, sms: int,
     step = passes * per_pass
     return RowPlan("staged", "", row_lanes(kernel, width), passes, step,
                    -(-rows // step), smem)
+
+
+def _rowpass_plan(reason: str) -> RowPlan:
+    return RowPlan("rowpass", reason, 0, 0, 0, 0, 0)
+
+
+def _embed_plan(rows, batch, width, sms, resident) -> RowPlan:
+    """row_plan's E1 case: as E2's, but steps of fewer rows than a pass
+    where the rows fill less than a pass of every block the card holds (a
+    token a warp, over as many SMs as there are tokens; such a step a
+    divisor of the batch), and shared memory for the positions a step
+    touches; the card's blocks asked again at that size, the steps grown
+    until the grid fits them. (row_plan sends a plan of one full pass a
+    block, "rowpass"'s own layout, to "rowpass".)"""
+    rowpass = _rowpass_plan
+    per_pass, seq = pass_rows("embed_layernorm", width), rows // batch
+    held = int(resident(staged_bytes("embed_layernorm", width, 1)))
+    if held < 1:
+        return rowpass("occupancy")
+    cap = sms * held
+    while True:
+        if rows <= cap * per_pass:
+            # one pass; the step rounded up to a divisor of the batch
+            # within the pass (fewer blocks), so that it lies within one
+            # position
+            step = -(-rows // cap)
+            step = next((d for d in range(step, min(batch, per_pass) + 1)
+                         if batch % d == 0), step)
+            passes = 1
+        else:
+            passes = -(-rows // (cap * per_pass))
+            step = passes * per_pass
+        grid = -(-rows // step)
+        positions = staged_positions(step, batch, seq)
+        smem = staged_bytes("embed_layernorm", width, positions)
+        if smem > SMEM_LIMIT:
+            return rowpass("smem")
+        held = int(resident(smem))
+        if held < 1:
+            return rowpass("occupancy")
+        if grid <= sms * held:
+            return RowPlan("staged", "", row_lanes("embed_layernorm", width),
+                           passes, step, grid, smem, positions)
+        cap = sms * held          # < grid <= the last cap: steps grow
 
 
 _sms: dict = {}
@@ -277,17 +366,17 @@ def _aligned(*tensors, mask=None) -> bool:
         (mask is None or mask.data_ptr() % 8 == 0)
 
 
-def _plan(wrapper, dev, rows, width, dtype, aligned) -> RowPlan:
+def _plan(wrapper, dev, rows, width, dtype, aligned, batch=None) -> RowPlan:
     """row_plan on this device, once per shape; a shape sent to "rowpass"
     is kept in `wrapper.rowpass_plans` and logged the first time."""
     kernel = wrapper.__name__
-    key = (kernel, dev, rows, width, dtype, aligned)
+    key = (kernel, dev, rows, width, dtype, aligned, batch)
     pl = _plans.get(key)
     if pl is None:
         code = _DTYPE_CODE[dtype]
         pl = _plans[key] = row_plan(
             kernel, rows, width, aligned, _sm_count(dev),
-            lambda b: _resident(kernel, dev, width, code, b))
+            lambda b: _resident(kernel, dev, width, code, b), batch)
     if pl.variant == "rowpass":
         shape = (rows, width, str(dtype).removeprefix("torch."), aligned)
         if shape not in wrapper.rowpass_plans:
@@ -346,9 +435,10 @@ def embed_layernorm(ids, word, position, token_type, weight, bias,
     """`embed_layernorm_plain`'s function: E1 on CUDA tensors (one read of
     each gathered row, the sum bit for bit the plain version's, LayerNorm
     within one ulp of `dtype`; an id outside the table gives a row of NaN,
-    with no host sync to check the ids), the plain version on CPU
-    tensors."""
-    if _route(embed_layernorm, ids) is None:
+    with no host sync to check the ids; "rowpass" by default, or
+    "staged" on its plan), the plain version on CPU tensors."""
+    variant = _route(embed_layernorm, ids)
+    if variant is None:
         return embed_layernorm_plain(ids, word, position, token_type, weight,
                                      bias, eps, dtype)
     if dtype not in _DTYPE_CODE:
@@ -379,11 +469,22 @@ def embed_layernorm(ids, word, position, token_type, weight, bias,
     weight, bias = _f32_row(weight, "weight", h), _f32_row(bias, "bias", h)
     ids = ids.contiguous()
     out = torch.empty((b, seq, h), dtype=dtype, device=ids.device)
-    _launch("embed_layernorm", ids.device, ids.data_ptr(), word.data_ptr(),
-            position.data_ptr(), token_type[0].data_ptr(), weight.data_ptr(),
-            bias.data_ptr(), out.data_ptr(), b, seq, h, word.shape[0],
-            _DTYPE_CODE[dtype], float(eps))
-    _count(embed_layernorm, "rowpass")      # E1 has the row-pass kernel
+    dev = ids.device
+    args = (ids.data_ptr(), word.data_ptr(), position.data_ptr(),
+            token_type[0].data_ptr(), weight.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), b, seq, h, word.shape[0], _DTYPE_CODE[dtype],
+            float(eps))
+    if variant == "staged":
+        pl = _plan(embed_layernorm, dev, b * seq, h, dtype,
+                   _aligned(word, position, token_type, weight, bias, out),
+                   batch=b)
+        variant = pl.variant
+    if variant == "staged":
+        _launch("embed_layernorm", dev, *args, pl.grid, pl.rows_per_step,
+                pl.passes, pl.smem_bytes, entry="staged_launch")
+    else:
+        _launch("embed_layernorm", dev, *args)
+    _count(embed_layernorm, variant)
     return out
 
 

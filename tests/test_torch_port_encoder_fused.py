@@ -474,7 +474,16 @@ def test_a_failed_build_raises(card, monkeypatch, tmp_path, name):
     assert list(tmp_path.iterdir()) == []
 
 
-STAGED = ("add_layernorm", "masked_softmax")
+STAGED = ("embed_layernorm", "add_layernorm", "masked_softmax")
+
+
+def _staged_tail(name, pl):
+    """The plan's numbers a "staged" launch takes after the "rowpass"
+    arguments: (grid, passes, bytes); E1 (grid, rows a step, passes,
+    bytes)."""
+    if name == "embed_layernorm":
+        return (pl.grid, pl.rows_per_step, pl.passes, pl.smem_bytes)
+    return (pl.grid, pl.passes, pl.smem_bytes)
 
 
 @pytest.mark.parametrize("name", STAGED)
@@ -493,9 +502,9 @@ def test_staged_plan_is_asked_once_a_shape(card, name):
     assert [c[1] for c in card.calls] == ["staged_launch"] * 2
     pl = getattr(ef, name).last_plan
     assert pl.variant == "staged"
+    tail = _staged_tail(name, pl)
     assert all(len(c[2]) == len(ef._ARGTYPES[name]["staged_launch"]) and
-               c[2][-4:-1] == (pl.grid, pl.passes, pl.smem_bytes)
-               for c in card.calls)
+               c[2][-1 - len(tail):-1] == tail for c in card.calls)
     w = getattr(ef, name)
     assert w.launches_by_variant == {"staged": 2, "rowpass": 0, "plain": 0}
     assert w.rowpass_plans == {}
@@ -506,11 +515,11 @@ def test_rows_bulk_copies_cannot_take_go_to_rowpass_by_plan(card,
                                                             monkeypatch,
                                                             name):
     """Under forced_variant("staged"), a width no multiple of 8 (hidden
-    36, T 12) or an unaligned pointer: the plan sends the launch to
-    "rowpass" (the first kernel's entry), counted there, the shape and
-    reason kept in `rowpass_plans`."""
-    odd = (_calls("meta", hidden=36, heads=3) if name == "add_layernorm"
-           else _calls("meta", seq=12))
+    36 for E1 and E2, T 12 for E3) or an unaligned pointer: the plan sends
+    the launch to "rowpass" (the first kernel's entry), counted there, the
+    shape and reason kept in `rowpass_plans`."""
+    odd = (_calls("meta", seq=12) if name == "masked_softmax"
+           else _calls("meta", hidden=36, heads=3))
     w = getattr(ef, name)
     with ef.forced_variant("staged"):
         odd[name]()
@@ -528,14 +537,15 @@ def test_rows_bulk_copies_cannot_take_go_to_rowpass_by_plan(card,
 @pytest.mark.parametrize("name", STAGED)
 def test_forced_variants_on_card_tensors(card, monkeypatch, name):
     """"rowpass" launches the first kernel without a plan, "staged" on its
-    plan, the default (E2 "rowpass", E3 "staged") as if forced; "plain"
-    runs the plain version, counted there only."""
+    plan, the default (E1 and E2 "rowpass", E3 "staged") as if forced;
+    "plain" runs the plain version, counted there only."""
     with ef.forced_variant("rowpass"):
         _calls("meta")[name]()
     with ef.forced_variant("staged"):
         _calls("meta")[name]()
     _calls("meta")[name]()
-    default = "staged_launch" if name == "masked_softmax" else "launch"
+    staged_default = ef.DEFAULT_VARIANT[name] == "staged"
+    default = "staged_launch" if staged_default else "launch"
     assert [c[1] for c in card.calls] == ["launch", "staged_launch",
                                           default]
     ran = []
@@ -545,7 +555,7 @@ def test_forced_variants_on_card_tensors(card, monkeypatch, name):
         _calls("meta")[name]()
     w = getattr(ef, name)
     assert ran == [name] and len(card.calls) == 3
-    staged = 2 if name == "masked_softmax" else 1
+    staged = 2 if staged_default else 1
     assert w.launches == 3 and w.launches_by_variant == {
         "staged": staged, "rowpass": 3 - staged, "plain": 1}
     assert w.rowpass_plans == {}

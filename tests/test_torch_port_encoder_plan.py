@@ -1,7 +1,7 @@
 """The launch plan of the encoders' "staged" kernels
-(ops/encoder_fused.py:row_plan, E2 add_layernorm and E3 masked_softmax),
-on the CPU: pure Python, over every shape the encoders produce and the
-edges beside them.
+(ops/encoder_fused.py:row_plan, E1 embed_layernorm, E2 add_layernorm and
+E3 masked_softmax), on the CPU: pure Python, over every shape the encoders
+produce and the edges beside them.
 
 What the plan must hold, whatever the card: shared memory equal to what
 the C launch functions recompute (staged_bytes: E2's w and b, E3 none),
@@ -11,8 +11,10 @@ bytes), one block a step, as the launch functions check; steps of
 consecutive rows that cover every row exactly once, the fewest passes
 that fit them into that grid; "rowpass" exactly where the rows cannot be
 staged (a width not a multiple of 8, unaligned pointers, no block fits an
-SM). The kernels themselves run only on the card
-(tests/test_torch_port_cuda_encoder_fused.py)."""
+SM). E1's steps run through the tokens position by position: a model of
+its kernel's walk (`embed_walk`) visits every (b, t) exactly once, each
+within the positions its block staged. The kernels themselves run only on
+the card (tests/test_torch_port_cuda_encoder_fused.py)."""
 
 import numpy as np
 import pytest
@@ -130,8 +132,8 @@ def test_plan_edges_and_refusals():
     none = ef.row_plan("masked_softmax", 4096, 64, True, SMS,
                        lambda smem: 0)
     assert (none.variant, none.reason) == ("rowpass", "occupancy")
-    for bad in (dict(kernel="embed_layernorm"), dict(rows=-1),
-                dict(width=0), dict(sms=0)):
+    for bad in (dict(kernel="rerank_rows"), dict(kernel="embed_layernorm"),
+                dict(rows=-1), dict(width=0), dict(sms=0)):
         kw = {**dict(kernel="add_layernorm", rows=8, width=64,
                      aligned=True, sms=SMS, resident=res), **bad}
         with pytest.raises(ValueError):
@@ -150,3 +152,122 @@ def test_lanes_are_the_rowpass_layout():
     assert ef.pass_rows("add_layernorm", 4096) == 2
     assert ef.pass_rows("masked_softmax", 32) == 64
     assert ef.pass_rows("masked_softmax", 512) == 4
+
+
+# ------------------------------------------------------------------ E1
+
+
+def embed_walk(pl, batch, seq):
+    """Every token's visits when E1's "staged" kernel runs plan `pl`:
+    block i takes the position-major rows [i step, (i + 1) step), group g
+    of a pass the row g + j x (rows a pass) of pass j, row r the token
+    (r % batch, r // batch), whose position row the block staged among its
+    `positions`."""
+    rows = batch * seq
+    per_pass = ef.THREADS // max(32, pl.lanes)
+    seen = np.zeros((batch, seq), dtype=np.int64)
+    for block in range(pl.grid):
+        r0 = block * pl.rows_per_step
+        r1 = min(r0 + pl.rows_per_step, rows)
+        assert r0 < r1, (block, r0)
+        t_lo = r0 // batch
+        assert (r1 - 1) // batch - t_lo + 1 <= pl.positions
+        for j in range(pl.passes):
+            for g in range(per_pass):
+                r = r0 + g + j * per_pass
+                if r < r1:
+                    seen[r % batch, r // batch] += 1
+    return seen
+
+
+def check_e1(batch, seq, width, sms, resident):
+    pl = ef.row_plan("embed_layernorm", batch * seq, width, True, sms,
+                     resident, batch=batch)
+    if pl.variant == "rowpass":
+        assert pl.reason in ("smem", "occupancy", "one pass"), pl
+        return pl
+    assert pl.lanes == ef.row_lanes("embed_layernorm", width)
+    per_pass = ef.pass_rows("embed_layernorm", width)
+    assert pl.passes * per_pass >= pl.rows_per_step >= 1
+    assert pl.passes == 1 or pl.rows_per_step == pl.passes * per_pass
+    # one full pass a block is "rowpass"'s own layout: sent there
+    assert pl.passes > 1 or pl.rows_per_step < per_pass
+    assert pl.grid == -(-batch * seq // pl.rows_per_step)
+    assert pl.positions == ef.staged_positions(pl.rows_per_step, batch, seq)
+    assert pl.smem_bytes == ef.staged_bytes("embed_layernorm", width,
+                                            pl.positions) <= SMEM_LIMIT
+    assert 1 <= pl.grid <= sms * resident(pl.smem_bytes)
+    assert (embed_walk(pl, batch, seq) == 1).all()
+    return pl
+
+
+@pytest.mark.parametrize("width", [384, 768, 1024, 1032, 4096])
+def test_e1_walk_covers_every_token_once(width):
+    """Random batches, sequence lengths, SM counts and residencies: the
+    plan's steps, walked as the kernel walks them, cover every token
+    exactly once, each block's positions within its shared rows."""
+    rng = np.random.default_rng(width)
+    for _ in range(40):
+        batch = int(rng.integers(1, 80))
+        seq = int(rng.integers(1, 513))
+        sms = int(rng.choice([1, 2, 5, 17, 64, 132]))
+        check_e1(batch, seq, width, sms, occupancy(int(rng.integers(1, 5))))
+
+
+def test_e1_plan_at_the_main_paths_shapes():
+    """nw's 64 x 32: one full pass of 8 tokens a block, "rowpass"'s own
+    layout, so "rowpass" ("one pass"); ck's 1 x 32: a token a block, spread
+    over 32 SMs; longer shapes: the passes that fit the tokens into the
+    blocks the card holds."""
+    res = occupancy(3)
+    small = check_e1(64, 32, 1024, SMS, res)
+    assert (small.variant, small.reason) == ("rowpass", "one pass")
+    assert check_e1(64, 32, 1024, SMS, occupancy(2)).reason == "one pass"
+    one = check_e1(1, 32, 768, SMS, res)
+    assert (one.rows_per_step, one.grid, one.positions) == (1, 32, 1)
+    for seq in (128, 512):
+        pl = check_e1(64, seq, 1024, SMS, res)
+        assert pl.passes > 1 and pl.grid <= SMS * 3
+    colbert = check_e1(64, 256, 768, SMS, res)
+    assert colbert.smem_bytes == 768 * 4 * (3 + colbert.positions)
+
+
+def test_e1_plan_edges_and_refusals():
+    res = occupancy(3)
+    plan = ef.row_plan
+    assert plan("embed_layernorm", 64 * 36, 36, True, SMS, res,
+                batch=64).reason == "width"
+    assert plan("embed_layernorm", 64 * 32, 1024, False, SMS, res,
+                batch=64).reason == "unaligned"
+    assert plan("embed_layernorm", 0, 1024, True, SMS, res,
+                batch=1).reason == "empty"
+    assert plan("embed_layernorm", 2 ** 30, 1024, True, SMS, res,
+                batch=2 ** 21).reason == "rows"
+    # one SM, one block: a step of every token, more positions than
+    # shared memory holds
+    assert plan("embed_layernorm", 512, 4096, True, 1, occupancy(1),
+                batch=1).reason == "smem"
+    assert plan("embed_layernorm", 4096, 64, True, SMS,
+                lambda smem: 0, batch=8).reason == "occupancy"
+    for batch in (None, 0, 3):
+        with pytest.raises(ValueError):
+            plan("embed_layernorm", 64, 1024, True, SMS, res, batch=batch)
+
+
+def test_staged_positions():
+    """A step within one position where it divides the batch, whole
+    positions where the batch divides it, else at most two more than
+    (step - 1) // batch; never more than the sequence."""
+    assert ef.staged_positions(8, 64, 32) == 1
+    assert ef.staged_positions(128, 64, 512) == 2
+    assert ef.staged_positions(88, 64, 512) == 3
+    assert ef.staged_positions(3, 37, 32) == 2
+    assert ef.staged_positions(1, 1, 32) == 1
+    assert ef.staged_positions(512, 1, 32) == 32
+    rng = np.random.default_rng(0)
+    for _ in range(500):
+        step, batch = int(rng.integers(1, 300)), int(rng.integers(1, 90))
+        seq = int(rng.integers(1, 600))
+        worst = max((min(r0 + step, batch * seq) - 1) // batch - r0 // batch
+                    + 1 for r0 in range(0, batch * seq, step))
+        assert worst <= ef.staged_positions(step, batch, seq)

@@ -3,7 +3,11 @@ and the engines around them, on the CPU, against the JAX package's jitted
 functions they stand for: F1 `prepare_plain` against `_prepare_arrays`, F2
 (`distance_tile_plain` inside `_knn_scan` / `_knn_full`) against JAX's
 `_knn_scan` / `_knn_full`, F3 (`_exact_pair_dists` on (query rows, base,
-ids)) against JAX's `_exact_pair_dists` on gathered rows, and
+ids)) against JAX's `_exact_pair_dists` on gathered rows, F3's grouped
+order (`group_pairs_plain`, `rerank_group_plain`: the pairs sorted by id,
+distances computed there and scattered back, bit for bit
+`pair_distances`' over the pairs in their own order) and its launch plan
+(`rerank_plan`), and
 `screened_knn_traced` end to end at 1, 2 and 3 passes with planted class-A
 and class-B repairs (the JAX screen kernel in interpret mode).
 
@@ -205,3 +209,161 @@ def test_screened_traced_repairs_match_jax(precision, case):
     assert_ids_tie_tolerant(ti.numpy(), np.asarray(ji), osort, TOL)
     np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=TOL,
                                atol=1e-4)
+
+
+# ------------------------------------------------- F3's grouped variant
+
+
+def _group_case(case, seed=0, q_rows=33, m=40, n=500, dim=130):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((q_rows, dim)).astype(np.float32)
+    b = rng.standard_normal((n, dim)).astype(np.float32)
+    b[6] = np.nan                            # a NaN row
+    ids = rng.integers(0, n, (q_rows, m))
+    if case == "repeated":                   # ids repeated within a row
+        ids[:, 1::3] = ids[:, 0:1]
+        ids[:, 2] = 6
+    elif case == "shared":                   # one id shared by every query
+        ids[:, 5] = 17
+        ids[:, 7] = 17
+    elif case == "out_of_range":
+        ids[0, 3], ids[4, 0], ids[-1, -1] = n, -1, n + 100
+    elif case == "empty":
+        ids = ids[:, :0]
+    return q, b, ids
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("case", ["repeated", "shared", "out_of_range",
+                                  "empty"])
+def test_grouped_order_equals_pair_distances(metric, case):
+    """Distances computed in the grouped order (by id) and scattered back
+    equal pair_distances over the pairs in their own order bit for bit (a
+    row's product sum does not depend on where the pair lies); an id
+    outside the base gives NaN there and nothing else changes; they agree
+    with rerank_plain (torch.bmm's sums) and with JAX's _exact_pair_dists
+    on the gathered rows within 1e-5 (fp32 sums in another order)."""
+    q, b, ids = _group_case(case, seed=len(case) + len(metric))
+    bad = (ids < 0) | (ids >= len(b))
+    safe = np.where(bad, 0, ids)
+    tq, tb = torch.from_numpy(q), torch.from_numpy(b)
+    got = fc.rerank_group_plain(tq, tb, torch.from_numpy(ids), metric,
+                                block=97)
+    own = fc.pair_distances(tq[:, None, :], tb[torch.from_numpy(safe)],
+                            metric)
+    assert got.shape == ids.shape == own.shape
+    assert bool(torch.isnan(got[torch.from_numpy(bad)]).all())
+    keep = torch.from_numpy(~bad)
+    assert torch.equal(got[keep].view(torch.int32),
+                       own[keep].view(torch.int32))
+    if ids.size:
+        g = got.numpy()
+        plain = fc.rerank_plain(tq, tb, torch.from_numpy(safe), metric,
+                                block=8).numpy()
+        ref = np.asarray(jknn._exact_pair_dists(jnp.asarray(q),
+                                                jnp.asarray(b[safe]),
+                                                metric))
+        for want in (plain, ref):
+            np.testing.assert_array_equal(np.isnan(g)[~bad],
+                                          np.isnan(want)[~bad])
+            fin = ~bad & ~np.isnan(want)
+            np.testing.assert_allclose(g[fin], want[fin], rtol=TOL,
+                                       atol=TOL * q.shape[1])
+
+
+@pytest.mark.parametrize("case", ["repeated", "shared", "out_of_range"])
+def test_group_pairs_plain(case):
+    """Every pair once, groups ascending, each group the pair's id (B for
+    an id outside the base), pairs in their order within a group."""
+    _, b, ids = _group_case(case, seed=3)
+    n = len(b)
+    keys, pairs = fc.group_pairs_plain(torch.from_numpy(ids), n)
+    keys, pairs = keys.numpy().astype(np.int64), pairs.numpy()
+    assert sorted(pairs) == list(range(ids.size))
+    assert (np.diff(keys) >= 0).all()
+    ident = ids.reshape(-1)[pairs]
+    np.testing.assert_array_equal(
+        keys, np.where((ident >= 0) & (ident < n), ident, n))
+    same = np.diff(keys) == 0
+    assert (np.diff(pairs)[same] > 0).all()
+    if case == "shared":                     # one group holds them all
+        assert (keys == 17).sum() == (ids == 17).sum() >= 2 * ids.shape[0]
+
+
+def test_rerank_plan_at_the_main_paths_shapes():
+    """"rowwise" is F3's default; the grouped kernel, where forced, takes
+    every call of the engines' shapes (its plan has rules of shape only):
+    nw's 1,000 x 256 / 320 x 1024 over 100,000 rows, knn(auto)'s 10,000 x
+    256 x 1536 over 1M, its class-A repair's 768 x 1,792 and a few
+    queries, each with the workspace its C launch function recomputes."""
+    assert fc.DEFAULT_VARIANT == {"rerank_rows": "rowwise"}
+    for shape in ((1000, 256, 1024, 100_000), (1000, 320, 1024, 100_000),
+                  (10_000, 256, 1536, 1_000_000),
+                  (768, 1792, 1536, 1_000_000), (8, 512, 1536, 1_000_000),
+                  (300, 256, 1536, 5000)):
+        pl = fc.rerank_plan(*shape)
+        assert (pl.variant, pl.reason) == ("grouped", "")
+        assert pl.workspace_bytes == fc.rerank_workspace(*shape[:2],
+                                                         shape[3])
+
+
+def test_rerank_plan_refusals_and_workspace():
+    plan = fc.rerank_plan
+    assert plan(0, 256, 64, 10).reason == "empty"
+    assert plan(1000, 0, 64, 10).reason == "empty"
+    assert plan(1000, 256, 130, 10).reason == "dim"
+    assert plan(1000, 256, 2052, 10).reason == "dim"
+    assert plan(1000, 256, 2048, 100_000).variant == "grouped"
+    assert plan(1000, 256, 4, 0).variant == "grouped"
+    assert plan(1000, 256, 64, 10, aligned=False).reason == "unaligned"
+    assert plan(2 ** 15, 2 ** 15, 64, 10).reason == "size"
+    assert plan(1000, 256, 64, 2 ** 30).reason == "size"
+    for bad in ((-1, 1, 4, 1), (1, 1, 4, -1)):
+        with pytest.raises(ValueError):
+            plan(*bad)
+    # the layout's words: counts, scan totals, groups, pairs, query norms
+    assert fc.rerank_workspace(3, 5, 9) == 4 * (12 + 4 + 16 + 16 + 4)
+
+
+def test_rerank_plan_is_asked_once_a_shape(monkeypatch):
+    """The wrapper's plan on a device, once a shape; the shapes it sends
+    to "rowwise" kept with their reasons."""
+    monkeypatch.setattr(fc, "_rerank_plans", {})
+    fc.reset_launches()
+    big = fc._plan_rerank("dev", 1000, 256, 1024, 100_000, True)
+    assert big.variant == "grouped" and fc.rerank_rows.last_plan is big
+    assert fc._plan_rerank("dev", 1000, 256, 1024, 100_000, True) is big
+    odd = fc._plan_rerank("dev", 4, 64, 130, 100_000, True)
+    assert odd.variant == "rowwise"
+    loose = fc._plan_rerank("dev", 4, 64, 1024, 100_000, False)
+    assert loose.variant == "rowwise"
+    assert fc.rerank_rows.rowwise_plans == {
+        (4, 64, 130, 100_000, True): "dim",
+        (4, 64, 1024, 100_000, False): "unaligned"}
+    fc.reset_launches()
+    assert fc.rerank_rows.launches_by_variant == {"grouped": 0,
+                                                  "rowwise": 0, "plain": 0}
+    assert fc.rerank_rows.rowwise_plans == {}
+
+
+def test_rerank_forced_variant_checks_and_restores():
+    with pytest.raises(ValueError):
+        with fc.forced_variant("split"):
+            pass
+    with fc.forced_variant("rowwise"):
+        with fc.forced_variant("plain"):
+            assert fc._forced_variant == "plain"
+        assert fc._forced_variant == "rowwise"
+    assert fc._forced_variant is None
+    # CPU tensors take the plain version under any variant, uncounted
+    q, b, ids = _group_case("repeated")
+    fc.reset_launches()
+    want = fc.rerank_plain(torch.from_numpy(q), torch.from_numpy(b),
+                           torch.from_numpy(ids), "dot")
+    for v in fc.VARIANTS:
+        with fc.forced_variant(v):
+            got = fc.rerank_rows(torch.from_numpy(q), torch.from_numpy(b),
+                                 torch.from_numpy(ids), "dot")
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert fc.rerank_rows.launches == 0
+    assert sum(fc.rerank_rows.launches_by_variant.values()) == 0
