@@ -30,6 +30,7 @@ from neighborhoodwatch_tpu_torch.models.registry import EmbeddingModelName
 from neighborhoodwatch_tpu_torch.models.tokenizer import (
     load_tokenizer, token_buckets,
 )
+from neighborhoodwatch_tpu_torch.utils.profiling import span
 
 
 class E5EmbeddingGenerator(EmbeddingGenerator):
@@ -69,12 +70,16 @@ class E5EmbeddingGenerator(EmbeddingGenerator):
     def _encode(self, chunk):
         """Tokenize and launch one chunk, a ragged one padded to chunk_size
         rows; returns its (rows, dim) fp32 embeddings on the device (not
-        synchronized), the pad rows dropped."""
-        ids, mask = self.tokenizer(chunk, max_length=self.max_length)
-        self.tokens_seen += int(mask.sum())
-        rows = ids.shape[0]
-        ids, mask = pad_rows(ids, mask, self.chunk_size)
-        return self.runner(ids, mask, rows)
+        synchronized), the pad rows dropped. Under a recording profiler:
+        the span `e5.chunk`, from tokenizing (`e5.tokenize`) to the forward
+        issued."""
+        with span("e5.chunk"):
+            with span("e5.tokenize"):
+                ids, mask = self.tokenizer(chunk, max_length=self.max_length)
+            self.tokens_seen += int(mask.sum())
+            rows = ids.shape[0]
+            ids, mask = pad_rows(ids, mask, self.chunk_size)
+            return self.runner(ids, mask, rows)
 
     def _call_model_api(self, text_list, *args, **kwargs):
         return self._encode(text_list).cpu().numpy()
@@ -103,13 +108,14 @@ class E5EmbeddingGenerator(EmbeddingGenerator):
                 print(f"   !! embedding chunk failed ({exc}); "
                       f"emitting zero vectors for {len(chunk)} rows")
                 pending.append((None, len(chunk)))
-        done = [dev for dev, _ in pending if dev is not None]
-        host = torch.cat(done).cpu().numpy() if done else None
-        embeddings, off = [], 0
-        for dev, n in pending:
-            if dev is None:
-                embeddings.extend([self._zero_fallback()] * n)
-            else:
-                embeddings.extend(host[off:off + n])
-                off += n
+        with span("e5.readback"):
+            done = [dev for dev, _ in pending if dev is not None]
+            host = torch.cat(done).cpu().numpy() if done else None
+            embeddings, off = [], 0
+            for dev, n in pending:
+                if dev is None:
+                    embeddings.extend([self._zero_fallback()] * n)
+                else:
+                    embeddings.extend(host[off:off + n])
+                    off += n
         return embeddings

@@ -21,7 +21,12 @@ weights it closes over do not change), on host arrays:
   event that keeps the pinned block until the copy is done), the graph is
   replayed on the current stream, and the first `rows` rows of the static
   output are cloned before the next replay of that graph can overwrite
-  them. Nothing in this synchronizes the stream.
+  them. Nothing in this synchronizes the stream. Under a recording
+  profiler (utils/profiling.py) the copies, the replay and the clone are
+  the span `graph.replay`, the replay's launch call alone `graph.launch`
+  (where the host runs ahead of the card it waits there for room in the
+  launch queue), a capture the span `graph.capture`; the spans stay in
+  the host code around the graph, never inside a capture.
 - "eager": `fn` op by op on the inputs copied as the generators copied
   them before graphs (`.to(device)`, which synchronizes): a comparison
   run, chosen only with `forced_variant("eager")`.
@@ -40,13 +45,18 @@ The runner therefore takes the launches a capture records back out of
 each counted wrapper (`counted_kernels()`: K6's `masked_attention` and
 E1-E3, ops/encoder_fused.py), keeps
 them with the graph, and adds them at every replay; launches of the
-warm-up forwards ran on the card and stay counted.
+warm-up forwards ran on the card and stay counted. Under a recording
+profiler every forward issued, on either variant, adds its real tokens
+(the mask's sum) to the counter `graph.tokens` and its rows x bucket, pad
+rows included, to `graph.token_slots`.
 """
 
 import contextlib
 
 import numpy as np
 import torch
+
+from neighborhoodwatch_tpu_torch.utils.profiling import count, recording, span
 
 VARIANTS = ("graph", "eager")
 WARMUP = 2               # side-stream forwards before a capture
@@ -141,6 +151,9 @@ class GraphRunner:
         """The first `rows` rows (default: all) of `fn` over the (R, T)
         host arrays `ids` and `mask`, on the device, not synchronized."""
         rows = ids.shape[0] if rows is None else rows
+        if recording():
+            count("graph.tokens", int(mask.sum()))
+            count("graph.token_slots", int(np.prod(mask.shape)))
         if self.graphed and _forced_variant != "eager":
             return self._graphed(ids, mask, rows)
         ids = torch.from_numpy(ids).to(self.device, torch.long)
@@ -155,12 +168,15 @@ class GraphRunner:
         key = tuple(ids.shape)
         g = self.graphs.get(key)
         if g is None:
-            g = self._capture(ids, mask)
+            with span("graph.capture"):
+                g = self._capture(ids, mask)
         try:
-            g.ids.copy_(ids, non_blocking=True)
-            g.mask.copy_(mask, non_blocking=True)
-            g.graph.replay()
-            out = g.out[:rows].clone()
+            with span("graph.replay"):
+                g.ids.copy_(ids, non_blocking=True)
+                g.mask.copy_(mask, non_blocking=True)
+                with span("graph.launch"):
+                    g.graph.replay()
+                out = g.out[:rows].clone()
         except Exception as e:
             raise GraphError(f"{self.name}: replay of the {key} graph "
                              f"failed: {e}") from e

@@ -50,6 +50,7 @@ from neighborhoodwatch_tpu_torch.ops.distance import (
 )
 from neighborhoodwatch_tpu_torch.ops.topk import merge_topk, smallest_k
 from neighborhoodwatch_tpu_torch.utils.misc import cdiv, round_up
+from neighborhoodwatch_tpu_torch.utils.profiling import count, recording, span
 
 DEFAULT_TILE = 8192
 ENGINES = ("exact", "verified", "screened", "auto")
@@ -485,7 +486,34 @@ def screened_knn_traced(query, base, n_valid, base_offset, k: int,
     Python ints — the signal the streaming tier controller consumes.
 
     One host sync per call reads the two repair counts; the repairs then
-    run only when needed, as the JAX engine's `lax.cond`s do."""
+    run only when needed, as the JAX engine's `lax.cond`s do.
+
+    Under a recording profiler (utils/profiling.py) the call is the span
+    `knn.screened`, its stages the spans `knn.prepare`, `knn.screen`,
+    `knn.select`, `knn.certify`, `knn.repair_a`, `knn.repair_b` and
+    `knn.fallback` (or `knn.scan` where no screen runs), and the counters
+    `knn.queries`, `knn.repair_a_rows`, `knn.repair_b_rows` (class-B rows
+    rescanned within the budget) and `knn.fallback_rows` (the rows of a
+    batch recomputed whole) take its diagnostics."""
+    with span("knn.screened"):
+        d, i, diag = _screened_knn(query, base, n_valid, k, metric,
+                                   screen_precision, max_fallback, select_m,
+                                   base_stats, bn_row, bhi)
+        i = (i + base_offset).to(torch.int32)
+    if recording():
+        n_bin, n_full, whole = diag
+        count("knn.queries", query.shape[0])
+        count("knn.repair_a_rows", n_bin)
+        count("knn.repair_b_rows", 0 if whole else n_full)
+        count("knn.fallback_rows", query.shape[0] if whole else 0)
+    return (d, i, diag) if with_diagnostics else (d, i)
+
+
+def _screened_knn(query, base, n_valid, k: int, metric: str,
+                  screen_precision: str, max_fallback, select_m, base_stats,
+                  bn_row, bhi):
+    """screened_knn_traced's (distances, indices before the offset,
+    diagnostics)."""
     query = query.float()
     base = base.float()
     q_count, dim = query.shape
@@ -493,10 +521,6 @@ def screened_knn_traced(query, base, n_valid, base_offset, k: int,
     n_valid = int(n_valid)
     screen_precision, lean = resolve_screen_tier(screen_precision)
     passes = screen_kernel.PASSES[screen_precision]
-
-    def _out(d, i, diag):
-        i = (i + base_offset).to(torch.int32)
-        return (d, i, diag) if with_diagnostics else (d, i)
 
     fb_engine = _fallback_engine(query.device)
 
@@ -520,85 +544,92 @@ def screened_knn_traced(query, base, n_valid, base_offset, k: int,
         m = min(max(select_m, k), cap)
         block = _gather_block(m, dim)
     if n_base < screen_kernel.MEGA or k > cap:
-        d, i = _verified(query, q_count)
-        return _out(d, i, (0, 0, 0))
+        with span("knn.scan"):
+            d, i = _verified(query, q_count)
+        return d, i, (0, 0, 0)
 
     if bn_row is None or base_stats is None or bhi is None:
-        bn_c, stats_c, bhi_c = _prepare_arrays(base)
+        with span("knn.prepare"):
+            bn_c, stats_c, bhi_c = _prepare_arrays(base)
         bn_row = bn_c if bn_row is None else bn_row
         base_stats = stats_c if base_stats is None else base_stats
         bhi = bhi_c if bhi is None else bhi
-    cand_d, cand_i, _ = screen_kernel.screen_candidates(
-        query, base, epilogue=_EPILOGUE_FOR_METRIC[metric],
-        screen_precision=screen_precision, n_valid=n_valid, bn_row=bn_row,
-        bhi=bhi, sub=sub_width)
-    dist, idx, ok, cert_merge, thresh = _screened_select(
-        query, base, cand_d, cand_i, k, m, metric, passes, block=block,
-        base_stats=base_stats)
+    with span("knn.screen"):
+        cand_d, cand_i, _ = screen_kernel.screen_candidates(
+            query, base, epilogue=_EPILOGUE_FOR_METRIC[metric],
+            screen_precision=screen_precision, n_valid=n_valid,
+            bn_row=bn_row, bhi=bhi, sub=sub_width)
+    with span("knn.select"):
+        dist, idx, ok, cert_merge, thresh = _screened_select(
+            query, base, cand_d, cand_i, k, m, metric, passes, block=block,
+            base_stats=base_stats)
 
     # ---- repair of certificate failures, two classes (see module doc) --
     lanes = screen_kernel.LANES
     keep = screen_kernel.KEEP
     mega_rows = screen_kernel.TB * sub_width
     bin_rows = mega_rows // lanes
-    fail = ~ok
-    m_last = cand_d.reshape(q_count, -1, keep, lanes)[:, :, keep - 1, :]
-    sflat = (m_last < thresh[:, None, None]).reshape(q_count, -1)
-    n_susp = sflat.sum(1)
-    # a NaN thresh makes every comparison False, so cert_merge would hold
-    # vacuously: such queries must take the class-B rescan
-    binfix = fail & torch.isfinite(thresh) & cert_merge \
-        & (n_susp <= REPAIR_BINS)
-
-    na = _chernoff_budget(q_count, _BIN_FLAG_RATE[passes], k)
     w = REPAIR_BINS * bin_rows
     blk = min(128, max(8, (1 << 28) // max(1, w * dim * 4)))
     blk = 1 << (blk.bit_length() - 1)
-    rows_a = _first_rows(binfix, na)
-    take_a = binfix[rows_a]
-    # binfix queries past the class-A budget fall through to class B
-    repaired_a = torch.zeros_like(binfix)
-    repaired_a[rows_a] = take_a
-    fullfix = fail & ~repaired_a
+    na = _chernoff_budget(q_count, _BIN_FLAG_RATE[passes], k)
     nb = _repair_budget(q_count, max_fallback, sub_width, k)
-    # the one host sync of the call
-    n_bin, n_full = torch.stack([binfix.sum(), fullfix.sum()]).tolist()
+    with span("knn.certify"):
+        fail = ~ok
+        m_last = cand_d.reshape(q_count, -1, keep, lanes)[:, :, keep - 1, :]
+        sflat = (m_last < thresh[:, None, None]).reshape(q_count, -1)
+        n_susp = sflat.sum(1)
+        # a NaN thresh makes every comparison False, so cert_merge would
+        # hold vacuously: such queries must take the class-B rescan
+        binfix = fail & torch.isfinite(thresh) & cert_merge \
+            & (n_susp <= REPAIR_BINS)
+        rows_a = _first_rows(binfix, na)
+        take_a = binfix[rows_a]
+        # binfix queries past the class-A budget fall through to class B
+        repaired_a = torch.zeros_like(binfix)
+        repaired_a[rows_a] = take_a
+        fullfix = fail & ~repaired_a
+        # the one host sync of the call
+        n_bin, n_full = torch.stack([binfix.sum(), fullfix.sum()]).tolist()
 
     if n_bin:
-        flags = sflat[rows_a]                          # (na, n_mega*128)
-        bins_a = _first_rows(flags, REPAIR_BINS)       # (na, S)
-        mega_a = bins_a // lanes
-        lane_a = bins_a % lanes
-        p = torch.arange(bin_rows, device=query.device)
-        rg = (mega_a[..., None] * mega_rows + p[None, None, :] * lanes
-              + lane_a[..., None]).reshape(na, w)
-        valid = rg < n_valid
-        rgc = torch.clamp_max(rg, n_base - 1)
-        d = _exact_pair_dists(query[rows_a], base, rgc, metric, blk)
-        d_bin = torch.where(valid & torch.isfinite(d), d, _INF)
-        # dedup: a returned top-k entry inside a gathered bin already has
-        # its exact distance in d_bin
-        idx_a = idx[rows_a]
-        dist_a = dist[rows_a]
-        binid_k = (idx_a // mega_rows) * lanes + (idx_a % lanes)
-        dup = (binid_k[:, :, None] == bins_a[:, None, :]).any(2)
-        dist_a = torch.where(dup, _INF, dist_a)
-        new_d, sel = _smallest_k(torch.cat([dist_a, d_bin], dim=1), k)
-        new_i = torch.gather(torch.cat([idx_a, rgc.to(idx_a.dtype)], dim=1),
-                             1, sel)
-        ta = take_a[:, None]
-        dist[rows_a] = torch.where(ta, new_d, dist[rows_a])
-        idx[rows_a] = torch.where(ta, new_i, idx[rows_a])
+        with span("knn.repair_a"):
+            flags = sflat[rows_a]                      # (na, n_mega*128)
+            bins_a = _first_rows(flags, REPAIR_BINS)   # (na, S)
+            mega_a = bins_a // lanes
+            lane_a = bins_a % lanes
+            p = torch.arange(bin_rows, device=query.device)
+            rg = (mega_a[..., None] * mega_rows + p[None, None, :] * lanes
+                  + lane_a[..., None]).reshape(na, w)
+            valid = rg < n_valid
+            rgc = torch.clamp_max(rg, n_base - 1)
+            d = _exact_pair_dists(query[rows_a], base, rgc, metric, blk)
+            d_bin = torch.where(valid & torch.isfinite(d), d, _INF)
+            # dedup: a returned top-k entry inside a gathered bin already
+            # has its exact distance in d_bin
+            idx_a = idx[rows_a]
+            dist_a = dist[rows_a]
+            binid_k = (idx_a // mega_rows) * lanes + (idx_a % lanes)
+            dup = (binid_k[:, :, None] == bins_a[:, None, :]).any(2)
+            dist_a = torch.where(dup, _INF, dist_a)
+            new_d, sel = _smallest_k(torch.cat([dist_a, d_bin], dim=1), k)
+            new_i = torch.gather(
+                torch.cat([idx_a, rgc.to(idx_a.dtype)], dim=1), 1, sel)
+            ta = take_a[:, None]
+            dist[rows_a] = torch.where(ta, new_d, dist[rows_a])
+            idx[rows_a] = torch.where(ta, new_i, idx[rows_a])
 
     if n_full > nb:
-        dist, idx = _verified(query, q_count)
+        with span("knn.fallback"):
+            dist, idx = _verified(query, q_count)
     elif n_full:
-        rows = _first_rows(fullfix, nb)
-        take = fullfix[rows][:, None]
-        d_f, i_f = _verified(query[rows], nb)
-        dist[rows] = torch.where(take, d_f, dist[rows])
-        idx[rows] = torch.where(take, i_f.to(idx.dtype), idx[rows])
-    return _out(dist, idx, (n_bin, n_full, int(n_full > nb)))
+        with span("knn.repair_b"):
+            rows = _first_rows(fullfix, nb)
+            take = fullfix[rows][:, None]
+            d_f, i_f = _verified(query[rows], nb)
+            dist[rows] = torch.where(take, d_f, dist[rows])
+            idx[rows] = torch.where(take, i_f.to(idx.dtype), idx[rows])
+    return dist, idx, (n_bin, n_full, int(n_full > nb))
 
 
 def screened_knn(query, base, k: int, metric: str = "sqeuclidean",
