@@ -7,7 +7,8 @@ Phases, each printing its own lines and seconds:
      build of the hand-written kernels (csrc/screen_keys.cu and
      csrc/maxsim_keys.cu, both on csrc/wgmma_mainloop.cuh,
      csrc/masked_attention.cu, csrc/verified_select.cu, the kNN core's
-     csrc/prepare_base.cu, csrc/distance_tile.cu and csrc/rerank_rows.cu,
+     csrc/prepare_base.cu, csrc/distance_tile.cu, csrc/rerank_rows.cu and
+     csrc/split_distance.cu,
      the encoders' csrc/embed_layernorm.cu, csrc/add_layernorm.cu and
      csrc/masked_softmax.cu (on csrc/row_pass.cuh), and the MaxSim
      engines' csrc/maxsim_dense.cu and csrc/maxsim_pairs.cu (variants
@@ -85,7 +86,7 @@ Phases, each printing its own lines and seconds:
      a forward are printed), over 1,000 queries and
      100,000 base sentences, k=100, through the table path (compute_knn ->
      partial files -> merge): the screened engine must launch the "wgmma"
-     kernel at D=1024, and F1, F2 (the fallback's tiles) and F3, counted
+     kernel at D=1024, and F1, F4 (the fallback's tiles) and F3, counted
      from 0 around nw_main; the ivec is held against the exact engine on the
      same parquet (tie-tolerant recall 1.000), validate_files_v0 must find
      0 mismatches, and the kernel is held against its plain version on the
@@ -174,7 +175,7 @@ Phases, each printing its own lines and seconds:
      kernels line's `launches`, all of them "adaptive") and on every other
      path that runs it (`launches_by_path`, `launches_by_path_variant`);
      (d) precision "default" and "high" on the exact engine at (b)'s
-     shape: ms and max |d - d_highest|. (b) and (c) count F1 and F2.
+     shape: ms and max |d - d_highest|. (b) and (c) count F1 and F4.
  14. the encoders' compiled forward (models/graphed.py: a CUDA graph per
      padded shape), at published widths with seeded random weights: (b)
      e5-large-v2 at (64, 32), (64, 128), (64, 512) and a 37-row tail padded
@@ -218,7 +219,15 @@ Phases, each printing its own lines and seconds:
      plain version (the gather, torch.bmm), plain, rowwise and grouped in
      turns, beside the bound over the distinct rows and over every
      candidate row (ids int64: 12 bytes a pair with the distance); (d) the
-     merge's top-m on K7 against the stable sort, equal and in turns.
+     merge's top-m on K7 against the stable sort, equal and in turns; (e)
+     F4 split_distance (csrc/split_distance.cu) at the fallback's tiles
+     (10,000 x 8,192 at 1536 and 1024 dims) and nw's (1,000 x 8,192 at
+     1024): within its error model of float64 and within SPLIT_ULPS ulps
+     of its plain version on sampled rows, where the plain version
+     without its third pieces (bf16x3) must not be, two launches bit for
+     bit, timed in turns with the path it replaced (the library's fp32
+     product and F2), beside the six-product bound and the plain
+     version; its record counts the split pass's launches too.
      Their records join the kernels line, launches from phase 8's nw_main
      and per path, F3's per variant (phases 3 and 8 fail unless every F3
      launch went to its default, "rowwise").
@@ -394,7 +403,7 @@ def ptxas_report(name, report):
                 staged = " staged" if "_staged" in sym else ""
                 entry = f"{name}{staged}<{', '.join([dtype, *args])}>"
             elif name in FUSED_KERNELS or name in MAXSIM_KERNELS:
-                # F1-F3, M1-M2: the kernel's name, then its template
+                # F1-F4, M1-M2: the kernel's name, then its template
                 # arguments
                 targs = re.search(r"I((?:L[ib]\d+E)+)E", sym)
                 args = re.findall(r"\d+", targs.group(1)) if targs \
@@ -434,8 +443,9 @@ def ptxas_report(name, report):
             log(f"  ptxas {name}: {line.strip()}")
 
 
-# the kNN core's fused kernels (ops/fused_core.py): F1, F2, F3
-FUSED_KERNELS = ("prepare_base", "distance_tile", "rerank_rows")
+# the kNN core's fused kernels (ops/fused_core.py): F1, F2, F3, F4
+FUSED_KERNELS = ("prepare_base", "distance_tile", "rerank_rows",
+                 "split_distance")
 # their launches on each path that runs them, counted from 0 just before
 # the path and read just after: {path: {kernel: launches}}, with F3's per
 # variant and the shapes its plan sent to "rowwise" (shape: reason)
@@ -451,6 +461,8 @@ def fused_counted(path):
         "prepare_base": fc.prepare_base.launches,
         "distance_tile": fc.distance_tile.launches,
         "rerank_rows": fc.rerank_rows.launches,
+        "split_distance": fc.split_distance.launches,
+        "split_distance_pieces": fc.split_distance.split_launches,
         "rerank_rows_by_variant": dict(fc.rerank_rows.launches_by_variant),
         "rerank_rows_rowwise_plans": {
             str(k): v for k, v in fc.rerank_rows.rowwise_plans.items()}}
@@ -1897,8 +1909,8 @@ def phase_nw(rec, workdir, Q=1000, B=100_000, k=100,
     if launches < 1:
         raise AssertionError("nw never launched the screen kernel")
     # the screened call: F1 prepares, F3 re-ranks, and the exact fallback
-    # of the queries that fail the certificate runs its tiles on F2
-    require_fused("nw", FUSED_KERNELS)
+    # of the queries that fail the certificate runs its tiles on F4
+    require_fused("nw", ("prepare_base", "rerank_rows", "split_distance"))
     log(f"  nw_main's fused kernel launches: {FUSED_LAUNCHES['nw']} (F3 by "
         f"variant, and the shapes its plan sent to rowwise)")
     if by_variant["mma"] or by_variant["wgmma"] != launches:
@@ -3207,9 +3219,9 @@ def verified_engine(rec, n_q=512, k=100):
             fused_counted("engine_verified"):
         d_v, i_v = K.knn(q, base, k, engine="verified")
     torch.cuda.synchronize()
-    # each tile's epilogue on F2, the base's norms once on F1
+    # each tile's product and epilogue on F4, the base's norms once on F1
     for path in ("engine_exact", "engine_verified"):
-        require_fused(path, ("prepare_base", "distance_tile"))
+        require_fused(path, ("prepare_base", "split_distance"))
     knn_agree(d_v, i_v, d_e, i_e, f"(b) knn(engine='verified') vs 'exact', "
               f"{n_q} x {B} x {D}, k={k}")
     exact_ms = median_ms(lambda: K.knn(q, base, k, engine="exact"))
@@ -4097,6 +4109,109 @@ def fused_distance_tiles():
         shapes=out)
 
 
+# F4 against its plain version, which cuts the same pieces and sums the
+# same chunks in another order: ulps of the distance
+SPLIT_ULPS = 4
+
+
+def split_off_plain(d, plain):
+    """max |d - plain| over the finite distances of `plain`, in ulps of
+    `plain`."""
+    import torch
+    fin = torch.isfinite(plain)
+    mag = plain.abs()
+    ulp = torch.nextafter(mag, torch.full_like(mag, float("inf"))) - mag
+    return float(((d - plain).abs()[fin] / ulp[fin]).max())
+
+
+def fused_split_distance():
+    """(e) F4 at the fallback's tiles and nw's: sqeuclidean on Gaussian
+    rows with a masked edge, on 97 sampled rows the error against float64
+    in units of the model's bound (fused_core.split_error_bound, twice it
+    for 2 dot, plus the norms' rounding) and the ulps off the plain
+    version, where the plain version without its third pieces (the bf16x3
+    split) must lie beyond SPLIT_ULPS; two launches bit for bit; F4 / the
+    replaced path (torch.mm fp32, TF32 off, + F2) in turns, 10 launches a
+    timing, beside the bound and the plain version."""
+    import torch
+    from neighborhoodwatch_tpu_torch.ops import fused_core as fc
+    g = torch.Generator(device="cuda").manual_seed(21)
+    out = {}
+    cut = fc.split_pieces_plain
+
+    def bf16x3(x):
+        return (*cut(x)[:2], torch.zeros_like(x))
+    for label, Q, T, D in (("fallback_1536", 10_000, 8192, 1536),
+                           ("fallback_1024", 10_000, 8192, 1024),
+                           ("nw_1024", 1000, 8192, 1024)):
+        q = torch.randn(Q, D, device="cuda", generator=g)
+        b = torch.randn(T, D, device="cuda", generator=g)
+        qn, bn = fc.sq_norms(q), fc.sq_norms(b)
+        got = fc.split_distance(q, qn, b, bn, "sqeuclidean", 0, T - 5)
+        again = fc.split_distance(q, qn, b, bn, "sqeuclidean", 0, T - 5)
+        if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+            raise AssertionError(f"F4 {label}: two launches differ")
+        pl = fc.split_distance.last_plan
+        rows = torch.arange(0, Q, Q // 97, device="cuda")
+        q64, b64 = q[rows].double(), b.double()
+        norms = (q64 * q64).sum(1)[:, None] + (b64 * b64).sum(1)[None, :]
+        want = torch.clamp_min(norms - 2.0 * q64 @ b64.T, 0.0)
+        slack = 2.0 ** -24 * (2 * pl.bound * (q64.abs() @ b64.abs().T)
+                              + (D + 3) * norms)
+        rel = float(((got[rows, :T - 5].double() - want[:, :T - 5]).abs()
+                     / slack[:, :T - 5]).max())
+        if rel > 1.0 or not bool(torch.isinf(got[:, T - 5:]).all()):
+            raise AssertionError(f"F4 {label}: error {rel:.3g} of the model"
+                                 f" or an unmasked column")
+        args = (q[rows], qn[rows], b, bn, "sqeuclidean", 0, T - 5)
+        plain_rows = fc.split_distance_plain(*args)
+        fc.split_pieces_plain = bf16x3
+        try:
+            control = fc.split_distance_plain(*args)
+        finally:
+            fc.split_pieces_plain = cut
+        ulps = split_off_plain(got[rows], plain_rows)
+        control_ulps = split_off_plain(control, plain_rows)
+        if ulps > SPLIT_ULPS or control_ulps <= SPLIT_ULPS:
+            raise AssertionError(
+                f"F4 {label}: {ulps:.3g} ulps off its plain version, the "
+                f"bf16x3 split {control_ulps:.3g} (limit {SPLIT_ULPS})")
+
+        def split():
+            return fc.split_distance(q, qn, b, bn, "sqeuclidean")
+
+        def replaced():
+            return fc.distance_tile(q @ b.T, qn, bn, "sqeuclidean")
+        t = in_turns({"replaced": replaced, "kernel": split},
+                     lambda f: event_ms(lambda: [f() for _ in range(REPS)])
+                     / REPS)
+        plain = event_ms(lambda: fc.split_distance_plain(
+            q, qn, b, bn, "sqeuclidean"), runs=1)
+        bound = 6 * 2 * Q * T * D / PEAK_BF16_FLOPS * 1e3
+        out[label] = {"ms": t["kernel"], "replaced_ms": t["replaced"],
+                      "plain_ms": plain, "bound_ms": bound,
+                      "error_of_model": rel, "ulps_off_plain": ulps,
+                      "bf16x3_ulps_off_plain": control_ulps, "kc": pl.kc,
+                      "cluster": pl.cluster}
+        log(f"  (e) F4 split_distance {label} ({Q} x {T} x {D}, kc "
+            f"{pl.kc}): kernel {t['kernel']:.3f} ms ({bound / t['kernel']:.0%}"
+            f" of the six-product bound {bound:.3f} ms), the replaced path "
+            f"{t['replaced']:.3f} ms, plain {plain:.1f} ms; error "
+            f"{rel:.3g} of the model, {ulps:.3g} ulps off the plain version "
+            f"(bf16x3 {control_ulps:.3g})")
+        del q, b, got, again
+    torch.cuda.empty_cache()
+    main = out["fallback_1536"]
+    return fused_record(
+        "split_distance", "neighborhoodwatch_tpu/ops/knn.py:138",
+        ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+        shapes=out, bound_by="operations", library_ms=main["replaced_ms"],
+        split_launches=FUSED_LAUNCHES.get("nw", {}).get(
+            "split_distance_pieces", 0),
+        split_launches_by_path={p: v["split_distance_pieces"] for p, v in
+                                FUSED_LAUNCHES.items()})
+
+
 def merge_candidates(q, base, k):
     """The screened engine's merge input at (q, base, k): the screen's
     keys without each bin's last. Returns (merge_d, merge_i, m)."""
@@ -4249,7 +4364,7 @@ def fused_rerank(q, base, nw, k=100):
 
 
 def phase_fused(nw):
-    """Phase 15: F1-F3 against their plain versions at the main path's
+    """Phase 15: F1-F4 against their plain versions at the main path's
     shapes (F3 also at phase 8's, `nw` its data), timed in turns beside
     their bounds; returns their records for the kernels line (launches:
     phase 8's nw_main, and per path)."""
@@ -4259,6 +4374,7 @@ def phase_fused(nw):
     recs.append(fused_distance_tiles())
     recs.append(fused_rerank(q, base, nw))
     del q, base
+    recs.append(fused_split_distance())
     torch.cuda.empty_cache()
     log(f"  fused kernels' launches by path (each counted from 0): "
         f"{FUSED_LAUNCHES}")

@@ -9,7 +9,15 @@ Product precision, with the TPU's meaning of the JAX package's names:
   "high":    bf16x3, hi.hi + hi.lo + lo.hi with hi = bf16(x) and
              lo = bf16(x - hi), fp32 accumulation (lo.lo and the rounding
              of lo, dropped, are each at most ~2^-16 |q| |b|);
-  "highest": fp32 (callers run under resolve_device, which disables TF32).
+  "highest": fp32 accuracy. On the CPU fp32 products (callers run under
+             resolve_device, which disables TF32). On the card, wherever
+             ops/fused_core.py:split_plan takes the tile's shape, bf16x6
+             as the JAX package defines "highest": each fp32 operand cut
+             into three bf16 pieces, the six products of order <= 2 on the
+             tensor cores, within fused_core.split_error_bound (at most
+             dim 2^-24 of sum_k |q_k b_k|, an fp32 dot's budget), not bit
+             for bit the fp32 product; the library's fp32 product for
+             every other shape.
 On the card the bf16 products are one library product of bf16 tensors
 with an fp32 result (the JAX package leaves them to XLA, outside any
 Pallas kernel); on the CPU the bf16-rounded operands are multiplied in
@@ -19,12 +27,17 @@ of addition. Norms are fp32 from the fp32 inputs at every precision.
 The epilogue after the product is one pass, the counterpart of the XLA
 fusion around the JAX package's product: on the card the hand-written
 ops/fused_core.py:distance_tile (F2), with the norms from sq_norms (F1's
-norms); on the CPU their plain versions, op by op.
+norms), or, at "highest" where the split takes the tile, inside F4
+(fused_core.split_distance), which writes the distances and never the
+products; on the CPU their plain versions, op by op. Under a recording
+profiler `tile_distance` counts its "highest" tiles by route:
+`dist.split_tiles` (F4) and `dist.fp32_tiles` (the fp32 product).
 """
 
 import torch
 
 from neighborhoodwatch_tpu_torch.ops import fused_core
+from neighborhoodwatch_tpu_torch.utils.profiling import count
 
 METRICS = ("sqeuclidean", "euclidean", "cosine", "dot")
 PRECISIONS = ("default", "high", "highest")
@@ -89,18 +102,40 @@ def base_norms(base, metric: str):
     return None
 
 
+def query_pieces(q, tile, precision: str):
+    """The bf16 pieces of the prepared query rows `q` (query_operand) where
+    F4 takes their tiles shaped as `tile` at `precision` (on the card), else
+    None: a scan cuts them once a call and passes them to each
+    tile_distance."""
+    if precision != "highest":
+        return None
+    pl = fused_core.planned_split(q, tile)
+    if pl is None or pl.route != "split":
+        return None
+    return fused_core.split_pieces(q)
+
+
 def tile_distance(q, qn, tile, bn, metric: str, precision: str = "highest",
-                  lo: int = 0, hi: int | None = None):
+                  lo: int = 0, hi: int | None = None, q_pieces=None):
     """(Q, T) distances of the prepared query rows `q` (query_operand)
     against the base rows `tile` (T, d) whose squared norms are `bn` (T,)
     (None: computed here; the cosine and dot metrics read none): the
     product at `precision`, then the one-pass epilogue with columns outside
-    [lo, hi) masked to +inf."""
+    [lo, hi) masked to +inf. At "highest" on the card, F4 on the shapes
+    its plan takes (product and epilogue in one kernel), on the query's
+    pieces `q_pieces` where the caller has them (query_pieces)."""
     tile = tile.float()
     if metric == "cosine":
         tile = _safe_normalize(tile)
     elif bn is None:
         bn = base_norms(tile, metric)
+    if precision == "highest":
+        pl = fused_core.planned_split(q, tile)
+        if pl is not None and pl.route == "split":
+            count("dist.split_tiles", 1)
+            return fused_core.split_distance(q, qn, tile, bn, metric, lo, hi,
+                                             pl, q_pieces)
+        count("dist.fp32_tiles", 1)
     dots = products(q, tile, precision)
     return fused_core.distance_tile(dots, qn, bn, metric, lo, hi)
 

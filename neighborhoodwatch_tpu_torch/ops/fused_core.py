@@ -13,6 +13,16 @@ are not Pallas kernels but single passes over HBM on the TPU.
   F3 `rerank_rows` (csrc/rerank_rows.cu): JAX `_exact_pair_dists` (:379)
      under `_screened_select`'s jit: each query's candidate rows read by
      id, fp32 distances, no gathered copy of the rows.
+  F4 `split_distance` (csrc/split_distance.cu): the same step as F2 at
+     precision "highest", product included: the fp32 products as an exact
+     bf16x6 split on the tensor cores (the JAX package's "highest"), F2's
+     epilogue and mask applied in the registers, each distance written
+     once. It replaces the library's fp32 product and F2's pass over it
+     wherever `split_plan` takes the shape (ops/distance.py:tile_distance
+     asks); its error model is `split_error_bound` (csrc/split_distance.cu
+     states it), within the dot budget of ops/knn.py:_acc_rel. A tile's
+     pieces are cut once a tile, the query's once a call (`split_pieces`:
+     a scan cuts them before its tiles and passes them to each).
 
 Each wrapper launches its kernel on CUDA tensors (and counts the launch)
 or raises; on CPU tensors it runs the plain PyTorch version beside it,
@@ -36,7 +46,9 @@ hold them against each other; nothing on the main path forces one):
             shape.
   "plain"   the plain version on CUDA tensors too.
 Counts: `rerank_rows.launches` (either kernel), `.launches_by_variant`,
-`.last_plan`.
+`.last_plan`; `split_distance.launches` (the product kernel),
+`.split_launches` (the split pass), `.last_plan`, `.fp32_plans` (the
+shapes the plan sent to the fp32 path, with the reason).
 """
 
 import contextlib
@@ -73,6 +85,10 @@ _ARGTYPES = {
         "grouped_launch": [_P, _P, _P, _P, _I, _I, _I, _LL, _I, _P, _LL,
                            _P],
         "group_launch": [_P, _I, _I, _LL, _P, _LL, _P]},
+    "split_distance": {
+        "launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                   _P],
+        "pieces_launch": [_P, _LL, _I, _I, _P, _P]},
 }
 
 VARIANTS = ("grouped", "rowwise", "plain")
@@ -115,7 +131,7 @@ def _launcher(name: str, entry: str = "launch"):
 
 
 def load_libraries():
-    """Build (at first use) and load the three sources."""
+    """Build (at first use) and load the four sources."""
     for name in _ARGTYPES:
         _launcher(name)
 
@@ -540,15 +556,254 @@ def rerank_rows(query, base, ids, metric: str, block: int | None = None):
     return out
 
 
+# ---------------------------------------------------------------- F4
+# (mirrors csrc/split_distance.cu: its launcher recomputes the chunk and
+# the shared memory and refuses a plan it would not make)
+
+SPLIT_BLOCK = 128             # query rows and base rows a block
+SPLIT_SLOT_COLS = 32          # columns a ring slot
+SPLIT_CHUNKS = (128, 64, 32)  # the promotion chunks, longest first
+SPLIT_SMEM = 1024 + 4 * 3 * 2 * SPLIT_BLOCK * 2 * SPLIT_SLOT_COLS + 16 * 4
+# fewest query rows a launch takes, from SPLIT_WIDE_DIM dims and below:
+# with fewer, the library's fp32 product and F2 were as fast or faster on
+# the card (PERF.md)
+SPLIT_WIDE_DIM = 1024
+SPLIT_MIN_Q = 160
+SPLIT_MIN_Q_NARROW = 1000
+_SPLIT_CODE = {"sqeuclidean": 0, "euclidean": 1, "cosine": 2, "dot": 2}
+_NAN = float("nan")           # any NaN keeps its high mantissa bits
+_LOW16 = -65536               # 0xffff0000 as an int32
+
+
+def split_error_bound(dim: int, kc: int) -> float:
+    """F4's dot error bound in units of 2^-24 sum_k |q_k b_k|: the bf16x6
+    split's model with three pieces (ops/maxsim_fused.py:error_bound, the
+    one formula csrc/maxsim_split.cuh states): dropped terms 16.0625, a
+    tensor-core chunk of kc dims of x0 y0 (2 kc), the five small products
+    over the whole dim (dim (10/64 + 30/16384)), a promotion a chunk."""
+    from neighborhoodwatch_tpu_torch.ops import maxsim_fused
+    return maxsim_fused.error_bound(dim, kc, 3)
+
+
+def split_chunk_for(dim: int) -> int:
+    """The longest chunk of SPLIT_CHUNKS whose bound stays within dim
+    2^-24, the fp32 dot's budget (ops/knn.py:_acc_rel), else 0: 128 at
+    1,024 and 1,536 dims (442 and 527 units) and from 328, 64 from 176, 32
+    from 100, none below (those dims keep the fp32 path)."""
+    for kc in SPLIT_CHUNKS:
+        if split_error_bound(dim, kc) <= dim:
+            return kc
+    return 0
+
+
+def split_min_q(dim: int) -> int:
+    """The fewest query rows F4 takes at `dim`: SPLIT_MIN_Q from
+    SPLIT_WIDE_DIM dims, SPLIT_MIN_Q_NARROW below."""
+    return SPLIT_MIN_Q if dim >= SPLIT_WIDE_DIM else SPLIT_MIN_Q_NARROW
+
+
+def piece_ld(dim: int) -> int:
+    """The row stride of the bf16 pieces: dim rounded up to 8 (16-byte
+    rows, as TMA reads them)."""
+    return -(-dim // 8) * 8
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitPlan:
+    """F4's launch, or the fp32 path with the reason."""
+    route: str              # "split" or "fp32"
+    reason: str             # why "fp32" ("" for "split")
+    kc: int                 # dims a promotion chunk
+    cluster: int            # blocks a cluster (the base boxes multicast)
+    grid: int               # blocks
+    smem_bytes: int
+    bound: float            # split_error_bound(dim, kc)
+
+
+def _fp32(reason: str) -> SplitPlan:
+    return SplitPlan("fp32", reason, 0, 0, 0, 0, 0.0)
+
+
+def split_plan(q_rows: int, t_rows: int, dim: int,
+               aligned: bool = True) -> SplitPlan:
+    """F4's launch for `q_rows` query rows against `t_rows` base rows of
+    `dim` values, by rules of shape only: "split" where the error model
+    admits the dim (split_chunk_for), the rows are whole 16-byte groups
+    (dim % 4 == 0) at 16-byte aligned addresses (`aligned`), and the call
+    has split_min_q(dim) query rows or more; else "fp32" with the reason
+    ("empty", "dim", "unaligned", "rows", "size")."""
+    if min(q_rows, t_rows, dim) < 0:
+        raise ValueError(f"split_plan({q_rows}, {t_rows}, {dim}): nothing "
+                         f"to plan")
+    if q_rows == 0 or t_rows == 0:
+        return _fp32("empty")
+    kc = split_chunk_for(dim) if dim % 4 == 0 else 0
+    if kc == 0:
+        return _fp32("dim")
+    if not aligned:
+        return _fp32("unaligned")
+    if q_rows < split_min_q(dim):
+        return _fp32("rows")
+    qb = -(-q_rows // SPLIT_BLOCK)
+    cluster = 2 if qb >= 2 else 1
+    grid = -(-qb // cluster) * cluster * -(-t_rows // SPLIT_BLOCK)
+    if grid >= 2 ** 31:
+        return _fp32("size")
+    return SplitPlan("split", "", kc, cluster, grid, SPLIT_SMEM,
+                     split_error_bound(dim, kc))
+
+
+_split_plans: dict = {}
+
+
+def _aligned16(*tensors) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def planned_split(q, tile) -> SplitPlan | None:
+    """`split_plan_for(q, tile)` on the card, None for tensors off it."""
+    if q.device.type != "cuda":
+        return None
+    return split_plan_for(q, tile)
+
+
+def split_plan_for(q, tile) -> SplitPlan:
+    """split_plan for F4 on the prepared query rows `q` (Q, d) against the
+    base rows `tile` (T, d), once per shape. A shape sent to the fp32 path
+    is kept in `split_distance.fp32_plans` and logged the first time."""
+    (q_rows, dim), t_rows = q.shape, tile.shape[0]
+    aligned = (q.is_contiguous() and tile.is_contiguous()
+               and _aligned16(q, tile))
+    key = (q.device, q_rows, t_rows, dim, aligned)
+    pl = _split_plans.get(key)
+    if pl is None:
+        pl = _split_plans[key] = split_plan(q_rows, t_rows, dim, aligned)
+    if pl.route == "fp32":
+        shape = (q_rows, t_rows, dim, aligned)
+        if shape not in split_distance.fp32_plans:
+            _log.info("split_distance: %s x %s rows of %s dims (aligned %s) "
+                      "take the fp32 path by the plan: %s", *shape, pl.reason)
+        split_distance.fp32_plans[shape] = pl.reason
+    split_distance.last_plan = pl
+    return pl
+
+
+def split_pieces_plain(x):
+    """The three pieces of fp32 rows x (n, dim), each (n, dim) fp32 holding
+    bf16 values: a NaN made canonical, x0 = x with its low 16 bits cleared,
+    x1 the same of x - x0, x2 the same of (x - x0) - x1; x0 + x1 + x2 == x
+    for every finite x whose last bit lies at or above 2^-133."""
+    x = torch.where(torch.isnan(x), torch.full_like(x, _NAN), x)
+
+    def cut(v):
+        return (v.view(torch.int32) & _LOW16).view(torch.float32)
+    x0 = cut(x)
+    r1 = x - x0
+    x1 = cut(r1)
+    return x0, x1, cut(r1 - x1)
+
+
+def split_distance_plain(q, qn, tile, bn, metric: str, lo: int = 0,
+                         hi: int | None = None, kc: int | None = None):
+    """F4's function op by op in fp32: the pieces of q and tile
+    (split_pieces_plain), x0 y0 summed a chunk of `kc` dims at a time
+    (split_chunk_for(dim) by default) and added into an fp32 total, the
+    five small products (order 2, then 1) over the whole dim added last,
+    then `distance_tile_plain`. Products of pieces are exact in fp32; the
+    sums run in the library's order, within split_error_bound."""
+    dim = q.shape[1]
+    kc = kc or split_chunk_for(dim)
+    if kc <= 0:
+        raise ValueError(f"split_distance: no chunk admits dim {dim}")
+    a, b = split_pieces_plain(q.float()), split_pieces_plain(tile.float())
+    dots = torch.zeros((q.shape[0], tile.shape[0]), device=q.device)
+    for s in range(0, dim, kc):
+        dots = dots + a[0][:, s:s + kc] @ b[0][:, s:s + kc].T
+    small = a[2] @ b[0].T
+    for i, j in ((1, 1), (0, 2), (1, 0), (0, 1)):
+        small = small + a[i] @ b[j].T
+    return distance_tile_plain(dots + small, qn, bn, metric, lo, hi)
+
+
+def split_pieces(x):
+    """(3, n, piece_ld(dim)) bf16 pieces of (n, dim) fp32 rows on the card:
+    one launch of F4's split pass."""
+    n, dim = x.shape
+    ld = piece_ld(dim)
+    out = torch.empty((3, n, ld), dtype=torch.bfloat16, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _launcher("split_distance", "pieces_launch")(
+            x.data_ptr(), n, dim, ld, out.data_ptr(), _stream(x.device))
+    _raise_on(err, "split_distance (pieces)")
+    split_distance.split_launches += 1
+    return out
+
+
+def split_distance(q, qn, tile, bn, metric: str, lo: int = 0,
+                   hi: int | None = None, plan: SplitPlan | None = None,
+                   q_pieces=None):
+    """`split_distance_plain`'s function on the card: one launch of F4 on
+    `plan` (planned_split's for q and tile, computed here if not given; a
+    shape it sends to the fp32 path raises: ops/distance.py:tile_distance
+    routes by the same plan). q: the prepared fp32 query rows (Q, d), qn /
+    bn their and the tile's squared norms ((sq)euclidean only), tile (T,
+    d) fp32. `q_pieces`: split_pieces(q), where the caller cuts them once
+    for many tiles; else cut here. The tile's pieces are cut here (one
+    pass). Within split_error_bound of the exact dot, not bit for bit the
+    plain version's (another order of the sums); two launches give equal
+    bits."""
+    if metric not in METRICS:
+        raise ValueError(f"unknown metric {metric!r}; must be one of "
+                         f"{METRICS}")
+    q, tile = _cuda_f32(q, "q"), _cuda_f32(tile, "tile")
+    pl = planned_split(q, tile) if plan is None else plan
+    if pl is None or pl.route != "split":
+        raise ValueError(f"split_distance: the plan sends {tuple(q.shape)} x "
+                         f"{tuple(tile.shape)} to the fp32 path "
+                         f"({pl and pl.reason})")
+    (q_rows, dim), t = q.shape, tile.shape[0]
+    if tile.shape[1] != dim or tile.device != q.device:
+        raise ValueError(f"q {tuple(q.shape)} on {q.device}, tile "
+                         f"{tuple(tile.shape)} on {tile.device}")
+    hi = t if hi is None else int(hi)
+    lo, hi = max(0, min(int(lo), t)), max(0, min(hi, t))
+    l2 = metric in ("sqeuclidean", "euclidean")
+    if l2:
+        qn, bn = _cuda_f32(qn, "qn"), _cuda_f32(bn, "bn")
+        if qn.shape != (q_rows,) or bn.shape != (t,):
+            raise ValueError(f"norms {tuple(qn.shape)}, {tuple(bn.shape)} "
+                             f"for a ({q_rows}, {t}) tile")
+    qp = split_pieces(q) if q_pieces is None else q_pieces
+    if qp.shape != (3, q_rows, piece_ld(dim)):
+        raise ValueError(f"query pieces {tuple(qp.shape)} for q "
+                         f"{tuple(q.shape)}")
+    bp = split_pieces(tile)
+    out = torch.empty((q_rows, t), device=q.device)
+    dev = q.device
+    with torch.cuda.device(dev):
+        err = _launcher("split_distance")(
+            qp.data_ptr(), bp.data_ptr(), qn.data_ptr() if l2 else None,
+            bn.data_ptr() if l2 else None, out.data_ptr(), q_rows, t, dim,
+            lo, hi, _SPLIT_CODE[metric], pl.kc, pl.cluster, pl.smem_bytes,
+            _stream(dev))
+    _raise_on(err, "split_distance")
+    split_distance.launches += 1
+    return out
+
+
 def reset_launches() -> None:
     """Set every wrapper's launch counts to 0 (F3's per variant too) and
-    forget the shapes F3's plan sent to "rowwise"."""
+    forget the shapes F3's plan sent to "rowwise" and F4's to fp32."""
     prepare_base.launches = 0
     distance_tile.launches = 0
     rerank_rows.launches = 0
     rerank_rows.launches_by_variant = {v: 0 for v in VARIANTS}
     rerank_rows.rowwise_plans = {}
     rerank_rows.last_plan = None
+    split_distance.launches = 0
+    split_distance.split_launches = 0
+    split_distance.fp32_plans = {}
+    split_distance.last_plan = None
 
 
 reset_launches()

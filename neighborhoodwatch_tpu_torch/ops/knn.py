@@ -46,7 +46,7 @@ from neighborhoodwatch_tpu_torch.ops import (
     fused_core, screen_kernel, verified_kernel,
 )
 from neighborhoodwatch_tpu_torch.ops.distance import (
-    PRECISIONS, base_norms, query_operand, tile_distance,
+    PRECISIONS, base_norms, query_operand, query_pieces, tile_distance,
 )
 from neighborhoodwatch_tpu_torch.ops.topk import merge_topk, smallest_k
 from neighborhoodwatch_tpu_torch.utils.misc import cdiv, round_up
@@ -116,7 +116,8 @@ def _knn_scan(query, base, n_valid, base_offset, k: int, metric: str,
     previous tile already covered. Rows >= n_valid are masked. `engine`
     "verified" selects each tile's top-k with the verified select. The
     query's and the base's norms are computed once per call (`bn_row`: the
-    base's squared row norms, where the caller has them)."""
+    base's squared row norms, where the caller has them), and so are the
+    query's pieces where F4 takes the tiles."""
     q_count = query.shape[0]
     b_count = base.shape[0]
     assert b_count >= tile_size
@@ -127,13 +128,15 @@ def _knn_scan(query, base, n_valid, base_offset, k: int, metric: str,
     run_i = torch.zeros((q_count, k), dtype=torch.int32, device=dev)
     select = _select(engine)
     q, qn = query_operand(query, metric)
+    qp = query_pieces(q, base[:tile_size], precision)
     bn = base_norms(base, metric) if bn_row is None else bn_row
     for t in range(n_tiles):
         start = min(t * tile_size, b_count - tile_size)
         fresh = t * tile_size - start
         d = tile_distance(q, qn, base[start:start + tile_size],
                           None if bn is None else bn[start:start + tile_size],
-                          metric, precision, lo=fresh, hi=n_valid - start)
+                          metric, precision, lo=fresh, hi=n_valid - start,
+                          q_pieces=qp)
         td, ti = select(d, k_tile)
         ti = (ti + start + base_offset).to(torch.int32)
         run_d, run_i = merge_topk(run_d, run_i, td, ti, k)

@@ -95,7 +95,11 @@ def test_no_profiler_no_record_function_and_no_records(monkeypatch):
                                   "whole_batch", "scan"])
 def test_each_path_records_its_stages(path):
     """One call a path: the stage spans its diagnostics name, once each,
-    and counters equal to the diagnostics; on the CPU no device seconds."""
+    and counters equal to the diagnostics; a path that scans the base
+    counts its "highest" tiles by route (on the CPU all on the fp32
+    product: the one tile of a class-B repair or the whole batch over a
+    mega-tile's rows, the two of the base under one); on the CPU no device
+    seconds."""
     q, b, k, kw, want = _planted(path)
     with _profiled():
         d, i, diag = _screened(q, b, k, **kw)
@@ -111,10 +115,13 @@ def test_each_path_records_its_stages(path):
     assert set(rec["spans"]) == stages
     for s in rec["spans"].values():
         assert s["count"] == 1 and s["host_s"] > 0 and s["device_s"] is None
+    scanned = path in ("class_b", "whole_batch", "scan")
+    tiles = {"dist.fp32_tiles": 2 if path == "scan" else 1} if scanned \
+        else {}
     assert rec["counters"] == {
         "knn.queries": q.shape[0], "knn.repair_a_rows": n_bin,
         "knn.repair_b_rows": 0 if whole else n_full,
-        "knn.fallback_rows": q.shape[0] if whole else 0}
+        "knn.fallback_rows": q.shape[0] if whole else 0, **tiles}
     # the same answer as an untraced call
     d2, i2, _ = _screened(q, b, k, **kw)
     assert torch.equal(d, d2) and torch.equal(i, i2)
