@@ -13,6 +13,7 @@ Phases, each printing its own lines and seconds:
      csrc/masked_softmax.cu (on csrc/row_pass.cuh), and the MaxSim
      engines' csrc/maxsim_dense.cu and csrc/maxsim_pairs.cu (variants
      "ffma" on csrc/maxsim_tile.cuh and "split" on csrc/maxsim_split.cuh),
+     and the decoder's csrc/decoder_passes.cu (on csrc/row_pass.cuh),
      one nvcc each, started together, into
      neighborhoodwatch_tpu_torch/_build/) with ptxas' registers and spills
      per kernel variant (a spill fails the run);
@@ -282,6 +283,21 @@ Phases, each printing its own lines and seconds:
      yardstick (one torch.mm of M1's fp32 operands, TF32 off, never
      called by the port). Their records join the kernels line: launches
      from phase 7's ck_main, per path (6, 7, 11) and per variant.
+ 18. the decoder embedder's kernels at e5-mistral-7b-instruct's widths,
+     bf16, 64 texts at bucket 512: D1 add_rmsnorm, D2 rope and D3 swiglu
+     (csrc/decoder_passes.cu) and K6's causal grouped-query mode (32 query
+     heads over 8 K / V heads, head dim 128; also at 2 x 4,096, the model
+     card's limit) against their plain versions on the same inputs, at
+     the card tests' tolerances, each with a control the comparison must
+     catch (the norm without the add, the angles one position on, the
+     SwiGLU halves swapped, attention without the causal mask); each
+     timed cold in turns with its plain version beside its bound. Then
+     the main path: E5EmbeddingGenerator for e5-mistral-7b-instruct
+     (seeded weights, all 32 layers) over 64 documents at bucket 512,
+     with the launch counts set to 0 just before: 65 D1, 32 D2, 32 D3 and
+     32 causal "wgmma" K6 launches a forward, the profiler counters of
+     one replay the same, the replay equal bit for bit to the eager
+     forward. Their records join the kernels line.
 The line before the last is one JSON object with the kernels' numbers;
 the last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 without that line; without a CUDA card it exits 2.
@@ -292,6 +308,7 @@ import filecmp
 import importlib.util
 import io
 import json
+import math
 import os
 import re
 import shutil
@@ -392,16 +409,18 @@ def ptxas_report(name, report):
     for line in report.splitlines():
         if "Compiling entry function" in line:
             sym = line.split("'")[1]
-            if name in ENCODER_KERNELS:
-                # E1-E3: the kernel's name, then its template arguments:
-                # the activation dtype, ints, flags
+            if name in ENCODER_KERNELS or name == "decoder_passes":
+                # E1-E3, D1-D3: the kernel's name, then its template
+                # arguments: the activation dtype, ints, flags
                 dtype = ("bf16" if "bfloat16" in sym else "fp16" if
                          "__half" in sym else "fp32")
                 targs = re.search(r"I(?:13__nv_bfloat16|6__half|f)"
                                   r"((?:L[ib]\d+E)*)E", sym)
                 args = re.findall(r"\d+", targs.group(1)) if targs else []
                 staged = " staged" if "_staged" in sym else ""
-                entry = f"{name}{staged}<{', '.join([dtype, *args])}>"
+                kernel = kernel_name(sym) if name == "decoder_passes" \
+                    else name
+                entry = f"{kernel}{staged}<{', '.join([dtype, *args])}>"
             elif name in FUSED_KERNELS or name in MAXSIM_KERNELS:
                 # F1-F4, M1-M2: the kernel's name, then its template
                 # arguments
@@ -760,7 +779,7 @@ def phase_setup():
     shutil.rmtree(cuda_build.BUILD_DIR, ignore_errors=True)
     names = ("screen_keys", "maxsim_keys", "masked_attention",
              "verified_select") + FUSED_KERNELS + ENCODER_KERNELS \
-        + MAXSIM_KERNELS
+        + MAXSIM_KERNELS + ("decoder_passes",)
     t = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         reports = [r for _, r in pool.map(cuda_build.build, names)]
@@ -5094,6 +5113,302 @@ def phase_maxsim_fused():
     return recs
 
 
+# ------------------------------------------------------------ phase 18
+
+# the decoder embedder's passes (ops/encoder_fused.py, csrc/decoder_passes.cu)
+DECODER_KERNELS = ("add_rmsnorm", "rope", "swiglu")
+# e5-mistral-7b-instruct's widths (models/decoder.py's DecoderConfig) at
+# the benchmark's forward: 64 texts at bucket 512
+DECODER_ROWS, DECODER_T = 64, 512
+# launches of one 32-layer forward: D1 at the embedding and twice a
+# layer, D2, D3 and K6's causal mode once a layer
+DECODER_PER_FORWARD = {"add_rmsnorm": 65, "rope": 32, "swiglu": 32,
+                       "causal": 32}
+
+
+def must_fail(check, what):
+    """Fail unless `check()` raises AssertionError: a control that the
+    comparison has to catch."""
+    try:
+        check()
+    except AssertionError:
+        return
+    raise AssertionError(f"control not caught: {what}")
+
+
+def bits_equal(a, b):
+    import torch
+    return torch.equal(a.contiguous().view(torch.uint8),
+                       b.contiguous().view(torch.uint8))
+
+
+def kernel_plain_turns(kernel, plain, inputs):
+    """{"ms", "plain_ms"}: the kernel and its plain version cold
+    (rotating_ms over `inputs`), in turns (kernel, plain, plain, kernel)."""
+    t = in_turns({"kernel": lambda: rotating_ms(kernel, inputs),
+                  "plain": lambda: rotating_ms(plain, inputs)},
+                 lambda f: f())
+    return {"ms": t["kernel"], "plain_ms": t["plain"]}
+
+
+def decoder_passes_vs_plain(g, cfg):
+    """D1-D3 at 64 x 512 of the published widths, bf16: against their
+    plain versions on the same inputs at the card tests' tolerances (D1's
+    residual and D2 bit for bit, D1's norm and D3 within one bf16 ulp,
+    encoder_fused.outputs_agree), each with a control the comparison must
+    catch; then timed in turns with the plain version, cold, beside the
+    bytes bound (each operand read once, each result written once).
+    Returns {kernel: numbers}."""
+    import torch
+    from neighborhoodwatch_tpu_torch.ops import encoder_fused as ef
+    bf16, eps = torch.bfloat16, cfg.rms_norm_eps
+    rows, h, d = DECODER_ROWS * DECODER_T, cfg.hidden_size, cfg.head_dim
+    heads = cfg.num_heads + cfg.num_kv_heads            # q and k rotated
+    qkv_w = (cfg.num_heads + 2 * cfg.num_kv_heads) * d
+    inter = cfg.intermediate_size
+    shape = (DECODER_ROWS, DECODER_T)
+    out = {}
+
+    def randn(*s, scale=1.0):
+        return (scale * torch.randn(*shape, *s, device="cuda",
+                                    generator=g)).to(bf16)
+
+    # D1: the residual add and the RMSNorm after it; control: no add
+    w = 1 + 0.1 * torch.randn(h, device="cuda", generator=g)
+    n = rotation(4 * rows * h * 2)
+    pairs = [(randn(h, scale=3.0), randn(h)) for _ in range(n)]
+    s, o = ef.add_rmsnorm(*pairs[0], w, eps)
+    ps, po = ef.add_rmsnorm_plain(*pairs[0], w, eps)
+    if not bits_equal(s, ps):
+        raise AssertionError("add_rmsnorm: the residual differs from the "
+                             "plain version's")
+    err = ef.outputs_agree(o, po)
+    must_fail(lambda: ef.outputs_agree(
+        o, ef.add_rmsnorm_plain(pairs[0][0], None, w, eps)[1]),
+        "add_rmsnorm against the norm without the add")
+    del s, o, ps, po
+    out["add_rmsnorm"] = {
+        **kernel_plain_turns(lambda p: ef.add_rmsnorm(*p, w, eps),
+                             lambda p: ef.add_rmsnorm_plain(*p, w, eps),
+                             pairs),
+        "bound_ms": (4 * rows * h * 2 + h * 4) / PEAK_BYTES * 1e3,
+        "max_abs_err": err, "calls": n}
+    del pairs
+
+    # D2: RoPE on q and k of the fused q|k|v rows, in place; control: the
+    # angles one position on
+    cos, sin = ef.rope_table(4096, d, cfg.rope_theta, "cuda")
+    n = rotation(2 * rows * heads * d * 2)
+    xs = [randn(qkv_w) for _ in range(n)]
+    got = ef.rope(xs[0].clone(), heads, d, cos, sin)
+    if not bits_equal(got, ef.rope_plain(xs[0].clone(), heads, d, cos,
+                                         sin)):
+        raise AssertionError("rope differs from the plain version")
+    if bits_equal(got, ef.rope_plain(xs[0].clone(), heads, d,
+                                     cos[1:].contiguous(),
+                                     sin[1:].contiguous())):
+        raise AssertionError("control not caught: rope against the angles "
+                             "one position on")
+    del got
+    out["rope"] = {
+        **kernel_plain_turns(lambda x: ef.rope(x, heads, d, cos, sin),
+                             lambda x: ef.rope_plain(x, heads, d, cos, sin),
+                             xs),
+        "bound_ms": (2 * rows * heads * d * 2
+                     + 2 * DECODER_T * d // 2 * 4) / PEAK_BYTES * 1e3,
+        "max_abs_err": 0.0, "calls": n}
+    del xs
+
+    # D3: SwiGLU over the fused gate|up rows; control: the halves swapped
+    n = rotation(3 * rows * inter * 2)
+    gus = [randn(2 * inter, scale=4.0) for _ in range(n)]
+    got = ef.swiglu(gus[0])
+    err = ef.outputs_agree(got, ef.swiglu_plain(gus[0]))
+    must_fail(lambda: ef.outputs_agree(got, ef.swiglu_plain(
+        torch.cat(gus[0].chunk(2, dim=-1)[::-1], dim=-1))),
+        "swiglu against silu(up) * gate")
+    del got
+    out["swiglu"] = {
+        **kernel_plain_turns(ef.swiglu, ef.swiglu_plain, gus),
+        "bound_ms": 3 * rows * inter * 2 / PEAK_BYTES * 1e3,
+        "max_abs_err": err, "calls": n}
+    del gus
+    torch.cuda.empty_cache()
+    for name, r in out.items():
+        log(f"  {name} {DECODER_ROWS} x {DECODER_T}: == plain (control "
+            f"caught); cold, in turns, {r['calls']} calls: kernel "
+            f"{r['ms']:.4f} ms ({r['ms'] / r['bound_ms']:.2f}x the bytes "
+            f"bound {r['bound_ms']:.4f}), plain {r['plain_ms']:.4f}; max "
+            f"|d - plain| {r['max_abs_err']:.3g}")
+    return out
+
+
+def causal_gqa_vs_plain(g, cfg):
+    """K6's causal grouped-query mode at 64 x 512 and 2 x 4,096 (the model
+    card's limit), bf16, q, k, v read in place from the fused projection:
+    against masked_attention_plain(causal=True) on the same inputs
+    (attention_kernel.outputs_agree, the card tests' tolerance), the
+    written-out attention without the causal mask a control it must
+    catch; timed cold beside the products' bound (4 H D T (T + 1) / 2
+    FLOPs a row at the bf16 peak), at 64 x 512 in turns with the plain
+    version."""
+    import torch
+    from neighborhoodwatch_tpu_torch.ops import attention_kernel as ak
+    H, KV, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    scale = 1.0 / math.sqrt(d)
+
+    def qkv(B, T):
+        x = torch.randn(B, T, (H + 2 * KV) * d, device="cuda",
+                        generator=g).to(torch.bfloat16)
+        return (x[..., :H * d].view(B, T, H, d),
+                x[..., H * d:(H + KV) * d].view(B, T, KV, d),
+                x[..., (H + KV) * d:].view(B, T, KV, d))
+
+    def kernel(p):
+        return ak.masked_attention(*p, None, scale, causal=True)
+
+    def plain(p):
+        return ak.masked_attention_plain(*p, None, scale, causal=True)
+    out = {}
+    for B, T in ((DECODER_ROWS, DECODER_T), (2, 4096)):
+        if ak.pick_variant(T, d, torch.bfloat16, True) != "wgmma":
+            raise AssertionError(f"K6 at T={T}: not 'wgmma'")
+        n = rotation(B * T * (H + 2 * KV) * d * 2 * 2)
+        inputs = [qkv(B, T) for _ in range(n)]
+        got = kernel(inputs[0])
+        err = ak.outputs_agree(got, plain(inputs[0]))
+        must_fail(lambda: ak.outputs_agree(got, ak.masked_attention_plain(
+            *inputs[0], None, scale, causal=False)),
+            f"causal K6 at T={T} against attention without the mask")
+        del got
+        torch.cuda.empty_cache()
+        r = ({**kernel_plain_turns(kernel, plain, inputs)}
+             if T == DECODER_T else {"ms": rotating_ms(kernel, inputs)})
+        r.update(bound_ms=4 * B * H * d * T * (T + 1) / 2 / PEAK_BF16_FLOPS
+                 * 1e3, max_abs_err=err, calls=n)
+        out[f"{B}x{T}"] = r
+        plain_ms = (f", plain {r['plain_ms']:.4f}" if "plain_ms" in r
+                    else "")
+        log(f"  masked_attention causal GQA ({H} / {KV} heads, D={d}) "
+            f"{B} x {T}: == plain (control caught); cold, {n} calls: "
+            f"{r['ms']:.4f} ms ({r['ms'] / r['bound_ms']:.2f}x the "
+            f"products' bound {r['bound_ms']:.4f}){plain_ms}; max |d - "
+            f"plain| {err:.3g}")
+        del inputs
+        torch.cuda.empty_cache()
+    return out
+
+
+def decoder_path(cfg):
+    """The decoder on its main path: E5EmbeddingGenerator for
+    e5-mistral-7b-instruct (seeded 7.1B weights, all 32 layers) over 64
+    documents at bucket 512, twice (the first call captures). D1-D3's and
+    K6's launch counts are set to 0 just before and read after: per
+    forward (the replays and each capture's warm-up forwards) 65 D1, 32
+    D2, 32 D3 and 32 "wgmma" K6 launches; the second call's profiler
+    counters the same for its one replay; a replay equal bit for bit to
+    the same chunk's eager forward. Returns the launch counts, the
+    forwards and one replay's ms."""
+    import torch
+    from neighborhoodwatch_tpu_torch.models import decoder as dec
+    from neighborhoodwatch_tpu_torch.models import e5, graphed
+    from neighborhoodwatch_tpu_torch.ops import attention_kernel as ak
+    from neighborhoodwatch_tpu_torch.ops import encoder_fused as ef
+    from neighborhoodwatch_tpu_torch.utils import profiling
+    t = time.perf_counter()
+    gen = e5.E5EmbeddingGenerator(dec.E5_MISTRAL, device="cuda")
+    texts = bucket_texts(DECODER_ROWS, DECODER_T, np.random.default_rng(18))
+    torch.cuda.synchronize()
+    log(f"  e5-mistral-7b-instruct built (pretrained {gen.pretrained}): "
+        f"{time.perf_counter() - t:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB on the card")
+    ef.reset_launches()
+    reset_counts(ak.masked_attention)
+    with graph_forwards() as fw:
+        first = gen.generate_embedding(texts)
+        with torch.profiler.profile():
+            again = gen.generate_embedding(texts)
+            counters = dict(profiling.records()["counters"])
+    require_graphed(fw, "decoder path")
+    n = fw["forwards"] + graphed.WARMUP * fw["captures"]
+    got = {name: getattr(ef, name).launches for name in DECODER_KERNELS}
+    got["causal"] = ak.masked_attention.launches_by_variant["wgmma"]
+    want = {k: v * n for k, v in DECODER_PER_FORWARD.items()}
+    if got != want or ak.masked_attention.launches != want["causal"]:
+        raise AssertionError(f"decoder path: launched {got} (K6 "
+                             f"{ak.masked_attention.launches_by_variant}), "
+                             f"expected {want} ({n} forwards)")
+    per = DECODER_PER_FORWARD
+    want_c = {"decoder.forwards": 1, "decoder.rmsnorm": per["add_rmsnorm"],
+              "decoder.rope": per["rope"], "decoder.swiglu": per["swiglu"],
+              "attn.causal_launches": per["causal"],
+              "attn.causal_launches.wgmma": per["causal"],
+              "attn.causal_tiles": ak.causal_tiles(
+                  DECODER_ROWS, DECODER_T, cfg.num_heads, "wgmma")
+              * per["causal"]}
+    if {k: counters.get(k) for k in want_c} != want_c:
+        raise AssertionError(f"decoder path: one replay counted "
+                             f"{counters}, expected {want_c}")
+    if not np.array_equal(first, again):
+        raise AssertionError("decoder path: two replays differ")
+    ids, mask = gen.tokenizer(texts, max_length=gen.max_length)
+    with graphed.forced_variant("eager"):
+        eager = gen.generate_embedding(texts)
+    if not np.array_equal(first, eager):
+        raise AssertionError("decoder path: the replay differs from the "
+                             "eager forward")
+    g = gen.runner.graphs[(DECODER_ROWS, DECODER_T)]
+    ms = event_ms(g.graph.replay)
+    log(f"  decoder path: {n} forwards ({fw['forwards']} replays + "
+        f"{graphed.WARMUP} x {fw['captures']} warm-up) launched {got}: "
+        f"{per} a forward; one replay's counters {want_c}; replay == "
+        f"eager bit for bit; one replay of 64 x {ids.shape[1]} "
+        f"({int(mask.sum())} real tokens): {ms:.1f} ms")
+    del gen, g
+    torch.cuda.empty_cache()
+    return {"launches": got, "forwards": n, "replay_ms": ms}
+
+
+def phase_decoder():
+    """Phase 18: D1-D3 and K6's causal grouped-query mode against their
+    plain versions at e5-mistral-7b-instruct's widths, timed beside their
+    bounds, then their launches on the decoder's main path; returns their
+    records for the kernels line (ms, plain_ms and bound_ms at 64 x 512,
+    launches on the path and a forward)."""
+    import torch
+    from neighborhoodwatch_tpu_torch.models import decoder as dec
+    cfg = dec.DECODER_CONFIGS[dec.E5_MISTRAL]
+    g = torch.Generator(device="cuda").manual_seed(18)
+    passes = decoder_passes_vs_plain(g, cfg)
+    attn = causal_gqa_vs_plain(g, cfg)
+    path = decoder_path(cfg)
+    no_jax = "the plain version (the JAX package has no decoder): "
+    recs = [{"name": name, "route": "cuda",
+             "source": "neighborhoodwatch_tpu_torch/csrc/decoder_passes.cu",
+             "replaces": f"{no_jax}neighborhoodwatch_tpu_torch/ops/"
+                         f"encoder_fused.py:{name}_plain",
+             "launches": path["launches"][name],
+             "launches_per_forward": DECODER_PER_FORWARD[name],
+             "shape": f"{DECODER_ROWS}x{DECODER_T}", "bound_by": "bytes",
+             "library_ms": None, **passes[name]}
+            for name in DECODER_KERNELS]
+    main = attn[f"{DECODER_ROWS}x{DECODER_T}"]
+    recs.append({
+        "name": "masked_attention.causal_gqa", "route": "cuda",
+        "source": "neighborhoodwatch_tpu_torch/csrc/masked_attention.cu",
+        "replaces": f"{no_jax}neighborhoodwatch_tpu_torch/ops/"
+                    f"attention_kernel.py:masked_attention_plain",
+        "launches": path["launches"]["causal"],
+        "launches_per_forward": DECODER_PER_FORWARD["causal"],
+        "shape": f"{DECODER_ROWS}x{DECODER_T}", "bound_by": "flops",
+        "library_ms": None, **main, "shapes": attn})
+    recs.append({"name": "decoder_forward", "route": "cuda",
+                 "source": "neighborhoodwatch_tpu_torch/models/decoder.py",
+                 "forwards": path["forwards"],
+                 "replay_ms": path["replay_ms"]})
+    return recs
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5196,13 +5511,17 @@ def main():
         mrecs = phase_maxsim_fused()
         log(f"phase 17 the MaxSim engines' fused kernels: ok, "
             f"{time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        drecs = phase_decoder()
+        log(f"phase 18 the decoder's kernels and main path: ok, "
+            f"{time.perf_counter() - t:.1f} s")
     finally:
         for w in workdirs:
             shutil.rmtree(w, ignore_errors=True)
     assert "jax" not in sys.modules
     log(f"total {time.perf_counter() - t0:.1f} s on {card}")
     print(json.dumps({"kernels": [rec, mrec, arec, vrec, *frecs, *erecs,
-                                  *mrecs]}))
+                                  *mrecs, *drecs]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

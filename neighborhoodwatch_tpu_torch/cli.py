@@ -4,7 +4,9 @@ Flag parity with the JAX package's `nw` and `ck` (and so with the
 reference neighborhoodwatch.py:42-61 and colbert_knn.py:155-172), plus
 `--device` (default "cuda": the run raises without a card unless
 `--device cpu` asks for the host). `nw --trace-dir` records a
-torch.profiler trace of the kNN stage (utils/profiling.device_trace).
+torch.profiler trace of the embedding stage and one of the kNN stage
+(utils/profiling.device_trace), each followed by its table of the
+program's spans and counters.
 
 `--mesh N` shards the kNN (and `ck --maxsim`'s MaxSim) over N ranks, one
 process and one device each (parallel/mesh.py): start the command under
@@ -170,8 +172,10 @@ Some example commands:\n
     parser.add_argument("--yes", action="store_true",
                         help="skip interactive confirmation prompts")
     parser.add_argument("--trace-dir", type=str, default=None,
-                        help="write a torch.profiler trace of the kNN phase "
-                             "here (a Chrome trace JSON file)")
+                        help="write torch.profiler traces of the embedding "
+                             "phase and of the kNN phase here (a Chrome "
+                             "trace JSON file each) and print each phase's "
+                             "program spans and counters")
     parser.add_argument("--engine", type=str, default="auto",
                         choices=["auto", "exact", "verified", "screened"],
                         help="kNN engine: exact (the oracle), verified (the "
@@ -267,26 +271,33 @@ def _nw(args, device, mesh, start_time):
         assert output_dtype in ["float", "int8", "uint8", "binary", "ubinary"]
 
     if rank0:
-        _section("Generating query dataset")
-        section_time = time.time()
-        qsource = sources.load_query_source(
-            synthetic_rows=args.query_count * 3 if args.synthetic else None)
-        sources.generate_query_dataset(
-            data_dir, args.model_name, args.query_count, output_dimension,
-            output_dtype, source=qsource, device=device)
-        _duration(section_time, start_time)
-
-        _section("Generating base dataset")
-        section_time = time.time()
-        bsource = sources.load_base_source(
-            synthetic_rows=args.base_count * 3 if args.synthetic else None)
-        sources.generate_base_dataset(
-            data_dir, args.model_name, naming.get_source_query_dataset_filename(
+        # the embedding phase's trace: the encoders' spans and counters
+        # (e5.*, graph.*, attn.causal_*, decoder.*)
+        with device_trace(args.trace_dir):
+            _section("Generating query dataset")
+            section_time = time.time()
+            qsource = sources.load_query_source(
+                synthetic_rows=args.query_count * 3 if args.synthetic
+                else None)
+            sources.generate_query_dataset(
                 data_dir, args.model_name, args.query_count,
-                output_dimension, output_dtype),
-            args.base_count, output_dimension, output_dtype, source=bsource,
-            device=device)
-        _duration(section_time, start_time)
+                output_dimension, output_dtype, source=qsource,
+                device=device)
+            _duration(section_time, start_time)
+
+            _section("Generating base dataset")
+            section_time = time.time()
+            bsource = sources.load_base_source(
+                synthetic_rows=args.base_count * 3 if args.synthetic
+                else None)
+            sources.generate_base_dataset(
+                data_dir, args.model_name,
+                naming.get_source_query_dataset_filename(
+                    data_dir, args.model_name, args.query_count,
+                    output_dimension, output_dtype),
+                args.base_count, output_dimension, output_dtype,
+                source=bsource, device=device)
+            _duration(section_time, start_time)
 
         cleanup_partial_parquet(f"{data_dir}/partial")
     if mesh is not None:

@@ -19,7 +19,19 @@
 // q, k, v are read in place as (B, T, H, D) with the strides they come
 // with (the encoder's nn.Linear outputs viewed per head, never transposed
 // or copied); the output is written (B, T, H, D) contiguous, the layout the
-// output projection reads. seg is (B, T) int32 or uint8.
+// output projection reads. seg is (B, T) int32 or uint8, or absent (every
+// position one segment).
+//
+// The decoder embedder's mode (models/decoder.py): causal, where key j
+// also needs j <= i (a key past the query is masked as another segment's),
+// and grouped-query heads, k and v (B, T, HKV, D) with query head h
+// reading K / V head h / (H / HKV). Under causal a key tile past the
+// query tile's own is never loaded (the key tiles of a 128-query item are
+// those up to its own: nqt (nqt + 1) / 2 of nqt^2 a head); the query
+// tile's own key tile (DIAG) compares positions key by key, and every
+// earlier tile is seen whole. Causal is a template argument of both
+// variants, so the segment mode's code is as it was; causal launches take
+// a scale > 0.
 //
 // Two variants, chosen by shape in ops/attention_kernel.py:pick_variant.
 //
@@ -98,6 +110,7 @@
 
 #include <cfloat>
 #include <climits>
+#include <cmath>
 #include <cstdint>
 #include <numeric>
 #include <type_traits>
@@ -117,11 +130,12 @@ struct Params {
   const void* q;
   const void* k;
   const void* v;
-  const void* seg;
+  const void* seg;  // null: every position in one segment
   void* out;
   int T, H, seg_bytes;
   long long q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh;
   float scale;
+  int HKV;          // K / V heads: query head h reads K / V head h / (H / HKV)
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -380,7 +394,7 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads)
     masked_attention_kernel(const Params p) {
   using L = Layout<T, D>;
@@ -392,17 +406,25 @@ __global__ void __launch_bounds__(kThreads)
   int* sseg = reinterpret_cast<int*>(scratch + Products<T, D>::kScratch);
   int* stiles = sseg + p.T;  // the key tiles this block visits, in order
   __shared__ int n_tiles_sh;
+  // the rows of K and V of query head h's K / V head, read at each stage
+  // from here: held in registers through the loop, they spilled the fp32
+  // instantiation at D = 128
+  __shared__ const T* kv_rows[2];
 
   const int q_start = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
+  if (threadIdx.x == 0) {
+    const int kvh = h / (p.H / p.HKV);
+    kv_rows[0] = static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh;
+    kv_rows[1] = static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+  }
 
   load_tile<T, D>(sq, qb, p.q_st, q_start);
   cp_async_commit();
   for (int i = threadIdx.x; i < p.T; i += kThreads)
-    sseg[i] = p.seg_bytes == 1
+    sseg[i] = p.seg == nullptr ? 0
+              : p.seg_bytes == 1
                   ? static_cast<const uint8_t*>(p.seg)[(long long)b * p.T + i]
                   : static_cast<const int*>(p.seg)[(long long)b * p.T + i];
   __syncthreads();
@@ -411,7 +433,9 @@ __global__ void __launch_bounds__(kThreads)
                      (1u << (sseg[q_start + 32 + lane] & 31));
     qbits = __reduce_or_sync(0xffffffffu, qbits);
     int n = 0;
-    for (int j0 = 0; j0 < p.T; j0 += kTile) {
+    // causal: no key tile past the query tile's own
+    const int end = CAUSAL ? q_start + kTile : p.T;
+    for (int j0 = 0; j0 < end; j0 += kTile) {
       unsigned kbits = (1u << (sseg[j0 + lane] & 31)) |
                        (1u << (sseg[j0 + 32 + lane] & 31));
       kbits = __reduce_or_sync(0xffffffffu, kbits);
@@ -427,8 +451,8 @@ __global__ void __launch_bounds__(kThreads)
 
   auto load_stage = [&](int i) {
     T* st = skv + (i & 1) * 2 * kTileElems;
-    load_tile<T, D>(st, kb, p.k_st, stiles[i]);
-    load_tile<T, D>(st + kTileElems, vb, p.v_st, stiles[i]);
+    load_tile<T, D>(st, kv_rows[0], p.k_st, stiles[i]);
+    load_tile<T, D>(st + kTileElems, kv_rows[1], p.v_st, stiles[i]);
     cp_async_commit();
   };
   load_stage(0);
@@ -458,6 +482,20 @@ __global__ void __launch_bounds__(kThreads)
     const int* kseg = sseg + stiles[i];
     float s[8][4];
     prod.scores(sk, lane, s);
+    if (CAUSAL && stiles[i] == q_start) {
+      // the query tile's own key tile: key 8n + 2t + e lies past row
+      // warp * 16 + g + 8r where 8n + e > lim + 8r, and its score becomes
+      // -inf, which the scale (> 0) and the mask below keep (every row
+      // sees its own key, so none is left without one)
+      const int lim = warp * 16 + g - 2 * t;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            if (8 * n + e > lim + 8 * r) s[n][2 * r + e] = -INFINITY;
+    }
 
     float mx[2] = {m[0], m[1]};
 #pragma unroll
@@ -520,12 +558,12 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool CAUSAL>
 int launch(const Params& p, int B, cudaStream_t stream) {
   const size_t smem = 5 * kTile * Layout<T, D>::kPitch * sizeof(T) +
                       Products<T, D>::kScratch * sizeof(float) +
                       (p.T + p.T / kTile) * sizeof(int);
-  auto kernel = masked_attention_kernel<T, D>;
+  auto kernel = masked_attention_kernel<T, D, CAUSAL>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -548,6 +586,7 @@ constexpr int SMEM_MAX = 232448;         // 227 KB a block may use
 constexpr int BAR_BYTES = 256;
 constexpr int LAST = 1;                  // slot flags: the item's last tile;
 constexpr int UNIFORM = 2;               // every key of the tile has one id
+constexpr int DIAG = 4;                  // causal: the item's own key tile
 constexpr int TURN_BAR = 1;              // named barriers 1, 2: the turns
 constexpr int OUT_BAR = 3;               // 3, 4: a warpgroup's epilogue
 
@@ -589,6 +628,7 @@ struct Cfg {
 
 __device__ __forceinline__ int seg_at(const void* seg, int seg_bytes,
                                       long long i) {
+  if (seg == nullptr) return 0;  // one segment
   return seg_bytes == 1 ? static_cast<const uint8_t*>(seg)[i]
                         : static_cast<const int*>(seg)[i];
 }
@@ -713,10 +753,12 @@ __device__ __forceinline__ void scores(float (&s)[64], uint32_t q_tile,
 // columns 8j + 2t + e of the tile, whose segment ids are kseg): the
 // running maxima m, this thread's share of the row sums l, and the factors
 // a by which o and l (already applied to l) rescale.
+template <bool CAUSAL>
 __device__ __forceinline__ void softmax(float (&s)[64], const SlotMeta& sm,
-                                        int t, int qs0, int qs1, float scale,
-                                        float& m0, float& m1, float& l0,
-                                        float& l1, float& a0, float& a1) {
+                                        int t, int row, int qs0, int qs1,
+                                        float scale, float& m0, float& m1,
+                                        float& l0, float& l1, float& a0,
+                                        float& a1) {
   // logits: scaled, plus the finite mask where a key is in another
   // segment; the row maxima, over four partial maxima a row (short
   // dependency chains: two warps a scheduler hide little latency)
@@ -740,6 +782,25 @@ __device__ __forceinline__ void softmax(float (&s)[64], const SlotMeta& sm,
     r0[0] = see0 ? x0 * scale : kMaskValue;
     r1[0] = see1 ? x1 * scale : kMaskValue;
     r0[1] = r0[2] = r0[3] = r1[1] = r1[2] = r1[3] = -FLT_MAX;
+  } else if (CAUSAL && (flags & DIAG)) {
+    // causal, the item's own key tile (queries and keys the same 128
+    // positions): key c is seen by row r where c <= r and the ids agree
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int c = 8 * j + 2 * t;
+      const int2 ks =
+          *reinterpret_cast<const int2*>(&sm.seg[c]);
+      s[4 * j] = s[4 * j] * scale +
+                 (ks.x == qs0 && c <= row ? 0.f : kMaskValue);
+      s[4 * j + 1] = s[4 * j + 1] * scale +
+                     (ks.y == qs0 && c + 1 <= row ? 0.f : kMaskValue);
+      s[4 * j + 2] = s[4 * j + 2] * scale +
+                     (ks.x == qs1 && c <= row + 8 ? 0.f : kMaskValue);
+      s[4 * j + 3] = s[4 * j + 3] * scale +
+                     (ks.y == qs1 && c + 1 <= row + 8 ? 0.f : kMaskValue);
+      r0[j % 4] = fmaxf(r0[j % 4], fmaxf(s[4 * j], s[4 * j + 1]));
+      r1[j % 4] = fmaxf(r1[j % 4], fmaxf(s[4 * j + 2], s[4 * j + 3]));
+    }
   } else {
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
@@ -834,14 +895,14 @@ __device__ __forceinline__ void pack_p(const float (&s)[64],
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool CAUSAL>
 __global__ void __launch_bounds__(THREADS, 1)
 masked_attention_wgmma(const __grid_constant__ CUtensorMap m_q,
                        const __grid_constant__ CUtensorMap m_k,
                        const __grid_constant__ CUtensorMap m_v,
                        const __grid_constant__ CUtensorMap m_o,
                        const void* __restrict__ seg, int seq, int H,
-                       int n_items, int seg_bytes, float scale) {
+                       int group, int n_items, int seg_bytes, float scale) {
   using C = Cfg<D>;
   constexpr int Q_STAGES = C::Q_STAGES;
   extern __shared__ unsigned char smem_raw[];
@@ -872,13 +933,16 @@ masked_attention_wgmma(const __grid_constant__ CUtensorMap m_q,
       wg::Ring qr(q_bars, Q_STAGES), kv(kv_bars, C::STAGES);
       for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
         const int qt = item % nqt, h = (item / nqt) % H, b = item / nqt / H;
+        const int kvh = h / group;  // the K / V head of query head h
         const long long row = (long long)b * seq;
         scan_row(seg, seg_bytes, row, nkt, lane, meta.tiles);
-        // key tiles some query of the item sees
+        // key tiles some query of the item sees; under causal none past
+        // the item's own
         const int qbits = meta.tiles[qt].x;
         uint64_t visible = 0;
         for (int j = 0; j < nkt; ++j)
           if (meta.tiles[j].x & qbits) visible |= 1ull << j;
+        if (CAUSAL) visible &= (2ull << qt) - 1;
         wg::mbar_wait(qr.empty(), qr.phase ^ 1);
         stage_ids(seg, seg_bytes, row + qt * BQ, lane, meta.qseg[qr.slot]);
         if (lane == 0) {
@@ -896,7 +960,9 @@ masked_attention_wgmma(const __grid_constant__ CUtensorMap m_q,
           SlotMeta& sm = metas[kv.slot];
           if (lane == 0) {
             const int4 ki = meta.tiles[j];
-            sm.flags = (visible ? 0 : LAST) | (ki.y == ki.z ? UNIFORM : 0);
+            const bool diag = CAUSAL && j == qt;
+            sm.flags = (visible ? 0 : LAST) |
+                       (diag ? DIAG : ki.y == ki.z ? UNIFORM : 0);
             sm.id = ki.y;
           }
           stage_ids(seg, seg_bytes, row + j * BK, lane, sm.seg);
@@ -906,9 +972,9 @@ masked_attention_wgmma(const __grid_constant__ CUtensorMap m_q,
             const uint32_t dst = kv_tiles + kv.slot * C::KV;
             for (int c = 0; c < C::NB; ++c) {
               wg::tma_load_4d(dst + c * BOX_BYTES, &m_k, kv.full(),
-                              c * BOX_COLS, h, j * BK, b);
+                              c * BOX_COLS, kvh, j * BK, b);
               wg::tma_load_4d(dst + C::TILE + c * BOX_BYTES, &m_v,
-                              kv.full(), c * BOX_COLS, h, j * BK, b);
+                              kv.full(), c * BOX_COLS, kvh, j * BK, b);
             }
           }
           kv.advance();
@@ -1010,7 +1076,8 @@ masked_attention_wgmma(const __grid_constant__ CUtensorMap m_q,
     start_item();
     for (;;) {
       // s: the scores of the item's first tile
-      softmax(s, metas[kv.slot], t, qs0, qs1, scale, m0, m1, l0, l1, a0, a1);
+      softmax<CAUSAL>(s, metas[kv.slot], t, r0, qs0, qs1, scale, m0, m1, l0,
+                      l1, a0, a1);
       pack_p<T>(s, pa);
       int prev = kv.slot;
       kv.advance();
@@ -1026,8 +1093,8 @@ masked_attention_wgmma(const __grid_constant__ CUtensorMap m_q,
         turn_pass<D>(w);
         wg::wgmma_wait<1>();
         wg::fence_regs(s);
-        softmax(s, metas[kv.slot], t, qs0, qs1, scale, m0, m1, l0, l1, a0,
-                a1);
+        softmax<CAUSAL>(s, metas[kv.slot], t, r0, qs0, qs1, scale, m0, m1, l0,
+                        l1, a0, a1);
         // the previous tile's P V has retired: its slot goes back
         wg::wgmma_wait<0>();
         wg::fence_regs(o);
@@ -1093,7 +1160,7 @@ masked_attention_wgmma(const __grid_constant__ CUtensorMap m_q,
 
 }  // namespace wga
 
-template <typename T, int D>
+template <typename T, int D, bool CAUSAL>
 int launch_wgmma(const Params& p, int B, cudaStream_t stream) {
   using C = wga::Cfg<D>;
   const CUtensorMapDataType dtype = std::is_same<T, __half>::value
@@ -1106,14 +1173,16 @@ int launch_wgmma(const Params& p, int B, cudaStream_t stream) {
                                {p.v_sh, p.v_st, p.v_sb}};
   const uint64_t dims[4] = {(uint64_t)D, (uint64_t)p.H, (uint64_t)p.T,
                             (uint64_t)B};
+  const uint64_t kv_dims[4] = {(uint64_t)D, (uint64_t)p.HKV, (uint64_t)p.T,
+                               (uint64_t)B};
   const uint32_t box[4] = {wga::BOX_COLS, 1, wga::BK, 1};
   CUtensorMap maps[4];
   for (int i = 0; i < 3; ++i) {
     const uint64_t strides[3] = {(uint64_t)str[i][0] * sizeof(T),
                                  (uint64_t)str[i][1] * sizeof(T),
                                  (uint64_t)str[i][2] * sizeof(T)};
-    const int e = wg::make_map(&maps[i], ptrs[i], 4, dims, strides, box,
-                               dtype);
+    const int e = wg::make_map(&maps[i], ptrs[i], 4, i ? kv_dims : dims,
+                               strides, box, dtype);
     if (e != 0) return e;
   }
   // the output, contiguous, in boxes of one warpgroup's 64 rows
@@ -1129,7 +1198,7 @@ int launch_wgmma(const Params& p, int B, cudaStream_t stream) {
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  auto kernel = wga::masked_attention_wgmma<T, D>;
+  auto kernel = wga::masked_attention_wgmma<T, D, CAUSAL>;
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              C::SMEM);
@@ -1141,48 +1210,76 @@ int launch_wgmma(const Params& p, int B, cudaStream_t stream) {
   int grid = n_items < sms ? n_items : sms;
   while (grid > 1 && std::gcd(grid, nqt) != 1) --grid;
   kernel<<<grid, wga::THREADS, C::SMEM, stream>>>(
-      maps[0], maps[1], maps[2], maps[3], p.seg, p.T, p.H, n_items,
-      p.seg_bytes, p.scale);
+      maps[0], maps[1], maps[2], maps[3], p.seg, p.T, p.H, p.H / p.HKV,
+      n_items, p.seg_bytes, p.scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q, k, v: (B, T, H, D) with element strides (batch, seq, head) and unit
-// stride along D; out: (B, T, H, D) contiguous; seg: (B, T) contiguous,
-// seg_bytes 1 (uint8) or 4 (int32); dtype 0 = bf16, 1 = fp32, 2 = fp16;
-// variant 0 = "mma", 1 = "wgmma" (bf16/fp16, T % 128 == 0, rows a tensor
-// map can describe: 16-byte aligned base and strides). Returns 0, a CUDA
-// error, cudaErrorInvalidValue for arguments the variant does not take, or
-// a tensor-map code of csrc/wgmma_mainloop.cuh (2xxxx).
+// q: (B, T, H, D), k, v: (B, T, HKV, D) with element strides (batch, seq,
+// head) and unit stride along D, H a multiple of HKV (query head h reads
+// K / V head h / (H / HKV)); out: (B, T, H, D) contiguous; seg: (B, T)
+// contiguous, seg_bytes 1 (uint8) or 4 (int32), or null (one segment);
+// causal 1: query i sees the keys j <= i of its segment only; dtype 0 =
+// bf16, 1 = fp32, 2 = fp16; variant 0 = "mma", 1 = "wgmma" (bf16/fp16, T %
+// 128 == 0, rows a tensor map can describe: 16-byte aligned base and
+// strides). Returns 0, a CUDA error, cudaErrorInvalidValue for arguments
+// the variant does not take, or a tensor-map code of
+// csrc/wgmma_mainloop.cuh (2xxxx).
 extern "C" int masked_attention_launch(
     const void* q, const void* k, const void* v, const void* seg, void* out,
-    int B, int T, int H, int D, long long q_sb, long long q_st,
+    int B, int T, int H, int HKV, int D, long long q_sb, long long q_st,
     long long q_sh, long long k_sb, long long k_st, long long k_sh,
     long long v_sb, long long v_st, long long v_sh, int seg_bytes,
-    int dtype, int variant, float scale, void* stream) {
-  if (B < 1 || B > 65535 || H < 1 || H > 65535 || T < kTile ||
-      T % kTile || T > kMaxSeq || (seg_bytes != 1 && seg_bytes != 4))
+    int causal, int dtype, int variant, float scale, void* stream) {
+  if (B < 1 || B > 65535 || H < 1 || H > 65535 || HKV < 1 || H % HKV ||
+      T < kTile || T % kTile || T > kMaxSeq ||
+      (seg_bytes != 1 && seg_bytes != 4) || (causal != 0 && causal != 1) ||
+      (causal && !(scale > 0.f)))
     return (int)cudaErrorInvalidValue;
-  const Params p{q,    k,    v,    seg,  out,  T,    H,    seg_bytes,
-                 q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st,
-                 v_sh, scale};
+  const Params p{q,    k,    v,    seg,  out,  T,     H,   seg_bytes,
+                 q_sb, q_st, q_sh, k_sb, k_st, k_sh,  v_sb, v_st,
+                 v_sh, scale, HKV};
   cudaStream_t st = (cudaStream_t)stream;
   if (variant == 1) {
     if (T % wga::BQ) return (int)cudaErrorInvalidValue;
-    if (dtype == 0 && D == 64) return launch_wgmma<__nv_bfloat16, 64>(p, B, st);
+    if (causal) {
+      if (dtype == 0 && D == 64)
+        return launch_wgmma<__nv_bfloat16, 64, true>(p, B, st);
+      if (dtype == 0 && D == 128)
+        return launch_wgmma<__nv_bfloat16, 128, true>(p, B, st);
+      if (dtype == 2 && D == 64) return launch_wgmma<__half, 64, true>(p, B, st);
+      if (dtype == 2 && D == 128)
+        return launch_wgmma<__half, 128, true>(p, B, st);
+      return (int)cudaErrorInvalidValue;
+    }
+    if (dtype == 0 && D == 64)
+      return launch_wgmma<__nv_bfloat16, 64, false>(p, B, st);
     if (dtype == 0 && D == 128)
-      return launch_wgmma<__nv_bfloat16, 128>(p, B, st);
-    if (dtype == 2 && D == 64) return launch_wgmma<__half, 64>(p, B, st);
-    if (dtype == 2 && D == 128) return launch_wgmma<__half, 128>(p, B, st);
+      return launch_wgmma<__nv_bfloat16, 128, false>(p, B, st);
+    if (dtype == 2 && D == 64) return launch_wgmma<__half, 64, false>(p, B, st);
+    if (dtype == 2 && D == 128)
+      return launch_wgmma<__half, 128, false>(p, B, st);
     return (int)cudaErrorInvalidValue;
   }
   if (variant != 0) return (int)cudaErrorInvalidValue;
-  if (dtype == 0 && D == 64) return launch<__nv_bfloat16, 64>(p, B, st);
-  if (dtype == 0 && D == 128) return launch<__nv_bfloat16, 128>(p, B, st);
-  if (dtype == 1 && D == 64) return launch<float, 64>(p, B, st);
-  if (dtype == 1 && D == 128) return launch<float, 128>(p, B, st);
-  if (dtype == 2 && D == 64) return launch<__half, 64>(p, B, st);
-  if (dtype == 2 && D == 128) return launch<__half, 128>(p, B, st);
+  if (causal) {
+    if (dtype == 0 && D == 64) return launch<__nv_bfloat16, 64, true>(p, B, st);
+    if (dtype == 0 && D == 128)
+      return launch<__nv_bfloat16, 128, true>(p, B, st);
+    if (dtype == 1 && D == 64) return launch<float, 64, true>(p, B, st);
+    if (dtype == 1 && D == 128) return launch<float, 128, true>(p, B, st);
+    if (dtype == 2 && D == 64) return launch<__half, 64, true>(p, B, st);
+    if (dtype == 2 && D == 128) return launch<__half, 128, true>(p, B, st);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (dtype == 0 && D == 64) return launch<__nv_bfloat16, 64, false>(p, B, st);
+  if (dtype == 0 && D == 128)
+    return launch<__nv_bfloat16, 128, false>(p, B, st);
+  if (dtype == 1 && D == 64) return launch<float, 64, false>(p, B, st);
+  if (dtype == 1 && D == 128) return launch<float, 128, false>(p, B, st);
+  if (dtype == 2 && D == 64) return launch<__half, 64, false>(p, B, st);
+  if (dtype == 2 && D == 128) return launch<__half, 128, false>(p, B, st);
   return (int)cudaErrorInvalidValue;
 }

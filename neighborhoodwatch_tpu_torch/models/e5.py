@@ -13,11 +13,20 @@ forward and the pooling run as one captured CUDA graph per token bucket
 Weights come from a locally cached HuggingFace checkpoint when there is
 one, else from a seeded random init (`pretrained` says which); carry the
 JAX package's weights across with models.bert.bert_state_from_flax.
+
+The same generator serves the decoder embedder e5-mistral-7b-instruct
+(models/decoder.py): its forward in place of BERT's, last-token pooling in
+place of the mean, BOS / EOS around each text, texts cut at the model
+card's 4,096 tokens and buckets from 64, the card's instruction before
+queries (`dataset_type="query"`) and nothing before documents. Its
+weights: a state_dict adopted on the device as it is (no copy), the cached
+checkpoint, or a seeded init drawn on the device.
 """
 
 import torch
 
 from neighborhoodwatch_tpu_torch import resolve_device
+from neighborhoodwatch_tpu_torch.models import decoder as dec
 from neighborhoodwatch_tpu_torch.models.bert import (
     BertEncoder, E5_CONFIGS, init_params, load_hf_weights,
     mean_pool_normalize,
@@ -34,37 +43,59 @@ from neighborhoodwatch_tpu_torch.utils.profiling import span
 
 
 class E5EmbeddingGenerator(EmbeddingGenerator):
-    """`state` is a BertEncoder state_dict; None loads the cached
-    checkpoint, else a seeded random init. `device=None` means "cuda" and
-    raises without a card."""
+    """`state` is a BertEncoder (DecoderEncoder for e5-mistral) state_dict;
+    None loads the cached checkpoint, else a seeded random init.
+    `max_length` None is the model's limit (512; e5-mistral's card 4,096).
+    `dataset_type` "query" puts e5-mistral's instruction before each text.
+    `device=None` means "cuda" and raises without a card."""
 
     def __init__(self, model_name=EmbeddingModelName.INTFLOAT_E5_BASE_V2.value,
-                 max_length: int = 512, state=None, seed: int = 0,
-                 device=None):
-        assert model_name in E5_CONFIGS, f"{model_name} is not an e5 model"
+                 max_length: int | None = None, state=None, seed: int = 0,
+                 device=None, dataset_type=None):
+        decoder = model_name in dec.DECODER_CONFIGS
+        assert model_name in E5_CONFIGS or decoder, \
+            f"{model_name} is not an e5 model"
         super().__init__(model_name=model_name, chunk_size=64)
+        self.dataset_type = dataset_type
         self.device = resolve_device(device)
-        self.config = E5_CONFIGS[model_name]
-        self.max_length = max_length
-        self.tokenizer = load_tokenizer(model_name)
         self.tokens_seen = 0       # pipeline-level tokens/s accounting
-        self.model = BertEncoder(self.config)
-        if state is None:
-            state = load_hf_weights(model_name, self.config)
-        if state is None:
-            init_params(self.model, seed)
-            self.pretrained = False
+        if decoder:
+            self.config = dec.DECODER_CONFIGS[model_name]
+            self.max_length = max_length or dec.MAX_LENGTH
+            if self.max_length % 64 or not 64 <= self.max_length \
+                    <= dec.MAX_LENGTH:
+                raise ValueError(f"{model_name}: max_length "
+                                 f"{self.max_length} is no multiple of 64 "
+                                 f"in 64 .. {dec.MAX_LENGTH}")
+            self.tokenizer = load_tokenizer(model_name, decoder=self.config)
+            if state is None:
+                state = dec.load_hf_weights(model_name, self.config)
+            self.model, self.pretrained = dec.build_decoder(
+                self.config, state, seed, self.device, self.max_length)
+            pool = dec.last_token_normalize
+            buckets = token_buckets(self.max_length, min_bucket=64)
         else:
-            self.model.load_state_dict(state)
-            self.pretrained = True
-        self.model.to(self.device).eval()
+            self.config = E5_CONFIGS[model_name]
+            self.max_length = max_length or 512
+            self.tokenizer = load_tokenizer(model_name)
+            self.model = BertEncoder(self.config)
+            if state is None:
+                state = load_hf_weights(model_name, self.config)
+            if state is None:
+                init_params(self.model, seed)
+                self.pretrained = False
+            else:
+                self.model.load_state_dict(state)
+                self.pretrained = True
+            self.model.to(self.device).eval()
+            pool = mean_pool_normalize
+            buckets = token_buckets(self.max_length)
         model = self.model
 
         def forward(ids, mask):
-            return mean_pool_normalize(model(ids, mask), mask)
+            return pool(model(ids, mask), mask)
         # every chunk is padded to chunk_size rows: one graph per bucket
-        self.runner = GraphRunner(forward, self.device,
-                                  len(token_buckets(max_length)),
+        self.runner = GraphRunner(forward, self.device, len(buckets),
                                   name=model_name)
 
     def _encode(self, chunk):

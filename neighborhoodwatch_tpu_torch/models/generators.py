@@ -29,9 +29,35 @@ from neighborhoodwatch_tpu_torch.models.registry import (
 )
 
 
+E5_V2_MODELS = (EmbeddingModelName.INTFLOAT_E5_SMALL_V2.value,
+                EmbeddingModelName.INTFLOAT_E5_BASE_V2.value,
+                EmbeddingModelName.INTFLOAT_E5_LARGE_V2.value)
+# e5-mistral-7b-instruct's model card: "Instruct: {task}" and "Query: "
+# on two lines before a query, its task for web search; documents take none
+MISTRAL_QUERY_PREFIX = ("Instruct: Given a web search query, retrieve "
+                        "relevant passages that answer the query\nQuery: ")
+
+
+def text_prefix(model_name: str, dataset_type=None) -> str:
+    """What goes before each text: "query:" for the e5-v2 models, on every
+    text (the reference's contract); for e5-mistral-7b-instruct its model
+    card's web-search instruction on queries (`dataset_type` "query") and
+    nothing on documents; nothing for the other models."""
+    if model_name in E5_V2_MODELS:
+        return "query:"
+    if model_name == EmbeddingModelName.INTFLOAT_E5_MISTRAL_7B.value \
+            and dataset_type == "query":
+        return MISTRAL_QUERY_PREFIX
+    return ""
+
+
 class EmbeddingGenerator(ABC):
     """Chunked batch embedding with per-chunk zero-vector fallback
-    (reference: model_generator.py:156-213)."""
+    (reference: model_generator.py:156-213). `dataset_type` ("query",
+    "document" or None) picks a model's prefix where it has one per kind
+    (`text_prefix`)."""
+
+    dataset_type = None
 
     def __init__(self, model_name: str, chunk_size: int,
                  output_dimension: int | None = None):
@@ -53,10 +79,11 @@ class EmbeddingGenerator(ABC):
         return self.output_dimension
 
     def _iter_chunks(self, texts):
-        """Yield chunk_size-bounded slices, with the e5 "query:" prefix
-        applied exactly once here (the reference applies it twice — in the
-        ABC and again in the dataset layer; see module docstring)."""
-        prefix = "query:" if "e5" in self.model_name else None
+        """Yield chunk_size-bounded slices, with the model's prefix
+        (`text_prefix`: the e5 "query:") applied exactly once here (the
+        reference applies it twice — in the ABC and again in the dataset
+        layer; see module docstring)."""
+        prefix = text_prefix(self.model_name, self.dataset_type)
         for start in range(0, len(texts), self.chunk_size):
             chunk = texts[start:start + self.chunk_size]
             yield [prefix + t for t in chunk] if prefix else chunk

@@ -41,11 +41,14 @@ Counts, across every runner, as the kernel wrappers keep theirs:
 replays, "eager" forwards op by op, on either device) and `captures`. A
 kernel wrapper counts on the host where its launch is issued, so a launch
 recorded into a graph would count once at capture and never at replay.
-The runner therefore takes the launches a capture records back out of
-each counted wrapper (`counted_kernels()`: K6's `masked_attention` and
-E1-E3, ops/encoder_fused.py), keeps
-them with the graph, and adds them at every replay; launches of the
-warm-up forwards ran on the card and stay counted. Under a recording
+The runner therefore takes what a capture counts aside into one record
+kept with the graph (`_Held`), and adds it at every replay: the launches
+taken back out of each counted wrapper (`counted_kernels()`: K6's
+`masked_attention`, and E1-E3 and D1-D3 of ops/encoder_fused.py), and the
+profiler counters the captured forward counts (`attn.causal_*`,
+`decoder.*`, collected by utils/profiling.collected_counts), those under
+a recording profiler only. Launches of the warm-up forwards ran on the
+card and stay counted. Under a recording
 profiler every forward issued, on either variant, adds its real tokens
 (the mask's sum) to the counter `graph.tokens` and its rows x bucket, pad
 rows included, to `graph.token_slots`.
@@ -56,7 +59,9 @@ import contextlib
 import numpy as np
 import torch
 
-from neighborhoodwatch_tpu_torch.utils.profiling import count, recording, span
+from neighborhoodwatch_tpu_torch.utils.profiling import (
+    collected_counts, count, recording, span,
+)
 
 VARIANTS = ("graph", "eager")
 WARMUP = 2               # side-stream forwards before a capture
@@ -90,33 +95,57 @@ def counted_kernels():
         masked_attention,
     )
     from neighborhoodwatch_tpu_torch.ops.encoder_fused import (
-        add_layernorm, embed_layernorm, masked_softmax,
+        add_layernorm, add_rmsnorm, embed_layernorm, masked_softmax, rope,
+        swiglu,
     )
     return (masked_attention, embed_layernorm, add_layernorm,
-            masked_softmax)
+            masked_softmax, add_rmsnorm, rope, swiglu)
 
 
 def _counts():
-    return [(w.launches, dict(w.launches_by_variant))
+    """Each counted wrapper's launches, in all and per variant (D1-D3 have
+    one kernel each and no variants: {})."""
+    return [(w.launches, dict(getattr(w, "launches_by_variant", {})))
             for w in counted_kernels()]
 
 
 def _restore(counts):
     for w, (n, by) in zip(counted_kernels(), counts):
-        w.launches, w.launches_by_variant = n, by
+        w.launches = n
+        if by:
+            w.launches_by_variant = by
 
 
-def _held(after, before):
-    """Launches recorded between two snapshots, per wrapper and variant."""
-    return [(n1 - n0, {v: by1[v] - by0.get(v, 0) for v in by1})
-            for (n1, by1), (n0, by0) in zip(after, before)]
+class _Held:
+    """What a captured forward counts, added at each replay: `launches`,
+    per counted wrapper (launches, {variant: launches}); `counters`, the
+    profiler counters {name: n}."""
+    __slots__ = ("launches", "counters")
+
+
+@contextlib.contextmanager
+def _held_counts():
+    """Take what the region counts aside: yields a _Held filled on exit,
+    the wrappers' launch counts set back to theirs before the region."""
+    held, before = _Held(), _counts()
+    try:
+        with collected_counts() as held.counters:
+            yield held
+        held.launches = [
+            (n1 - n0, {v: by1[v] - by0.get(v, 0) for v in by1})
+            for (n1, by1), (n0, by0) in zip(_counts(), before)]
+    finally:
+        _restore(before)
 
 
 def _add(held):
-    for w, (n, by) in zip(counted_kernels(), held):
+    for w, (n, by) in zip(counted_kernels(), held.launches):
         w.launches += n
         for v, c in by.items():
             w.launches_by_variant[v] += c
+    if recording():
+        for name, n in held.counters.items():
+            count(name, n)
 
 
 class _Graph:
@@ -191,7 +220,7 @@ class GraphRunner:
                 f"{self.name}: a graph for {key} would be graph "
                 f"{len(self.graphs) + 1}, above the bound of "
                 f"{self.max_graphs} (shapes captured: {sorted(self.graphs)})")
-        g, warm = _Graph(), None
+        g = _Graph()
         try:
             g.ids = torch.empty(key, dtype=torch.long, device=self.device)
             g.mask = torch.empty(key, dtype=torch.int32, device=self.device)
@@ -204,19 +233,15 @@ class GraphRunner:
                 for _ in range(WARMUP):
                     self.fn(g.ids, g.mask)
             main.wait_stream(side)
-            warm = _counts()
             if self.pool is None:
                 self.pool = torch.cuda.graph_pool_handle()
             g.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(g.graph, pool=self.pool):
+            with _held_counts() as g.held, \
+                    torch.cuda.graph(g.graph, pool=self.pool):
                 g.out = self.fn(g.ids, g.mask)
-            g.held = _held(_counts(), warm)
         except Exception as e:
             raise GraphError(f"{self.name}: warm-up or capture of the "
                              f"{key} graph failed: {e}") from e
-        finally:
-            if warm is not None:
-                _restore(warm)
         self.graphs[key] = g
         GraphRunner.captures += 1
         return g

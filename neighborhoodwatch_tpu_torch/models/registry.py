@@ -2,10 +2,12 @@
 model names, dimension tables, and the generator factory.
 
 Capability parity with the reference registry (model_generator.py:26-153):
-same 15 model names, same default/effective dimension rules (OpenAI v3
-reduced dims, Voyage 256/512/1024/2048), same factory dispatch. Local
-models (e5 family, ColBERT) are served by the PyTorch encoders of this
-package on `device`; remote API models are plain HTTP clients.
+the same 15 model names, same default/effective dimension rules (OpenAI v3
+reduced dims, Voyage 256/512/1024/2048), same factory dispatch; and a
+16th the reference lacks, intfloat/e5-mistral-7b-instruct (4096 dims, the
+decoder embedder of models/decoder.py). Local models (e5 family,
+ColBERT) are served by the PyTorch encoders of this package on `device`;
+remote API models are plain HTTP clients.
 """
 
 from enum import Enum
@@ -28,6 +30,8 @@ class EmbeddingModelName(Enum):
     VOYAGE_3_LITE = "voyage-3-lite"
     # per-token embedding model
     COLBERT_V2 = "colbertv2.0"
+    # decoder embedder (the port's own; not in the reference)
+    INTFLOAT_E5_MISTRAL_7B = "intfloat/e5-mistral-7b-instruct"
 
 
 _DEFAULT_DIMENSIONS = {
@@ -46,6 +50,7 @@ _DEFAULT_DIMENSIONS = {
     EmbeddingModelName.VOYAGE_3_LARGE: 1024,
     EmbeddingModelName.VOYAGE_3_LITE: 512,
     EmbeddingModelName.COLBERT_V2: 128,
+    EmbeddingModelName.INTFLOAT_E5_MISTRAL_7B: 4096,
 }
 
 
@@ -106,9 +111,11 @@ def get_embedding_generator_for_model(model_name, output_dimension=None,
         return g.VertexAIEmbeddingGenerator(model_name=model_name)
     if m in (EmbeddingModelName.INTFLOAT_E5_SMALL_V2,
              EmbeddingModelName.INTFLOAT_E5_BASE_V2,
-             EmbeddingModelName.INTFLOAT_E5_LARGE_V2):
+             EmbeddingModelName.INTFLOAT_E5_LARGE_V2,
+             EmbeddingModelName.INTFLOAT_E5_MISTRAL_7B):
         from neighborhoodwatch_tpu_torch.models.e5 import E5EmbeddingGenerator
-        return E5EmbeddingGenerator(model_name=model_name, device=device)
+        return E5EmbeddingGenerator(model_name=model_name, device=device,
+                                    dataset_type=dataset_type)
     if m == EmbeddingModelName.COLBERT_V2:
         from neighborhoodwatch_tpu_torch.models.colbert import ColbertEmbeddingGenerator
         return ColbertEmbeddingGenerator(device=device)

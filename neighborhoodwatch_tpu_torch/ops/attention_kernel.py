@@ -26,12 +26,26 @@ segment. The encoders pass the attention mask, valid tokens segment 1 and
 padding segment 0, so a padding query attends to the padding keys where the
 written-out attention masks keys only; pooling and the ColBERT head drop
 those rows downstream.
+
+The decoder embedder (models/decoder.py) calls the same entry in its mode:
+`causal=True` (query i sees the keys j <= i only; key tiles past the
+query tile's own are skipped) with grouped-query heads (k and v (B, T,
+HKV, D), query head h reading K / V head h // (H // HKV)) and no segment
+ids (`seg=None`: right padding, which causality alone keeps off the real
+tokens). Its launches add, under a recording profiler, to the counters
+`attn.causal_launches` and `attn.causal_launches.<variant>`, and
+`attn.causal_tiles`, the (query tile, key tile) pairs of the variant's
+own tile (128 x 128 "wgmma", 64 x 64 "mma") that the causal skip leaves,
+B H n (n + 1) / 2 for n query tiles a head (utils/profiling.py; a graph
+replay adds its captured launches' counts).
 """
 
 import contextlib
 import ctypes
 
 import torch
+
+from neighborhoodwatch_tpu_torch.utils.profiling import count
 
 # the library's DEFAULT_MASK_VALUE: added to masked logits, kept finite
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
@@ -95,16 +109,28 @@ def forced_variant(name: str):
         _forced_variant = before
 
 
-def masked_attention_plain(q, k, v, seg, sm_scale: float):
-    """(B, T, H, D) attention of q over k, v with segment ids seg (B, T):
-    logits q.k in fp32 times `sm_scale`, plus MASK_VALUE where the two
-    segments differ, softmax in fp32, the probabilities cast to v's dtype,
+def masked_attention_plain(q, k, v, seg, sm_scale: float,
+                           causal: bool = False):
+    """(B, T, H, D) attention of q over k, v (B, T, HKV, D; query head h
+    reads K / V head h // (H // HKV)) with segment ids seg (B, T) or None
+    (one segment): logits q.k in fp32 times `sm_scale`, plus MASK_VALUE
+    where the two segments differ or, under `causal`, where the key comes
+    after the query; softmax in fp32, the probabilities cast to v's dtype,
     their product with v in fp32, the output in q's dtype."""
+    group = q.shape[2] // k.shape[2]
+    if group > 1:
+        k = k.repeat_interleave(group, dim=2)
+        v = v.repeat_interleave(group, dim=2)
     qf = q.float().transpose(1, 2)                       # (B, H, T, D)
     kf = k.float().transpose(1, 2)
     logits = (qf @ kf.transpose(2, 3)) * sm_scale
-    same = seg[:, :, None] == seg[:, None, :]
-    logits = logits + torch.where(same, 0.0, MASK_VALUE)[:, None]
+    b, t = q.shape[:2]
+    seen = torch.ones((b, t, t), dtype=torch.bool, device=q.device) \
+        if seg is None else seg[:, :, None] == seg[:, None, :]
+    if causal:
+        seen = seen & torch.ones((t, t), dtype=torch.bool,
+                                 device=q.device).tril()
+    logits = logits + torch.where(seen, 0.0, MASK_VALUE)[:, None]
     probs = torch.softmax(logits, dim=-1).to(v.dtype).float()
     ctx = probs @ v.float().transpose(1, 2)
     return ctx.transpose(1, 2).to(q.dtype).contiguous()
@@ -143,18 +169,21 @@ def load_library():
     if not getattr(lib, "_nw_typed", False):
         p, i, s = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.masked_attention_launch.argtypes = [p, p, p, p, p, i, i, i, i,
-                                                s, s, s, s, s, s, s, s, s,
-                                                i, i, i, ctypes.c_float, p]
+                                                i, s, s, s, s, s, s, s, s,
+                                                s, i, i, i, i,
+                                                ctypes.c_float, p]
         lib.masked_attention_launch.restype = i
         lib._nw_typed = True
     return lib
 
 
-def _check_operand(t, name, q):
+def _check_operand(t, name, q, heads=None):
     if t.dtype != q.dtype:
         raise TypeError(f"{name}: expected {q.dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(q.shape):
-        raise ValueError(f"{name}: expected shape {tuple(q.shape)}, got "
+    want = tuple(q.shape) if heads is None else \
+        (*q.shape[:2], heads, q.shape[3])
+    if tuple(t.shape) != want:
+        raise ValueError(f"{name}: expected shape {want}, got "
                          f"{tuple(t.shape)}")
     if t.device != q.device:
         raise ValueError(f"{name}: on {t.device}, expected {q.device}")
@@ -167,42 +196,52 @@ def _check_operand(t, name, q):
                          f"16-byte aligned, got strides {t.stride()}")
 
 
-def masked_attention(q, k, v, seg, sm_scale: float):
+def masked_attention(q, k, v, seg, sm_scale: float, causal: bool = False):
     """(B, T, H, D) output of `masked_attention_plain`'s function.
 
-    q, k, v (B, T, H, D) bf16, fp16 or fp32 with unit stride along D; seg
-    (B, T) int32, uint8 or bool. CPU tensors take the plain version; CUDA
-    tensors launch the kernel variant `pick_variant` names (and count the
-    launch, in all and per variant) or raise, on a shape, dtype or layout
-    the kernel does not take, a failed build or a failed launch."""
-    if q.dim() != 4:
-        raise ValueError(f"q: expected (B, T, H, D), got {tuple(q.shape)}")
+    q (B, T, H, D), k, v (B, T, HKV, D) with H a multiple of HKV, bf16,
+    fp16 or fp32 with unit stride along D; seg (B, T) int32, uint8 or bool,
+    or None (one segment); under `causal` on the card, sm_scale > 0 (the
+    "mma" variant masks a key past the query by a -inf score). CPU tensors
+    take the plain version; CUDA tensors launch the kernel variant
+    `pick_variant` names (and count the launch, in all and per variant,
+    and the causal mode's counters) or raise, on a shape, dtype or layout the kernel does not take, a failed
+    build or a failed launch."""
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"q, k: expected (B, T, H, D), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}")
     B, T, H, D = q.shape
+    HKV = k.shape[2]
+    if HKV < 1 or H % HKV:
+        raise ValueError(f"{H} query heads over {HKV} K / V heads")
     if q.device.type == "cpu":
-        return masked_attention_plain(q, k, v, seg, sm_scale)
+        return masked_attention_plain(q, k, v, seg, sm_scale, causal)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"q: dtype {q.dtype} not in "
                         f"{tuple(_DTYPE_CODE)}")
     _check_operand(q, "q", q)
-    _check_operand(k, "k", q)
-    _check_operand(v, "v", q)
+    _check_operand(k, "k", q, HKV)
+    _check_operand(v, "v", q, HKV)
     if D not in HEAD_DIMS:
         raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
+    if causal and not sm_scale > 0:
+        raise ValueError(f"causal: scale {sm_scale} must be > 0")
     if T % TILE or T > MAX_SEQ:
         raise ValueError(f"sequence length {T}: must be a multiple of "
                          f"{TILE} up to {MAX_SEQ}")
-    if seg.dtype == torch.bool:
-        seg = seg.view(torch.uint8)
-    if seg.dtype not in (torch.uint8, torch.int32):
-        raise TypeError(f"seg: expected int32, uint8 or bool, got "
-                        f"{seg.dtype}")
-    if tuple(seg.shape) != (B, T) or seg.device != q.device \
-            or not seg.is_contiguous():
-        raise ValueError(f"seg: expected a contiguous ({B}, {T}) tensor on "
-                         f"{q.device}, got {tuple(seg.shape)} on "
-                         f"{seg.device}")
+    if seg is not None:
+        if seg.dtype == torch.bool:
+            seg = seg.view(torch.uint8)
+        if seg.dtype not in (torch.uint8, torch.int32):
+            raise TypeError(f"seg: expected int32, uint8 or bool, got "
+                            f"{seg.dtype}")
+        if tuple(seg.shape) != (B, T) or seg.device != q.device \
+                or not seg.is_contiguous():
+            raise ValueError(f"seg: expected a contiguous ({B}, {T}) tensor "
+                             f"on {q.device}, got {tuple(seg.shape)} on "
+                             f"{seg.device}")
     out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
     if B == 0 or H == 0:
         return out
@@ -211,10 +250,11 @@ def masked_attention(q, k, v, seg, sm_scale: float):
     dev = q.device
     with torch.cuda.device(dev):
         err = load_library().masked_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
-            out.data_ptr(), B, T, H, D, *q.stride()[:3], *k.stride()[:3],
-            *v.stride()[:3], seg.element_size(), _DTYPE_CODE[q.dtype],
-            VARIANTS.index(variant), sm_scale,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if seg is None else seg.data_ptr(), out.data_ptr(), B, T,
+            H, HKV, D, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            1 if seg is None else seg.element_size(), int(causal),
+            _DTYPE_CODE[q.dtype], VARIANTS.index(variant), sm_scale,
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"masked_attention kernel ({variant}) launch "
@@ -222,7 +262,19 @@ def masked_attention(q, k, v, seg, sm_scale: float):
                            f"tensor map encode)")
     masked_attention.launches += 1
     masked_attention.launches_by_variant[variant] += 1
+    if causal:
+        count("attn.causal_launches", 1)
+        count(f"attn.causal_launches.{variant}", 1)
+        count("attn.causal_tiles", causal_tiles(B, T, H, variant))
     return out
+
+
+def causal_tiles(B: int, T: int, H: int, variant: str) -> int:
+    """(query tile, key tile) pairs of the variant's tile (128 "wgmma", 64
+    "mma") that a causal launch over (B, T, H) computes: n (n + 1) / 2 a
+    head for n = T / tile."""
+    n = T // (WGMMA_TILE if variant == "wgmma" else TILE)
+    return B * H * n * (n + 1) // 2
 
 
 masked_attention.launches = 0

@@ -12,6 +12,21 @@ are not Pallas kernels but single passes over HBM on the TPU.
      written-out attention's scale, -1e9 key mask, round to bf16 and fp32
      softmax between the two library products.
 
+The decoder embedder's passes (models/decoder.py, a Mistral block; the JAX
+package has no decoder, so their plain versions below are the reference
+the kernels are held to), one source, csrc/decoder_passes.cu:
+  D1 `add_rmsnorm`: the residual add in the activation dtype and the
+     RMSNorm after it (fp32 statistics, fp32 weight, no mean, no bias);
+     returns the new residual and the normed rows.
+  D2 `rope`: the rotary embedding (rotate-half, fp32 cos / sin from a
+     table) on q and k, in place in the fused q|k|v projection.
+  D3 `swiglu`: silu(gate) * up over the fused gate|up projection.
+Each has one kernel, which CUDA tensors launch (the plain version only
+under forced_variant("plain"), for timings); their launches are counted
+in `launches` and add, under a recording profiler, to the counters
+`decoder.rmsnorm`, `decoder.rope` and `decoder.swiglu`
+(utils/profiling.py).
+
 Each wrapper launches a kernel on CUDA tensors (and counts the launch) or
 raises: on a build or launch failure, a dtype outside bf16/fp16/fp32, a
 width the kernels do not take. On CPU tensors it runs the plain PyTorch
@@ -54,6 +69,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from neighborhoodwatch_tpu_torch.utils.profiling import count
+
 MASKED = -1e9                 # the written-out attention's key mask
 MAX_WIDTH = 4096              # E1, E2: the widest row a kernel holds
 MAX_SEQ = 512                 # E3: a row of T <= 512 keys in registers
@@ -86,6 +103,10 @@ _ARGTYPES = {
         "launch": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
         "staged_launch": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P],
         "staged_resident": [_I, _I, _I]},
+    "decoder_passes": {
+        "add_rmsnorm": [_P, _P, _P, _P, _P, _LL, _I, _I, _F, _P],
+        "rope": [_P, _LL, _I, _LL, _I, _I, _P, _P, _I, _P],
+        "swiglu": [_P, _P, _LL, _I, _I, _P]},
 }
 # the device types whose tensors launch the kernels
 _ON_CARD = ("cuda",)
@@ -123,9 +144,9 @@ def _launcher(name: str, entry: str = "launch"):
 
 
 def load_libraries():
-    """Build (at first use) and load the three sources."""
-    for name in _ARGTYPES:
-        _launcher(name)
+    """Build (at first use) and load the four sources."""
+    for name, entries in _ARGTYPES.items():
+        _launcher(name, next(iter(entries)))
 
 
 def _stream(dev) -> int:
@@ -138,7 +159,7 @@ def _launch(name: str, dev, *args, entry: str = "launch") -> None:
     with torch.cuda.device(dev):
         err = _launcher(name, entry)(*args, _stream(dev))
     if err != 0:
-        what = "" if entry == "launch" else " (staged)"
+        what = "" if entry == "launch" else f" ({entry})"
         raise RuntimeError(f"{name} kernel launch failed{what}: CUDA error "
                            f"{err}")
 
@@ -162,6 +183,18 @@ def _route(wrapper, t):
 def _count(wrapper, variant: str) -> None:
     wrapper.launches += 1
     wrapper.launches_by_variant[variant] += 1
+
+
+def _on_card(wrapper, t) -> bool:
+    """Whether D1-D3 launch their kernel on `t`: CUDA tensors do unless
+    forced_variant("plain") holds, CPU tensors take the plain version;
+    raises for any other device."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type not in _ON_CARD:
+        raise ValueError(f"{wrapper.__name__}: unsupported device "
+                         f"{t.device}")
+    return _forced_variant != "plain"
 
 
 # ------------------------------------------------------- the launch plan
@@ -592,14 +625,145 @@ def masked_softmax(logits, mask, head_dim: int):
     return out
 
 
+# ------------------------------------------------------ D1-D3 (decoder)
+
+
+def add_rmsnorm_plain(hidden, x, weight, eps: float):
+    """(s, out): s = hidden + x in their dtype (hidden itself where x is
+    None), out = s in fp32 times rsqrt(mean(s^2) + eps) times the fp32
+    weight, cast to that dtype."""
+    s = hidden if x is None else hidden + x
+    f = s.float()
+    r = torch.rsqrt(f.pow(2).mean(-1, keepdim=True) + eps)
+    return s, (f * r * weight).to(hidden.dtype)
+
+
+def add_rmsnorm(hidden, x, weight, eps: float):
+    """`add_rmsnorm_plain`'s function over the last dimension: D1 on CUDA
+    tensors (the add bit for bit the plain version's, the norm within one
+    ulp of the activation dtype; one kernel, the residual written with the
+    normed rows), the plain version on CPU tensors."""
+    if not _on_card(add_rmsnorm, hidden):
+        return add_rmsnorm_plain(hidden, x, weight, eps)
+    code = _activation(hidden, "hidden")
+    if x is not None and (x.dtype != hidden.dtype or x.shape != hidden.shape):
+        raise ValueError(f"x: {x.dtype} {tuple(x.shape)} against hidden "
+                         f"{hidden.dtype} {tuple(hidden.shape)}")
+    _same_device("add_rmsnorm", hidden, weight,
+                 *(() if x is None else (x,)))
+    h = hidden.shape[-1]
+    _width("add_rmsnorm", h)
+    weight = _f32_row(weight, "weight", h)
+    hidden = hidden.contiguous()
+    out = torch.empty_like(hidden)
+    if x is None:
+        s, xp, sp = hidden, None, None
+    else:
+        x = x.contiguous()
+        s = torch.empty_like(hidden)
+        xp, sp = x.data_ptr(), s.data_ptr()
+    _launch("decoder_passes", hidden.device, hidden.data_ptr(), xp,
+            weight.data_ptr(), sp, out.data_ptr(), hidden.numel() // h, h,
+            code, float(eps), entry="add_rmsnorm")
+    add_rmsnorm.launches += 1
+    count("decoder.rmsnorm", 1)
+    return s, out
+
+
+def rope_table(positions: int, head_dim: int, theta: float, device=None):
+    """(cos, sin), each (positions, head_dim / 2) fp32: the angles
+    position x theta^(-2i / head_dim), the frequencies worked out in
+    float64 and rounded to fp32, their product and its cos / sin in fp32.
+    Computed once; D2 and its plain version both read it."""
+    half = head_dim // 2
+    inv = (1.0 / theta ** (torch.arange(half, dtype=torch.float64) * 2
+                           / head_dim)).float()
+    ang = torch.arange(positions, dtype=torch.float32)[:, None] * inv[None]
+    return ang.cos().to(device), ang.sin().to(device)
+
+
+def rope_plain(x, heads: int, head_dim: int, cos, sin):
+    """x (B, T, C) in place: each of its first `heads` heads of head_dim
+    values, split into halves x1, x2, becomes (x1 c - x2 s, x2 c + x1 s)
+    in fp32 (c, s the rows of cos / sin at the token's position), cast
+    back to x's dtype. Returns x."""
+    b, t, _ = x.shape
+    d = head_dim // 2
+    part = x[..., :heads * head_dim].view(b, t, heads, 2, d)
+    f = part.float()
+    c, s = cos[:t, None, :], sin[:t, None, :]
+    y1 = f[..., 0, :] * c - f[..., 1, :] * s
+    y2 = f[..., 1, :] * c + f[..., 0, :] * s
+    part.copy_(torch.stack((y1, y2), dim=3).to(x.dtype))
+    return x
+
+
+def rope(x, heads: int, head_dim: int, cos, sin):
+    """`rope_plain`'s function: D2 on CUDA tensors (bit for bit the plain
+    version's: each product rounded to fp32 before the sum), the plain
+    version on CPU tensors. x (B, T, C) with unit stride along C and rows
+    of any stride; cos, sin fp32 (>= T, head_dim / 2)."""
+    if not _on_card(rope, x):
+        return rope_plain(x, heads, head_dim, cos, sin)
+    code = _activation(x, "x")
+    b, t, c = x.shape
+    half = head_dim // 2
+    if head_dim % 2 or heads * head_dim > c or x.stride(2) != 1 \
+            or x.stride(0) != t * x.stride(1):
+        raise ValueError(f"rope: {heads} heads of {head_dim} in rows of "
+                         f"{c}, strides {x.stride()}")
+    for tab, name in ((cos, "cos"), (sin, "sin")):
+        if tab.dtype != torch.float32 or tab.dim() != 2 \
+                or tab.shape[0] < t or tab.shape[1] != half \
+                or not tab.is_contiguous():
+            raise ValueError(f"{name}: expected contiguous fp32 (>= {t}, "
+                             f"{half}), got {tab.dtype} {tuple(tab.shape)}")
+    _same_device("rope", x, cos, sin)
+    _launch("decoder_passes", x.device, x.data_ptr(), b * t, t, x.stride(1),
+            heads, head_dim, cos.data_ptr(), sin.data_ptr(), code,
+            entry="rope")
+    rope.launches += 1
+    count("decoder.rope", 1)
+    return x
+
+
+def swiglu_plain(gu):
+    """(..., 2 I) -> (..., I): silu(g) * u in fp32 over g, u the two
+    halves of the last dimension, cast to gu's dtype."""
+    g, u = gu.float().chunk(2, dim=-1)
+    return (F.silu(g) * u).to(gu.dtype)
+
+
+def swiglu(gu):
+    """`swiglu_plain`'s function: D3 on CUDA tensors (within one ulp of the
+    activation dtype: the card's expf), the plain version on CPU
+    tensors."""
+    if not _on_card(swiglu, gu):
+        return swiglu_plain(gu)
+    code = _activation(gu, "gu")
+    if gu.shape[-1] % 2:
+        raise ValueError(f"swiglu: odd width {gu.shape[-1]}")
+    inter = gu.shape[-1] // 2
+    gu = gu.contiguous()
+    out = torch.empty((*gu.shape[:-1], inter), dtype=gu.dtype,
+                      device=gu.device)
+    _launch("decoder_passes", gu.device, gu.data_ptr(), out.data_ptr(),
+            gu.numel() // (2 * inter), inter, code, entry="swiglu")
+    swiglu.launches += 1
+    count("decoder.swiglu", 1)
+    return out
+
+
 def reset_launches() -> None:
     """Set every wrapper's launch counts to 0 and forget the shapes its
     plan sent to "rowpass"."""
     for w in (embed_layernorm, add_layernorm, masked_softmax):
-        w.launches = 0
         w.launches_by_variant = {v: 0 for v in VARIANTS}
         w.rowpass_plans = {}
         w.last_plan = None
+    for w in (embed_layernorm, add_layernorm, masked_softmax, add_rmsnorm,
+              rope, swiglu):
+        w.launches = 0
 
 
 reset_launches()

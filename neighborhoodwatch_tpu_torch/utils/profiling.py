@@ -15,8 +15,10 @@ window, gets them and an untraced run pays one flag check a call:
   added. The first span or count after a stretch without a recording
   profiler starts the records afresh.
 No span may be opened inside a CUDA graph capture: events recorded there
-would belong to the graph. The records assume one thread issues the
-spans; a lock keeps concurrent counts whole.
+would belong to the graph. A capture's counts are taken aside instead
+(`collected_counts()`, which models/graphed.py opens around a capture)
+and added at each replay of the graph, where the work runs. The records
+assume one thread issues the spans; a lock keeps concurrent counts whole.
 """
 
 import contextlib
@@ -37,6 +39,7 @@ def recording() -> bool:
 
 
 _NOOP = contextlib.nullcontext()
+_sink = None       # a capture's counts, while collected_counts() is open
 # pending event pairs a span name keeps before finished ones are folded in
 _FOLD_AT = 256
 
@@ -139,14 +142,31 @@ def span(name: str):
 
 
 def count(name: str, n) -> None:
-    """Add `n` to the counter `name` while a profiler records. Compute an
-    `n` that costs work only under `recording()`."""
+    """Add `n` to the counter `name` while a profiler records, or, inside
+    `collected_counts()`, to its collection whether or not one records.
+    Compute an `n` that costs work only under `recording()`."""
+    if _sink is not None:
+        _sink[name] = _sink.get(name, 0) + n
+        return
     if not _profiler_enabled():
         _REC.stale = True
         return
     with _REC.lock:
         _REC.fresh()
         _REC.counters[name] = _REC.counters.get(name, 0) + n
+
+
+@contextlib.contextmanager
+def collected_counts():
+    """Collect the counts of the region into the dict it yields instead of
+    the records (a CUDA graph capture: what the captured work counts is
+    added at each replay, `count(name, n)` for each entry)."""
+    global _sink
+    before, _sink = _sink, {}
+    try:
+        yield _sink
+    finally:
+        _sink = before
 
 
 def records() -> dict:

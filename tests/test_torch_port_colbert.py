@@ -137,14 +137,22 @@ def test_names_and_partial_cleanup_match_jax(tmp_path):
 
 
 def test_registry_matches_jax():
-    assert [m.value for m in treg.EmbeddingModelName] == \
-        [m.value for m in jreg.EmbeddingModelName]
-    for name in treg.get_valid_model_name_list():
+    """The JAX package's 15 names, in its order, open the port's list, with
+    the same dimension rules; the port's own 16th name, the decoder
+    embedder the JAX package lacks, is held to its published width."""
+    jax_names = [m.value for m in jreg.EmbeddingModelName]
+    port_names = [m.value for m in treg.EmbeddingModelName]
+    assert len(jax_names) == 15
+    assert port_names[:15] == jax_names
+    assert port_names[15:] == ["intfloat/e5-mistral-7b-instruct"]
+    for name in jax_names:
         assert treg.get_default_model_dimension_size(name) == \
             jreg.get_default_model_dimension_size(name)
         for dim in (None, 256, 1024):
             assert treg.get_effective_embedding_size(name, dim) == \
                 jreg.get_effective_embedding_size(name, dim)
+    for dim in (None, 256, 1024):
+        assert treg.get_effective_embedding_size(port_names[15], dim) == 4096
     for flags in ((True, True), (False, True), (False, False)):
         assert treg.colbert_weight_status(*flags) == \
             jreg.colbert_weight_status(*flags)

@@ -165,7 +165,7 @@ def test_flash_launches_counted_per_replay(cuda, monkeypatch, bucket):
     after = dict(ak.masked_attention.launches_by_variant)
     assert after["wgmma"] - before["wgmma"] == 3 * (graphed.WARMUP + 1)
     held = gen.runner.graphs[(64, bucket)].held
-    assert held[0] == (3, {"mma": 0, "wgmma": 3})
+    assert held.launches[0] == (3, {"mma": 0, "wgmma": 3})
     for _ in range(2):
         n0 = ak.masked_attention.launches
         assert torch.equal(gen._encode(texts), got)

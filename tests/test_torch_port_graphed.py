@@ -405,9 +405,13 @@ def test_counts_by_variant_and_k6_per_replay(
     assert tak.masked_attention.launches == k0 + want_k6
     assert tak.masked_attention.launches_by_variant["wgmma"] == w0 + want_k6
     for g in gen.runner.graphs.values():
-        # K6, then E1-E3, whose CPU forwards run their plain versions
-        assert g.held == [(k6, {"mma": 0, "wgmma": k6})] + \
-            [(0, {"staged": 0, "rowpass": 0, "plain": 0})] * 3
+        # K6, then E1-E3, whose CPU forwards run their plain versions,
+        # and D1-D3 (one kernel each, no variants), which the BERT forward
+        # does not run; no profiler counter: no causal launch, no pass
+        assert g.held.launches == [(k6, {"mma": 0, "wgmma": k6})] + \
+            [(0, {"staged": 0, "rowpass": 0, "plain": 0})] * 3 + \
+            [(0, {})] * 3
+        assert g.held.counters == {}
     with graphed.forced_variant("eager"):
         gen.generate_embedding(texts[:64])
     assert by["eager"] == by0["eager"] + 1
