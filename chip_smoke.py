@@ -3522,7 +3522,8 @@ def encoder_loop(gen, calls, workdir, label, traced):
     dict."""
     import torch
     from neighborhoodwatch_tpu_torch.utils.profiling import device_trace
-    encode = "_encode" if hasattr(gen, "_encode") else "encode_passages"
+    encode = "encode_passages" if not hasattr(gen, "_encode") else \
+        "_encode" if gen.decoder else "_encode_unit"
 
     def forwards(cs):
         return sum(-(-len(c) // 64) for c in cs)

@@ -3,9 +3,11 @@ encoder of models/bert.py + mean pooling + L2 normalization.
 
 Replaces the reference's SentenceTransformer path (reference:
 model_generator.py:273-287). Sequences are padded to the tokenizer's
-power-of-two buckets and a ragged tail chunk to the full 64 rows (as
-e5_flax.py pads it), matmuls run in the config's activation dtype (bf16
-for the e5 configs), pooling and normalization in fp32. On the card the
+power-of-two buckets and every forward to the full 64 rows (as
+e5_flax.py pads a ragged tail), matmuls run in the config's activation
+dtype (bf16 for the e5 configs), pooling and normalization in fp32. The
+e5-v2 encoders send a call's rows to the forwards by token bucket, not in
+arrival order (`generate_embedding`), so that a forward pads few slots. On the card the
 forward and the pooling run as one captured CUDA graph per token bucket
 (models/graphed.py, the counterpart of the reference's jax.jit). The
 "query:" prefix contract is inherited from the generator ABC.
@@ -23,6 +25,7 @@ weights: a state_dict adopted on the device as it is (no copy), the cached
 checkpoint, or a seeded init drawn on the device.
 """
 
+import numpy as np
 import torch
 
 from neighborhoodwatch_tpu_torch import resolve_device
@@ -39,7 +42,7 @@ from neighborhoodwatch_tpu_torch.models.registry import EmbeddingModelName
 from neighborhoodwatch_tpu_torch.models.tokenizer import (
     load_tokenizer, token_buckets,
 )
-from neighborhoodwatch_tpu_torch.utils.profiling import span
+from neighborhoodwatch_tpu_torch.utils.profiling import count, span
 
 
 class E5EmbeddingGenerator(EmbeddingGenerator):
@@ -56,6 +59,7 @@ class E5EmbeddingGenerator(EmbeddingGenerator):
         assert model_name in E5_CONFIGS or decoder, \
             f"{model_name} is not an e5 model"
         super().__init__(model_name=model_name, chunk_size=64)
+        self.decoder = decoder
         self.dataset_type = dataset_type
         self.device = resolve_device(device)
         self.tokens_seen = 0       # pipeline-level tokens/s accounting
@@ -90,11 +94,12 @@ class E5EmbeddingGenerator(EmbeddingGenerator):
             self.model.to(self.device).eval()
             pool = mean_pool_normalize
             buckets = token_buckets(self.max_length)
+        self.buckets = np.asarray(buckets)
         model = self.model
 
         def forward(ids, mask):
             return pool(model(ids, mask), mask)
-        # every chunk is padded to chunk_size rows: one graph per bucket
+        # every forward is padded to chunk_size rows: one graph per bucket
         self.runner = GraphRunner(forward, self.device, len(buckets),
                                   name=model_name)
 
@@ -116,19 +121,28 @@ class E5EmbeddingGenerator(EmbeddingGenerator):
         return self._encode(text_list).cpu().numpy()
 
     def generate_embedding(self, text_list, *args, **kwargs):
-        """ABC-contract override with a deferred readback: every chunk is
+        """ABC-contract override with a deferred readback: every forward is
         launched first (graph replays fed by copies that do not block, so
-        tokenizing chunk i+1 overlaps the encode of chunk i), then the
-        successful chunks' outputs are concatenated on the device and
-        copied to the host in ONE transfer. A chunk whose tokenize or
-        launch fails gives zero vectors for its rows only; an
+        tokenizing the next 64 texts overlaps the encode of the last
+        forward), then the outputs are put in the caller's order on the
+        device and copied to the host in ONE transfer. The e5-v2 encoders
+        group a call's rows by token bucket (`_grouped`); the decoder
+        embedder runs its 64-text chunks in arrival order (`_in_order`).
+        Texts whose tokenizing or forward fails give zero vectors; an
         AssertionError (a caller's contract violation) passes through, as
         in the ABC's loop, and so does a GraphError: a failed capture or
-        replay is a fault of the shape, which would zero every chunk of it.
-        A failing copy raises: on the card it means a device fault, which
-        no retry cures."""
+        replay is a fault of the shape, which would zero every forward of
+        it. A failing copy raises: on the card it means a device fault,
+        which no retry cures."""
         if isinstance(text_list, str):
             text_list = [text_list]
+        if self.decoder:
+            return self._in_order(text_list)
+        return self._grouped(text_list)
+
+    def _in_order(self, text_list):
+        """One forward a 64-text chunk, in arrival order; a chunk whose
+        tokenize or launch fails gives zero vectors for its rows only."""
         pending = []            # (device tensor | None, row count)
         for chunk in self._iter_chunks(text_list):
             try:
@@ -150,3 +164,128 @@ class E5EmbeddingGenerator(EmbeddingGenerator):
                     embeddings.extend(host[off:off + n])
                     off += n
         return embeddings
+
+    def _grouped(self, text_list):
+        """Length-grouped forwards. Texts are tokenized in 64-text units in
+        arrival order; each row goes, with its position in the call, into
+        the queue of its own token bucket (`_pad`'s rule), and a queue
+        that holds 64 rows is padded to (64, bucket) and launched at once.
+        At the end of the call `_flush` packs the partial queues into
+        ceil(rest / 64) forwards, rows moving up a bucket and never down,
+        so a call issues ceil(n / 64) forwards with the fewest token slots
+        any such packing has. A forward's rows go in call order; a call of
+        at most 64 texts, or of one bucket, issues exactly the in-order
+        chunks. A unit whose tokenizing fails gives zero vectors for its
+        own rows, which are never queued; a forward that fails, for the
+        rows it held. Under a recording profiler: the span `e5.chunk`
+        around a unit's tokenizing (`e5.tokenize`) and the forwards it
+        completes (the last unit's, the flush's too), and the counters
+        `e5.forwards` (forwards issued) and `e5.promoted_rows` (rows the
+        flush ran above their own bucket)."""
+        n = len(text_list)
+        queues = {int(b): [] for b in self.buckets}   # bucket -> blocks
+        done = []                    # (positions, device tensor)
+        last = -(-n // self.chunk_size) - 1
+        for u, unit in enumerate(self._iter_chunks(text_list)):
+            self._encode_unit(unit, u * self.chunk_size, queues, done,
+                              u == last)
+        with span("e5.readback"):
+            if not done:
+                return [self._zero_fallback()] * n
+            out = torch.cat([dev for _, dev in done])
+            pos = torch.from_numpy(np.concatenate([p for p, _ in done]))
+            if out.is_cuda:
+                pos = pos.pin_memory().to(out.device, non_blocking=True)
+            full = out.new_zeros((n, out.shape[1]))
+            full.index_copy_(0, pos, out)
+            return list(full.cpu().numpy())
+
+    def _encode_unit(self, unit, start, queues, done, last):
+        """Tokenize one 64-text unit (its first text at call position
+        `start`) into the queues, launching the forwards it completes, and
+        with `last` flush the queues; the span `e5.chunk`."""
+        with span("e5.chunk"):
+            try:
+                with span("e5.tokenize"):
+                    ids, mask = self.tokenizer(unit,
+                                               max_length=self.max_length)
+            except AssertionError:
+                raise
+            except Exception as exc:
+                print(f"   !! embedding chunk failed ({exc}); "
+                      f"emitting zero vectors for {len(unit)} rows")
+            else:
+                self.tokens_seen += int(mask.sum())
+                self._queue(queues, ids, mask, start, done)
+            if last:
+                self._flush(queues, done)
+
+    def _queue(self, queues, ids, mask, start, done):
+        """A tokenized unit's rows into their buckets' queues (blocks of
+        (positions, ids, mask) cut to the bucket); every 64 rows a queue
+        gathers are launched."""
+        which = np.searchsorted(self.buckets, mask.sum(1))
+        for k in np.unique(which):
+            b = int(self.buckets[k])
+            rows = np.flatnonzero(which == k)
+            q = queues[b]
+            q.append((start + rows, ids[rows, :b], mask[rows, :b]))
+            if sum(len(p) for p, _, _ in q) >= self.chunk_size:
+                pos, qi, qm = (np.concatenate(x) for x in zip(*q))
+                c = self.chunk_size
+                self._launch(pos[:c], qi[:c], qm[:c], done)
+                q[:] = [(pos[c:], qi[c:], qm[c:])] if len(pos) > c else []
+
+    def _flush(self, queues, done):
+        """The partial queues, from the largest bucket down, into forwards
+        of 64 rows: each forward is filled from the next smaller buckets'
+        rows (in call order within a bucket), which run at its bucket; the
+        last, partial forward holds the smallest rows."""
+        group, room = [], self.chunk_size
+        for b in sorted(queues, reverse=True):
+            if not queues[b]:
+                continue
+            pos, ids, mask = (np.concatenate(x) for x in zip(*queues[b]))
+            queues[b] = []
+            while len(pos):
+                take = min(room, len(pos))
+                group.append((b, pos[:take], ids[:take], mask[:take]))
+                pos, ids, mask = pos[take:], ids[take:], mask[take:]
+                room -= take
+                if not room:
+                    self._launch_group(group, done)
+                    group, room = [], self.chunk_size
+        if group:
+            self._launch_group(group, done)
+
+    def _launch_group(self, group, done):
+        """One flushed forward: its blocks [(bucket, positions, ids, mask)],
+        the largest bucket first, padded to that bucket, rows in call
+        order."""
+        top = group[0][0]
+        pos = np.concatenate([p for _, p, _, _ in group])
+        ids = np.zeros((len(pos), top), np.int32)
+        mask = np.zeros((len(pos), top), np.int32)
+        at = 0
+        for b, p, i, m in group:
+            ids[at:at + len(p), :b] = i
+            mask[at:at + len(p), :b] = m
+            at += len(p)
+        count("e5.promoted_rows",
+              sum(len(p) for b, p, _, _ in group if b < top))
+        order = np.argsort(pos, kind="stable")
+        self._launch(pos[order], ids[order], mask[order], done)
+
+    def _launch(self, pos, ids, mask, done):
+        """One forward of the rows at call positions `pos`, padded to 64
+        rows; a failure other than a contract violation or a GraphError
+        leaves its rows' zero vectors."""
+        count("e5.forwards", 1)
+        try:
+            ids, mask = pad_rows(ids, mask, self.chunk_size)
+            done.append((pos, self.runner(ids, mask, len(pos))))
+        except (AssertionError, GraphError):
+            raise
+        except Exception as exc:
+            print(f"   !! embedding forward failed ({exc}); "
+                  f"emitting zero vectors for {len(pos)} rows")

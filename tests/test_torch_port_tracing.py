@@ -156,10 +156,13 @@ def _words(n):
 
 
 def test_e5_padding_counted_by_hand(monkeypatch):
-    """70 texts: a chunk of 64 whose longest text has 40 words, then a
-    ragged chunk of 6 texts of 3 words padded to 64 rows. Each text is
-    its words, the prefix "query:" (2 tokens), [CLS] and [SEP]; each
-    chunk computes 64 rows x its bucket."""
+    """70 texts: a unit of 64 whose texts have 10 words (bucket 16) but
+    one of 40 (bucket 64), then a unit of 6 texts of 3 words (bucket 16).
+    Each text is its words, the prefix "query:" (2 tokens), [CLS] and
+    [SEP]. Grouped by bucket, the first 64 rows of bucket 16 make one
+    forward; the flush puts the 40-word text and the 5 rows of bucket 16
+    left into one forward at bucket 64 (5 rows promoted). Each forward
+    computes 64 rows x its bucket."""
     monkeypatch.setitem(tbert.E5_CONFIGS, E5_SMALL, dataclasses.replace(
         tbert.E5_CONFIGS[E5_SMALL], num_layers=1))
     gen = E5EmbeddingGenerator(E5_SMALL, seed=3, device="cpu")
@@ -171,12 +174,12 @@ def test_e5_padding_counted_by_hand(monkeypatch):
         out = gen.generate_embedding(texts)
     assert len(out) == 70
     tokens = [n + 4 for n in lengths]
-    bucket = [min(t for t in token_buckets(512) if t >= max(c))
-              for c in (tokens[:64], tokens[64:])]
-    assert bucket == [64, 16]
+    bucket = [min(t for t in token_buckets(512) if t >= n) for n in tokens]
+    assert sorted(set(bucket)) == [16, 64]
     rec = profiling.records()
     assert rec["counters"] == {"graph.tokens": sum(tokens),
-                               "graph.token_slots": 64 * sum(bucket)}
+                               "graph.token_slots": 64 * (16 + 64),
+                               "e5.forwards": 2, "e5.promoted_rows": 5}
     assert gen.tokens_seen - seen == sum(tokens)
     spans = rec["spans"]
     assert {n: s["count"] for n, s in spans.items()} == \
