@@ -152,10 +152,9 @@ Phases, each printing its own lines and seconds:
      "wgmma" launch a layer a forward, "auto" none. The launches go into
      the kernels line as `port_launches` and `probe_launches`.
  13. the verified engine's select (csrc/verified_select.cu, K7, through
-     ops/verified_kernel.py; variants "adaptive", the default: rows in
-     registers, an adaptive first digit, a persistent grid prefetching the
-     next row by bulk copies, clusters for wide or few rows, and "radix",
-     the first version): (a) both variants against the plain version on
+     ops/verified_kernel.py: rows in registers, an adaptive first digit, a
+     persistent grid prefetching the next row by bulk copies, clusters for
+     wide or few rows): (a) the kernel against the plain version on
      fp32 distance tiles of unit Gaussian rows at 1536 dims, 1,000 x 8,192,
      128 x 32,768 (the class-B repair's tile), 512 x 8,192 with every base
      row three times (planted ties) and 16 x 262,144 (an escalation's
@@ -163,18 +162,17 @@ Phases, each printing its own lines and seconds:
      equal, no row fallen back, and a planted candidate set (column 0
      dropped, every row's minimum) on the persistent path and on both
      cluster paths, whose every row must fail and fall back to the exact
-     selection; the variants timed in turns (radix, adaptive, adaptive,
-     radix), each a CUDA graph of 10 calls (the card's time alone) and
-     one call through the wrapper (the host's share included), beside the
-     plain version, torch.topk (library_ms), the exact engine's stable
+     selection; timed as a CUDA graph of 10 calls (the card's time alone)
+     and as one call through the wrapper (the host's share included),
+     beside the plain version, torch.topk (library_ms), the exact engine's stable
      sort and the bytes bound; (b) knn(engine="verified") against
      "exact" at phase 3's data on 512 queries (tie-tolerant), their ms and
      the exact engine with torch.topk as its select, beside the fp32
      product's bound; (c) phase 8's 1,000 x 100,000 x 1024 screened call
      with its exact fallback on the stable sort and on K7, in turns, and
      the K7 launches of that call; K7's launches in phase 8's nw_main (the
-     kernels line's `launches`, all of them "adaptive") and on every other
-     path that runs it (`launches_by_path`, `launches_by_path_variant`);
+     kernels line's `launches`) and on every other path that runs it
+     (`launches_by_path`);
      (d) precision "default" and "high" on the exact engine at (b)'s
      shape: ms and max |d - d_highest|. (b) and (c) count F1 and F4.
  14. the encoders' compiled forward (models/graphed.py: a CUDA graph per
@@ -215,9 +213,7 @@ Phases, each printing its own lines and seconds:
      the old path's (torch's row sums as norms); (c) F3 rerank_rows
      (csrc/rerank_rows.cu) on knn(auto)'s own 10,000 x 256 candidates and
      on nw's own (phase 8's embeddings, 1,000 x m over 100,000 rows):
-     "rowwise" (the default) and "grouped" (the pairs sorted by id on the
-     card, each distinct row read once) bit for bit, within 1e-5 of the
-     plain version (the gather, torch.bmm), plain, rowwise and grouped in
+     within 1e-5 of the plain version (the gather, torch.bmm), the two in
      turns, beside the bound over the distinct rows and over every
      candidate row (ids int64: 12 bytes a pair with the distance); (d) the
      merge's top-m on K7 against the stable sort, equal and in turns; (e)
@@ -230,8 +226,8 @@ Phases, each printing its own lines and seconds:
      product and F2), beside the six-product bound and the plain
      version; its record counts the split pass's launches too.
      Their records join the kernels line, launches from phase 8's nw_main
-     and per path, F3's per variant (phases 3 and 8 fail unless every F3
-     launch went to its default, "rowwise").
+     and per path, F3's per variant (phases 3 and 8 fail if any F3 call
+     ran its plain version).
  16. the encoders' fused kernels (ops/encoder_fused.py), each against its
      plain version (the op-by-op chain) on bf16 inputs at the published
      shapes: e5-large-v2 64 x 32 / 128 / 512 (1024 hidden, 16 heads),
@@ -239,23 +235,22 @@ Phases, each printing its own lines and seconds:
      masks with a pad row: E1 embed_layernorm (csrc/embed_layernorm.cu),
      E2 add_layernorm (csrc/add_layernorm.cu), E3 masked_softmax
      (csrc/masked_softmax.cu), within one bf16 ulp (plus 1e-5 for the
-     LayerNorms' cancellations near 0). Each kernel's variants "rowpass"
-     and "staged" equal bit for bit on every input, then plain, rowpass
-     and staged in turns, cold (rotating_ms: a CUDA graph of calls, each
+     LayerNorms' cancellations near 0). E3's variants "rowpass" and
+     "staged" equal bit for bit on every input; then each kernel (E3's
+     two) in turns with the plain chain, cold (rotating_ms: a CUDA graph
+     of calls, each
      on its own inputs, inputs and outputs four times the L2 or more) and
      hot (graph_ms: one input again and again, as the forward finds E2's
      operands just written), beside the bytes bound (E1's at 1 x 32 too)
      and, for E2 and E3, a yardstick never called by the port (ATen's
      layer_norm of one bf16 (rows, n) tensor, torch.softmax of the bf16
      logits: one library row pass over about the same bytes, not the same
-     function); where E1's plan sends a shape to "rowpass" (one full pass
-     a block: nw's 64 x 32) the staged kernel is timed past that rule
-     too. Their records join the kernels line: ms at nw's 64 x 32 (the
-     default variant; ms_rowpass and ms_staged each variant's), launches
-     from phase 8's nw_main, per path (7, 8) and per replay (14), per
-     variant; phases 7 and 8 fail unless every E1-E3 launch went to its
-     default (E1 and E2 "rowpass", E3 "staged"), or to "rowpass" for a
-     shape the launch plan sent there.
+     function). Their records join the kernels line: ms at nw's 64 x 32
+     (E3's default; its ms_rowpass and ms_staged each variant's),
+     launches from phase 8's nw_main, per path (7, 8) and per replay (14),
+     per variant; phases 7 and 8 fail if any E1-E3 call ran the plain
+     chain or an E3 launch went to "rowpass" for a shape its launch plan
+     did not send there.
  17. the MaxSim engines' fused kernels (ops/maxsim_fused.py), each in both
      variants: "split" (the default: csrc/maxsim_split.cuh, fp32-exact
      bf16x6 products on the tensor cores, 16-dim chunks promoted into fp32,
@@ -429,11 +424,9 @@ def ptxas_report(name, report):
                     else []
                 entry = f"{kernel_name(sym)}<{', '.join(args)}>"
             elif "verified_select" in sym:
-                # the adaptive variant's template arguments: resident keys,
-                # cluster
+                # the kernel's template arguments: resident keys, cluster
                 targs = re.search(r"ILb(\d)ELb(\d)E", sym)
-                entry = ("radix" if targs is None else
-                         f"adaptive<registers={targs.group(1)}, "
+                entry = (f"adaptive<registers={targs.group(1)}, "
                          f"cluster={targs.group(2)}>")
             elif "masked_attention" in sym:
                 # the kernel's name, then the mangled template arguments:
@@ -467,7 +460,7 @@ FUSED_KERNELS = ("prepare_base", "distance_tile", "rerank_rows",
                  "split_distance")
 # their launches on each path that runs them, counted from 0 just before
 # the path and read just after: {path: {kernel: launches}}, with F3's per
-# variant and the shapes its plan sent to "rowwise" (shape: reason)
+# variant
 FUSED_LAUNCHES = {}
 
 
@@ -482,29 +475,21 @@ def fused_counted(path):
         "rerank_rows": fc.rerank_rows.launches,
         "split_distance": fc.split_distance.launches,
         "split_distance_pieces": fc.split_distance.split_launches,
-        "rerank_rows_by_variant": dict(fc.rerank_rows.launches_by_variant),
-        "rerank_rows_rowwise_plans": {
-            str(k): v for k, v in fc.rerank_rows.rowwise_plans.items()}}
+        "rerank_rows_by_variant": dict(fc.rerank_rows.launches_by_variant)}
 
 
 def require_fused(path, kernels):
-    """Fail unless every kernel in `kernels` launched on `path`, and every
-    F3 launch there went to its default variant (fused_core.
-    DEFAULT_VARIANT: nothing on the main path forces one) or, were the
-    default "grouped", to "rowwise" for a shape the plan sent there; never
-    the plain version."""
-    from neighborhoodwatch_tpu_torch.ops import fused_core as fc
+    """Fail unless every kernel in `kernels` launched on `path`, and F3
+    never ran its plain version there (nothing on the main path forces
+    one)."""
     got = FUSED_LAUNCHES[path]
     missing = [n for n in kernels if got[n] < 1]
     if missing:
         raise AssertionError(f"{path} never launched {missing}: {got}")
-    by, plans = got["rerank_rows_by_variant"], got["rerank_rows_rowwise_plans"]
-    default = fc.DEFAULT_VARIANT["rerank_rows"]
-    other = "rowwise" if default == "grouped" else "grouped"
-    if by["plain"] or by[other] and not (other == "rowwise" and plans):
-        raise AssertionError(f"{path}: F3 launched {by} (plan's rowwise "
-                             f"shapes {plans}), not its default "
-                             f"{default!r} alone")
+    by = got["rerank_rows_by_variant"]
+    if by["plain"]:
+        raise AssertionError(f"{path}: F3 launched {by}, not its kernel "
+                             f"alone")
 
 
 # the MaxSim engines' fused kernels (ops/maxsim_fused.py): M1, M2
@@ -611,8 +596,8 @@ def plain_and_kernel_ms(fn, timer=None):
 ENCODER_KERNELS = ("embed_layernorm", "add_layernorm", "masked_softmax")
 # their launches on each path that runs them, counted from 0 just before
 # the path and read just after: {path: {kernel: launches}}; per variant
-# ({path: {kernel: {variant: launches}}}) and the shapes the plan sent to
-# "rowpass" ({path: {kernel: {shape: reason}}})
+# ({path: {kernel: {variant: launches}}}) and the shapes E3's plan sent to
+# "rowpass" ({path: {shape: reason}})
 ENCODER_LAUNCHES = {}
 ENCODER_VARIANTS = {}
 ENCODER_ROWPASS = {}
@@ -629,30 +614,25 @@ def encoder_counted(path):
                               for n in ENCODER_KERNELS}
     ENCODER_VARIANTS[path] = {n: dict(getattr(ef, n).launches_by_variant)
                               for n in ENCODER_KERNELS}
-    ENCODER_ROWPASS[path] = {n: {str(k): v for k, v in
-                                 getattr(ef, n).rowpass_plans.items()}
-                             for n in ENCODER_KERNELS}
+    ENCODER_ROWPASS[path] = {str(k): v for k, v in
+                             ef.masked_softmax.rowpass_plans.items()}
 
 
 def require_default_variant(path):
-    """Fail unless every E1-E3 launch of `path` went to its kernel's
-    default variant (encoder_fused.DEFAULT_VARIANT: nothing on the main
-    path forces one), or to "rowpass" where the launch plan sent a
-    "staged" shape there (counted, with the shapes and reasons logged),
-    and none ran the plain chain."""
-    from neighborhoodwatch_tpu_torch.ops import encoder_fused as ef
+    """Fail unless no E1-E3 call of `path` ran the plain chain (nothing on
+    the main path forces a variant) and every E3 launch went to "staged",
+    or to "rowpass" where its launch plan sent a shape there (counted,
+    with the shapes and reasons logged)."""
     by, plans = ENCODER_VARIANTS[path], ENCODER_ROWPASS[path]
     for name in ENCODER_KERNELS:
-        v, default = by[name], ef.DEFAULT_VARIANT[name]
-        other = "rowpass" if default == "staged" else "staged"
-        if v["plain"] or v[other] and not (other == "rowpass"
-                                           and plans[name]):
+        v = by[name]
+        if v["plain"] or (name == "masked_softmax" and v["rowpass"]
+                          and not plans):
             raise AssertionError(f"{path}: {name} launched {v}, not its "
-                                 f"default {default!r} alone")
+                                 f"default alone")
     log(f"  {path}'s E2 / E3 launches by variant: add_layernorm "
         f"{by['add_layernorm']}, masked_softmax {by['masked_softmax']}; "
-        f"shapes the plan sent to 'rowpass': "
-        f"{ {n: p for n, p in plans.items() if p} or 'none'}")
+        f"shapes E3's plan sent to 'rowpass': {plans or 'none'}")
 
 
 def per_forward(layers, e3=True):
@@ -702,11 +682,9 @@ def reset_counts(wrapper):
             v: 0 for v in wrapper.launches_by_variant}
 
 
-# the verified select's launches on each path that runs it, by path, in
-# all and per variant: the counts are set to 0 just before the path and
-# read just after
+# the verified select's launches on each path that runs it, by path: the
+# counts are set to 0 just before the path and read just after
 VERIFIED_LAUNCHES = {}
-VERIFIED_BY_VARIANT = {}
 
 
 @contextlib.contextmanager
@@ -715,7 +693,6 @@ def verified_counted(path):
     reset_counts(vk.verified_select)
     yield
     VERIFIED_LAUNCHES[path] = vk.verified_select.launches
-    VERIFIED_BY_VARIANT[path] = dict(vk.verified_select.launches_by_variant)
 
 
 def screen_operands(q, b):
@@ -887,7 +864,7 @@ def phase_engine(rec):
         raise AssertionError("knn(auto)'s merge never launched K7")
     log(f"  knn(auto) -> engine {engine}, kernel launches {launches} "
         f"{by_variant}, fused kernels {FUSED_LAUNCHES['knn_auto']} (F3 by "
-        f"variant, and the shapes its plan sent to rowwise), K7 "
+        f"variant), K7 "
         f"{VERIFIED_LAUNCHES['knn_auto']}, first call {first_s:.3f} s")
 
     screened_ms = median_ms(lambda: K.knn(q, base, k, engine="auto"))
@@ -1931,7 +1908,7 @@ def phase_nw(rec, workdir, Q=1000, B=100_000, k=100,
     # of the queries that fail the certificate runs its tiles on F4
     require_fused("nw", ("prepare_base", "rerank_rows", "split_distance"))
     log(f"  nw_main's fused kernel launches: {FUSED_LAUNCHES['nw']} (F3 by "
-        f"variant, and the shapes its plan sent to rowwise)")
+        f"variant)")
     if by_variant["mma"] or by_variant["wgmma"] != launches:
         raise AssertionError(f"nw launched {by_variant}: D={D} must take "
                              f"'wgmma'")
@@ -3108,11 +3085,9 @@ def select_bound_ms(q_rows, n, k):
     return (q_rows * n * 4 + q_rows * k * 12 + q_rows) / PEAK_BYTES * 1e3
 
 
-def verified_path(vk, variant):
-    """The path the last launch took: "radix", or the "adaptive" plan's
-    path, cluster size and where its keys live."""
-    if variant == "radix":
-        return "radix"
+def verified_path(vk):
+    """The last launch's plan: its path, cluster size and where its keys
+    live."""
     pl, active = vk.verified_select.last_plan
     return (f"{pl.path} C={pl.cluster} {pl.clusters} clusters (card holds "
             f"{active}), keys in {pl.keys_in}, {pl.buffers} buffers, "
@@ -3120,44 +3095,36 @@ def verified_path(vk, variant):
 
 
 def verified_check(vk, d, k, want, name, exclude=-1):
-    """Both variants on tile `d` against `want` (the plain version's
-    result): positions equal, distances equal bit for bit, proof verdicts
-    equal, and the rows that fell back (all of them when a column is
-    excluded, else none). Returns ({variant: path}, the largest |distance
-    - plain| over both variants)."""
+    """The kernel on tile `d` against `want` (the plain version's result):
+    positions equal, distances equal bit for bit, proof verdicts equal,
+    and the rows that fell back (all of them when a column is excluded,
+    else none). Returns (the launch's path, the largest |distance -
+    plain|)."""
     import torch
-    paths, err = {}, 0.0
-    for variant in vk.VARIANTS:
-        vk.reset_failed_rows()
-        with vk.forced_variant(variant):
-            got = vk.verified_select(d, k, exclude=exclude)
-        torch.cuda.synchronize()
-        failed = vk.failed_rows()
-        paths[variant] = verified_path(vk, variant)
-        diff = (got[0] - want[0]).abs().nan_to_num(0.0)
-        err = max(err, float(diff.max()))
-        same_i = torch.equal(got[1], want[1])
-        same_d = torch.equal(got[0].view(torch.int32),
-                             want[0].view(torch.int32))
-        same_ok = torch.equal(got[2], want[2])
-        same = same_i and same_d and same_ok
-        expected = d.shape[0] if exclude >= 0 else 0
-        if not same or failed != expected:
-            raise AssertionError(
-                f"verified_select [{variant}] {name} k={k} exclude="
-                f"{exclude}: positions equal {same_i}, distances bit-equal "
-                f"{same_d}, proof verdicts equal {same_ok}, "
-                f"{failed} rows fell back ({expected} expected); path "
-                f"{paths[variant]}")
-    return paths, err
+    vk.reset_failed_rows()
+    got = vk.verified_select(d, k, exclude=exclude)
+    torch.cuda.synchronize()
+    failed = vk.failed_rows()
+    path = verified_path(vk)
+    err = float((got[0] - want[0]).abs().nan_to_num(0.0).max())
+    same_i = torch.equal(got[1], want[1])
+    same_d = torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    same_ok = torch.equal(got[2], want[2])
+    expected = d.shape[0] if exclude >= 0 else 0
+    if not (same_i and same_d and same_ok) or failed != expected:
+        raise AssertionError(
+            f"verified_select {name} k={k} exclude={exclude}: positions "
+            f"equal {same_i}, distances bit-equal {same_d}, proof verdicts "
+            f"equal {same_ok}, {failed} rows fell back ({expected} "
+            f"expected); path {path}")
+    return path, err
 
 
 def verified_vs_plain(tiles):
-    """(a): both variants against the plain version on every tile and k,
-    bit for bit; the variants timed in turns (radix, adaptive, adaptive,
-    radix) beside the plain version, torch.topk, the exact engine's stable
-    sort and the bytes bound; then a planted candidate set on every path.
-    Returns {case: {k: numbers}}."""
+    """(a): the kernel against the plain version on every tile and k, bit
+    for bit, timed beside the plain version, torch.topk, the exact
+    engine's stable sort and the bytes bound; then a planted candidate set
+    on every path. Returns {case: {k: numbers}}."""
     import torch
     from neighborhoodwatch_tpu_torch.ops import verified_kernel as vk
     from neighborhoodwatch_tpu_torch.ops.topk import smallest_k
@@ -3168,41 +3135,26 @@ def verified_vs_plain(tiles):
             want = vk.verified_select_plain(d, k)
             if not bool(want[2].all()):
                 raise AssertionError(f"plain {name} k={k}: the proof failed")
-            paths, err = verified_check(vk, d, k, want, name)
-            # the card's time of each variant in turns, and of one call
-            # through the wrapper (the host's share included)
-            turns = {v: [] for v in vk.VARIANTS}
-            call = {}
-            for variant in ("radix", "adaptive", "adaptive", "radix"):
-                with vk.forced_variant(variant):
-                    turns[variant].append(
-                        graph_ms(lambda: vk.verified_select(d, k)))
-                    call.setdefault(variant, per_call_ms(
-                        lambda: vk.verified_select(d, k)))
-            ms = float(np.mean(turns["adaptive"]))
-            before = float(np.mean(turns["radix"]))
+            path, err = verified_check(vk, d, k, want, name)
+            # the card's time, and of one call through the wrapper (the
+            # host's share included)
+            ms = graph_ms(lambda: vk.verified_select(d, k))
+            call = per_call_ms(lambda: vk.verified_select(d, k))
             plain_ms = event_ms(lambda: vk.verified_select_plain(d, k))
             topk_ms = graph_ms(lambda: torch.topk(d, k, largest=False))
             sort_ms = graph_ms(lambda: smallest_k(d, k))
             bound = select_bound_ms(q_rows, n, k)
             out.setdefault(name, {})[str(k)] = {
-                "ms": ms, "before_ms": before, "turns_ms": turns,
-                "call_ms": call, "plain_ms": plain_ms,
+                "ms": ms, "call_ms": call, "plain_ms": plain_ms,
                 "library_ms": topk_ms, "sort_ms": sort_ms,
                 "bound_ms": bound, "max_abs_err": err, "failed_rows": 0,
-                "path": paths["adaptive"]}
-            log(f"  (a) {name} k={k}: adaptive {ms:.4f} ms "
-                f"({ms / bound:.2f}x the bytes bound {bound:.4f} ms; "
-                f"{ms / topk_ms:.2f}x torch.topk {topk_ms:.4f} ms), radix "
-                f"{before:.4f} ms ({before / bound:.2f}x), turns (radix, "
-                f"adaptive, adaptive, radix) {turns['radix'][0]:.4f} / "
-                f"{turns['adaptive'][0]:.4f} / {turns['adaptive'][1]:.4f} / "
-                f"{turns['radix'][1]:.4f}; one call through the wrapper "
-                f"(host included) radix {call['radix']:.4f} / adaptive "
-                f"{call['adaptive']:.4f} ms; stable sort (the exact select) "
-                f"{sort_ms:.4f} ms, plain {plain_ms:.3f} ms; both variants "
-                f"equal the plain version bit for bit, no row fell back; "
-                f"path {paths['adaptive']}")
+                "path": path}
+            log(f"  (a) {name} k={k}: {ms:.4f} ms ({ms / bound:.2f}x the "
+                f"bytes bound {bound:.4f} ms; {ms / topk_ms:.2f}x torch.topk "
+                f"{topk_ms:.4f} ms); one call through the wrapper (host "
+                f"included) {call:.4f} ms; stable sort (the exact select) "
+                f"{sort_ms:.4f} ms, plain {plain_ms:.3f} ms; equal to the "
+                f"plain version bit for bit, no row fell back; path {path}")
     # a planted candidate set on every path: column 0 holds every row's
     # minimum and is dropped from the candidates, so every row must fail
     # and fall back to the exact selection
@@ -3212,11 +3164,10 @@ def verified_vs_plain(tiles):
         want_d, want_i = smallest_k(d, 100)
         want = (want_d, want_i, torch.zeros(d.shape[0], dtype=torch.bool,
                                             device=d.device))
-        paths, _ = verified_check(vk, d, 100, want, name, exclude=0)
+        path, _ = verified_check(vk, d, 100, want, name, exclude=0)
         log(f"  (a) planted candidate set ({name}, k=100, column 0 "
             f"dropped): every row failed the proof and was selected again "
-            f"exactly in the kernel, on both variants; adaptive path "
-            f"{paths['adaptive']}")
+            f"exactly in the kernel; path {path}")
         del d
     return out
 
@@ -3367,25 +3318,19 @@ def phase_verified(rec, nw):
     verified_engine(rec)
     verified_nw_batch(rec, nw)
     # the main path: phase 8's nw_main, whose screened call falls back on
-    # K7 for every query that fails the certificate, on the default variant
+    # K7 for every query that fails the certificate
     launches = VERIFIED_LAUNCHES["nw"]
-    by_variant = VERIFIED_BY_VARIANT["nw"]
-    if launches < 1 or by_variant["adaptive"] != launches:
-        raise AssertionError(f"nw_main launched the verified select "
-                             f"{launches} times, by variant {by_variant}")
+    if launches < 1:
+        raise AssertionError("nw_main never launched the verified select")
     main = shapes["1000x8192"]["100"]
-    rec.update(variant="adaptive", launches=launches,
-               launches_by_variant=by_variant, max_abs_err=max(
+    rec.update(launches=launches, max_abs_err=max(
                    v["max_abs_err"] for case in shapes.values()
                    for v in case.values()),
-               ms=main["ms"], before_ms=main["before_ms"],
-               plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
-               bound_by="bytes", library_ms=main["library_ms"],
-               sort_ms=main["sort_ms"], shapes=shapes,
-               launches_by_path=dict(VERIFIED_LAUNCHES),
-               launches_by_path_variant=dict(VERIFIED_BY_VARIANT))
-    log(f"  K7 launches by path (each counted from 0): {VERIFIED_LAUNCHES}; "
-        f"by variant {VERIFIED_BY_VARIANT}")
+               ms=main["ms"], plain_ms=main["plain_ms"],
+               bound_ms=main["bound_ms"], bound_by="bytes",
+               library_ms=main["library_ms"], sort_ms=main["sort_ms"],
+               shapes=shapes, launches_by_path=dict(VERIFIED_LAUNCHES))
+    log(f"  K7 launches by path (each counted from 0): {VERIFIED_LAUNCHES}")
 
 
 # ------------------------------------------------------------ phase 14
@@ -4255,34 +4200,23 @@ def merge_candidates(q, base, k):
 
 
 def rerank_turns(label, q, base, idx_m, block):
-    """F3 at (q, base, idx_m): "grouped" and "rowwise" bit for bit (fails
-    otherwise), both within 1e-5 of the plain version (the blocked gather
-    and torch.bmm); then plain, rowwise and grouped in turns (CUDA
-    events, plain, rowwise, grouped, grouped, rowwise, plain), beside the
-    bytes bound over the distinct candidate rows and over every candidate
-    row. Returns the numbers, "ms" the default variant's."""
+    """F3 at (q, base, idx_m): the kernel within 1e-5 of the plain version
+    (the blocked gather and torch.bmm), then the two in turns (CUDA
+    events: plain, kernel, kernel, plain), beside the bytes bound over the
+    distinct candidate rows and over every candidate row. Returns the
+    numbers."""
     import torch
     from neighborhoodwatch_tpu_torch.ops import fused_core as fc
     Q, D = q.shape
     B, m = base.shape[0], idx_m.shape[1]
-    default = fc.DEFAULT_VARIANT["rerank_rows"]
 
     def under(variant):
         def call():
             with fc.forced_variant(variant):
                 return fc.rerank_rows(q, base, idx_m, "sqeuclidean", block)
         return call
-    fns = {v: under(v) for v in ("plain", "rowwise", "grouped")}
+    fns = {v: under(v) for v in ("plain", "rowwise")}
     got = {v: fns[v]() for v in fns}
-    plan = fc.rerank_rows.last_plan           # the grouped call's
-    if plan.variant != "grouped":
-        raise AssertionError(f"F3 {label}: the grouped kernel refuses "
-                             f"{Q} x {m} x {D}: {plan.reason}")
-    if not torch.equal(got["grouped"].view(torch.int32),
-                       got["rowwise"].view(torch.int32)):
-        d = float((got["grouped"] - got["rowwise"]).abs().nan_to_num(0).max())
-        raise AssertionError(f"F3 {label}: 'grouped' and 'rowwise' differ, "
-                             f"max |d| {d}")
     want = got["plain"]
     fin = torch.isfinite(want)
     err = float((got["rowwise"] - want).abs()[fin].max())
@@ -4295,16 +4229,13 @@ def rerank_turns(label, q, base, idx_m, block):
     bound = (distinct * D * 4 + small) / PEAK_BYTES * 1e3
     bound_all = (Q * m * D * 4 + small) / PEAK_BYTES * 1e3
     log(f"  (c) F3 rerank_rows {label}, {Q:,} x {m} candidates x {D} over "
-        f"{B:,} rows (default: {default}), "
-        f"'grouped' == 'rowwise' bit for bit, in turns: grouped "
-        f"{t['grouped']:.4f} ms ({t['grouped'] / bound:.2f}x the bytes bound "
-        f"{bound:.4f} ms over the {distinct:,} distinct rows), rowwise "
-        f"{t['rowwise']:.4f} ({t['rowwise'] / bound:.2f}x; "
-        f"{t['rowwise'] / bound_all:.2f}x {bound_all:.4f} ms over every "
-        f"candidate row), plain (blocks of {block} rows: gather, "
-        f"torch.bmm) {t['plain']:.2f} ms; max |d - plain| {err:.3g}")
-    return {"variant": default, "ms": t[default], "ms_grouped": t["grouped"],
-            "ms_rowwise": t["rowwise"], "plain_ms": t["plain"],
+        f"{B:,} rows, in turns: kernel {t['rowwise']:.4f} ms "
+        f"({t['rowwise'] / bound:.2f}x the bytes bound {bound:.4f} ms over "
+        f"the {distinct:,} distinct rows; {t['rowwise'] / bound_all:.2f}x "
+        f"{bound_all:.4f} ms over every candidate row), plain (blocks of "
+        f"{block} rows: gather, torch.bmm) {t['plain']:.2f} ms; max |d - "
+        f"plain| {err:.3g}")
+    return {"ms": t["rowwise"], "plain_ms": t["plain"],
             "bound_ms": bound, "bound_every_candidate_ms": bound_all,
             "max_abs_err": err, "distinct_rows": distinct,
             "shape": [Q, m, D, B]}
@@ -4371,9 +4302,7 @@ def fused_rerank(q, base, nw, k=100):
     return fused_record(
         "rerank_rows", "neighborhoodwatch_tpu/ops/knn.py:379",
         max_abs_err=max(v["max_abs_err"] for v in shapes.values()),
-        variant=main["variant"], ms=main["ms"],
-        ms_grouped=main["ms_grouped"], ms_rowwise=main["ms_rowwise"],
-        plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+        ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
         bound_every_candidate_ms=main["bound_every_candidate_ms"],
         distinct_rows=main["distinct_rows"], shape=main["shape"],
         shapes=shapes,
@@ -4413,8 +4342,6 @@ ENCODER_SHAPES = {"e5_64x32": (64, 32, 1024, 16),
                   "colbert_64x256": (64, 256, 768, 12),
                   "colbert_1x32": (1, 32, 768, 12)}
 VOCAB = 30522
-# E2 and E3's CUDA variants, timed in turns with the plain chain
-STAGED_TURNS = ("plain", "rowpass", "staged")
 
 
 def rotation(bytes_per_call):
@@ -4434,75 +4361,60 @@ def under_variant(variant, fn):
     return call
 
 
-@contextlib.contextmanager
-def staged_admitted():
-    """E1's "staged" planned where the plan sends a shape to "rowpass" for
-    its one full pass a block ("one pass"), so that the staged kernel can
-    be timed there."""
-    from neighborhoodwatch_tpu_torch.ops import encoder_fused as ef
-    real, cache = ef.row_plan, dict(ef._plans)
-
-    def admitted(kernel, rows, width, aligned, sms, resident, batch=None):
-        pl = real(kernel, rows, width, aligned, sms, resident, batch)
-        if pl.reason == "one pass":
-            pl = ef._embed_plan(rows, batch, width, sms, resident)
-        return pl
-    ef.row_plan = admitted
-    ef._plans.clear()
-    try:
-        yield
-    finally:
-        ef.row_plan = real
-        ef._plans.clear()
-        ef._plans.update(cache)
-
-
 def variant_turns(name, inputs, wrapper, plain, yardstick=None):
-    """E1, E2 or E3 on `inputs`: "rowpass" against "staged" bit for bit on
-    every input (fails otherwise); then plain, "rowpass" and
-    "staged" in turns, cold (rotating_ms: each call on its own input, the
-    calls' bytes four times the L2 or more) and hot (graph_ms: one input
-    again and again, as the forward finds E2's operands just written),
-    beside the yardstick where there is one (E2, E3: one ATen row pass
-    over about the same bytes, not the same function), cold and hot.
-    "staged" is on its plan: where the plan sends a shape to "rowpass",
-    both time the same launch (the plan and its reason are returned)."""
+    """E1, E2 or E3 on `inputs`: E3's "rowpass" against "staged" bit for
+    bit on every input (fails otherwise); then plain and the kernels (E1's
+    and E2's one kernel; E3's "rowpass" and "staged") in turns, cold
+    (rotating_ms: each call on its own input, the calls' bytes four times
+    the L2 or more) and hot (graph_ms: one input again and again, as the
+    forward finds E2's operands just written), beside the yardstick where
+    there is one (E2, E3: one ATen row pass over about the same bytes, not
+    the same function), cold and hot. E3's "staged" is on its plan: where
+    the plan sends a shape to "rowpass", both time the same launch (the
+    plan and its reason are returned)."""
     import torch
     from neighborhoodwatch_tpu_torch.ops import encoder_fused as ef
-    staged = under_variant("staged", wrapper)
-    rowpass = under_variant("rowpass", wrapper)
-    for x in inputs:
-        a, b = staged(x), rowpass(x)
-        if not torch.equal(a.view(torch.uint8), b.view(torch.uint8)):
-            d = float((a.float() - b.float()).abs().max())
-            raise AssertionError(f"{name}: 'staged' and 'rowpass' differ "
-                                 f"at {tuple(a.shape)}: max |d| {d}")
-    plan = getattr(ef, name).last_plan
-    fns = {"plain": plain, "rowpass": rowpass, "staged": staged}
+    e3 = name == "masked_softmax"
+    fns = {"plain": plain}
+    if e3:
+        staged = under_variant("staged", wrapper)
+        rowpass = under_variant("rowpass", wrapper)
+        for x in inputs:
+            a, b = staged(x), rowpass(x)
+            if not torch.equal(a.view(torch.uint8), b.view(torch.uint8)):
+                d = float((a.float() - b.float()).abs().max())
+                raise AssertionError(f"{name}: 'staged' and 'rowpass' "
+                                     f"differ at {tuple(a.shape)}: max |d| "
+                                     f"{d}")
+        fns.update(rowpass=rowpass, staged=staged)
+    else:
+        fns["kernel"] = wrapper
     cold = in_turns({v: (lambda f=fns[v]: rotating_ms(f, inputs))
-                     for v in STAGED_TURNS}, lambda f: f())
+                     for v in fns}, lambda f: f())
     hot = in_turns({v: (lambda f=fns[v]: graph_ms(lambda: f(inputs[0])))
-                    for v in STAGED_TURNS}, lambda f: f())
+                    for v in fns}, lambda f: f())
     yard = (rotating_ms(yardstick, inputs),
             graph_ms(lambda: yardstick(inputs[0]))) if yardstick else \
         (None, None)
-    default = ef.DEFAULT_VARIANT[name]
-    return {"variant": default, "ms": cold[default],
-            "ms_rowpass": cold["rowpass"], "ms_staged": cold["staged"],
-            "plain_ms": cold["plain"], "hot_ms": hot[default],
-            "hot_ms_rowpass": hot["rowpass"], "hot_ms_staged": hot["staged"],
-            "hot_plain_ms": hot["plain"],
-            "yardstick_ms": yard[0], "hot_yardstick_ms": yard[1],
-            "plan": dict(vars(plan)) if plan is not None else None}
+    default = "staged" if e3 else "kernel"
+    rec = {"ms": cold[default], "plain_ms": cold["plain"],
+           "hot_ms": hot[default], "hot_plain_ms": hot["plain"],
+           "yardstick_ms": yard[0], "hot_yardstick_ms": yard[1]}
+    if e3:
+        rec.update(variant="staged", ms_rowpass=cold["rowpass"],
+                   ms_staged=cold["staged"], hot_ms_rowpass=hot["rowpass"],
+                   hot_ms_staged=hot["staged"],
+                   plan=dict(vars(ef.masked_softmax.last_plan)))
+    return rec
 
 
 def encoder_fused_shape(label, rows, T, H, heads, g):
     """Phase 16 at one shape: E1-E3 against their plain versions on the
     same bf16 inputs (outputs_agree: one bf16 ulp, plus 1e-5 abs for the
-    LayerNorms' cancellations near 0); each by variant_turns ("staged" ==
-    "rowpass" bit for bit, the three timed in turns cold and hot; E2 and
-    E3 beside the ATen yardstick) beside its bytes bound. Returns {kernel:
-    numbers}."""
+    LayerNorms' cancellations near 0); each by variant_turns (E3's
+    "staged" == "rowpass" bit for bit; timed in turns with the plain chain
+    cold and hot; E2 and E3 beside the ATen yardstick) beside its bytes
+    bound. Returns {kernel: numbers}."""
     import torch
     import torch.nn.functional as F
     from neighborhoodwatch_tpu_torch.ops import encoder_fused as ef
@@ -4528,43 +4440,29 @@ def encoder_fused_shape(label, rows, T, H, heads, g):
                                ef.LN_ATOL)
         bound = bound_bytes(inputs[0]) / PEAK_BYTES * 1e3
         r = variant_turns(name, inputs, kernel, plain, yardstick)
-        if (r["plan"] or {}).get("reason") == "one pass":
-            # the staged kernel itself, past the plan's rule, in turns with
-            # "rowpass", bit for bit
-            staged = under_variant("staged", kernel)
-            with staged_admitted():
-                if not torch.equal(staged(inputs[0]).view(torch.uint8),
-                                   under_variant("rowpass", kernel)(
-                                       inputs[0]).view(torch.uint8)):
-                    raise AssertionError(f"{name} {label}: the staged "
-                                         f"kernel differs from 'rowpass'")
-                t = in_turns({"rowpass": lambda: rotating_ms(
-                    under_variant("rowpass", kernel), inputs),
-                    "staged": lambda: rotating_ms(staged, inputs)},
-                    lambda f: f())
-                r["one_pass"] = {"ms_staged": t["staged"],
-                                 "ms_rowpass": t["rowpass"],
-                                 "plan": dict(vars(ef.embed_layernorm
-                                                   .last_plan))}
-            log(f"  {name} {label}: the plan sends it to 'rowpass' (one "
-                f"pass); the staged kernel past that rule, cold, in turns: "
-                f"staged {t['staged']:.4f} ms, rowpass {t['rowpass']:.4f} "
-                f"(plan {r['one_pass']['plan']})")
         out[name] = {**r, "bound_ms": bound, "max_abs_err": err, "calls": n}
         yard = "" if yardstick is None else (
             f", yardstick {r['yardstick_ms']:.4f}")
         hot_yard = "" if yardstick is None else (
             f", yardstick {r['hot_yardstick_ms']:.4f}")
-        log(f"  {name} {label}: 'rowpass' == 'staged' bit for bit on "
-            f"{n} inputs; cold (a CUDA graph of {n} calls, each on its "
-            f"own inputs, in turns): rowpass {r['ms_rowpass']:.4f} ms "
-            f"({r['ms_rowpass'] / bound:.2f}x the bytes bound "
-            f"{bound:.4f} ms), staged {r['ms_staged']:.4f} "
-            f"({r['ms_staged'] / bound:.2f}x), plain "
+        if "ms_staged" in r:
+            cold = (f"rowpass {r['ms_rowpass']:.4f} ms "
+                    f"({r['ms_rowpass'] / bound:.2f}x the bytes bound "
+                    f"{bound:.4f} ms), staged {r['ms_staged']:.4f} "
+                    f"({r['ms_staged'] / bound:.2f}x)")
+            hot = (f"rowpass {r['hot_ms_rowpass']:.4f}, staged "
+                   f"{r['hot_ms_staged']:.4f}")
+            same = (f"'rowpass' == 'staged' bit for bit on {n} inputs; "
+                    f"plan {r['plan']}; ")
+        else:
+            cold = (f"kernel {r['ms']:.4f} ms ({r['ms'] / bound:.2f}x the "
+                    f"bytes bound {bound:.4f} ms)")
+            hot = f"kernel {r['hot_ms']:.4f}"
+            same = ""
+        log(f"  {name} {label}: {same}cold (a CUDA graph of {n} calls, each "
+            f"on its own inputs, in turns): {cold}, plain "
             f"{r['plain_ms']:.4f}{yard}; hot (one input, {REPS} calls): "
-            f"rowpass {r['hot_ms_rowpass']:.4f}, staged "
-            f"{r['hot_ms_staged']:.4f}, plain "
-            f"{r['hot_plain_ms']:.4f}{hot_yard}; plan {r['plan']}; max "
+            f"{hot}, plain {r['hot_plain_ms']:.4f}{hot_yard}; max "
             f"|d - plain| {err:.3g}")
         del inputs
 
@@ -4612,11 +4510,11 @@ def encoder_fused_shape(label, rows, T, H, heads, g):
 
 def phase_encoder_fused():
     """Phase 16: E1-E3 against their plain versions at the published
-    shapes, E2 and E3's variants against each other, timed in turns beside
-    their bounds; returns their records for the kernels line (ms, plain
-    and bound at nw's 64 x 32, ms on each kernel's default variant, E2
-    and E3 each variant's as ms_rowpass and ms_staged; launches: phase
-    8's nw_main, and per path)."""
+    shapes, E3's variants against each other, timed in turns beside their
+    bounds; returns their records for the kernels line (ms, plain and
+    bound at nw's 64 x 32, ms on each kernel's default, E3 each variant's
+    as ms_rowpass and ms_staged; launches: phase 8's nw_main, and per
+    path)."""
     import torch
     g = torch.Generator(device="cuda").manual_seed(16)
     shapes = {label: encoder_fused_shape(label, *dims, g)
@@ -4644,8 +4542,10 @@ def phase_encoder_fused():
             "bound_ms": main["bound_ms"], "bound_by": "bytes",
             "library_ms": None,
             "shapes": {label: v[name] for label, v in shapes.items()}}
-        rec.update(variant=main["variant"], ms_rowpass=main["ms_rowpass"],
-                   ms_staged=main["ms_staged"])
+        if name == "masked_softmax":
+            rec.update(variant=main["variant"],
+                       ms_rowpass=main["ms_rowpass"],
+                       ms_staged=main["ms_staged"])
         if name != "embed_layernorm":
             rec.update(yardstick_ms=main["yardstick_ms"],
                        yardstick="ATen " + ("layer_norm" if name ==

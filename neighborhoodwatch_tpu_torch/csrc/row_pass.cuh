@@ -201,19 +201,20 @@ __device__ __forceinline__ float group_max(float v, float* red) {
   }
 }
 
-// The LayerNorm statistics of the row in v (n valid slots) in fp32: two
-// passes over the registers (the mean, then the mean square deviation);
-// returns the mean and rsqrt(var + eps). Every kernel that normalizes a row
-// takes them from here, so every variant sums in this order.
+// LayerNorm of the row in v (n valid slots) in fp32: two passes over the
+// registers (the mean, then the mean square deviation), then
+// (x - mean) * rsqrt(var + eps) * w + b, w and b read as the row is
+// written. Returns through v.
 template <int kLanes, int kPer, bool kVec>
-__device__ __forceinline__ void row_stats(const float (&v)[kPer], int n,
-                                          int lane, float eps, float* red,
-                                          float& mean, float& rstd) {
+__device__ __forceinline__ void layer_norm(float (&v)[kPer], int n, int lane,
+                                           const float* __restrict__ w,
+                                           const float* __restrict__ b,
+                                           float eps, float* red) {
   float s = 0.0f;
 #pragma unroll
   for (int i = 0; i < kPer; ++i)
     if (slot<kLanes, kVec>(lane, i) < n) s += v[i];
-  mean = __fdiv_rn(group_sum<kLanes>(s, red), (float)n);
+  const float mean = __fdiv_rn(group_sum<kLanes>(s, red), (float)n);
   float q = 0.0f;
 #pragma unroll
   for (int i = 0; i < kPer; ++i) {
@@ -223,19 +224,7 @@ __device__ __forceinline__ void row_stats(const float (&v)[kPer], int n,
     }
   }
   const float var = __fdiv_rn(group_sum<kLanes>(q, red), (float)n);
-  rstd = rsqrtf(var + eps);
-}
-
-// LayerNorm of the row in v (n valid slots) in fp32: row_stats, then
-// (x - mean) * rsqrt(var + eps) * w + b, w and b read as the row is
-// written. Returns through v.
-template <int kLanes, int kPer, bool kVec>
-__device__ __forceinline__ void layer_norm(float (&v)[kPer], int n, int lane,
-                                           const float* __restrict__ w,
-                                           const float* __restrict__ b,
-                                           float eps, float* red) {
-  float mean, rstd;
-  row_stats<kLanes, kPer, kVec>(v, n, lane, eps, red, mean, rstd);
+  const float rstd = rsqrtf(var + eps);
   float wv[kPer], bv[kPer];
   load_row<float, kLanes, kPer, kVec>(w, n, lane, wv, 0.0f);
   load_row<float, kLanes, kPer, kVec>(b, n, lane, bv, 0.0f);

@@ -32,32 +32,25 @@ raises: on a build or launch failure, a dtype outside bf16/fp16/fp32, a
 width the kernels do not take. On CPU tensors it runs the plain PyTorch
 version beside it, which is the encoder's op-by-op code of before.
 
-Variants (`VARIANTS`; the default a kernel's in `DEFAULT_VARIANT`;
-`forced_variant(name)` selects one for timings that hold them against
-each other; nothing on the main path forces one):
-  "rowpass" the first kernels (csrc/row_pass.cuh: each row loaded by its
-            own lanes, one row a row group): E1's and E2's default.
-  "staged"  E1, E2 and E3 on the launch plan of `row_plan`: a grid of at
+E1 and E2 have one kernel each ("rowpass": csrc/row_pass.cuh, each row
+loaded by its own lanes, one row a row group). E3 has two, which give the
+same bits (`VARIANTS`; `forced_variant(name)` selects one for timings that
+hold them against each other; nothing on the main path forces one):
+  "staged"  E3's default, on the launch plan of `row_plan`: a grid of at
             most the blocks the card holds at once, each block a step of
-            consecutive rows in several passes; E1's steps run through the
-            tokens position by position, its type-0, w, b and position
-            rows staged in shared memory once a block (cp.async) and each
-            group's next word row loaded while it normalizes this one;
-            E2's w and b come into shared memory by one bulk copy a block
-            (csrc/row_stream.cuh), E3 loads a pass's rows before the
-            previous pass's arithmetic. Rows it cannot take (a width not a
-            multiple of 8, unaligned pointers; for E1 also one full pass a
-            block, "rowpass"'s own layout, as at nw's 64 x 32) go to
-            "rowpass" by the plan, counted there and logged once a shape.
-            E3's default: on the card it was faster than "rowpass" at
-            the shapes the encoders run; E1's and E2's were not (E1's
-            ran at parity at ck's 1 x 32, nw's 64 x 32 is "rowpass"'s
-            by the plan).
-  "plain"   the plain version on CUDA tensors too.
-"staged" and "rowpass" give the same bits. Launches are counted in all
-(`launches`: either kernel) and per variant (`launches_by_variant`); the
-shapes the plan sent to "rowpass" are in `rowpass_plans`. Nothing is built
-at import: the kernels build at first use (utils/cuda_build.py).
+            consecutive rows in several passes, a pass's rows loaded
+            before the previous pass's arithmetic; on the card it was
+            faster than "rowpass" at the shapes the encoders run. Rows it
+            cannot take (a width not a multiple of 8, unaligned pointers)
+            go to "rowpass" by the plan, counted there and logged once a
+            shape.
+  "rowpass" the first kernel.
+  "plain"   the plain version on CUDA tensors too (E1-E3 and D1-D3).
+E1 and E2 launch their kernel under "staged" and "rowpass" alike. Launches
+are counted in all (`launches`) and per variant (`launches_by_variant`,
+E1's and E2's under "rowpass"); the shapes E3's plan sent to "rowpass" are
+in `masked_softmax.rowpass_plans`. Nothing is built at import: the kernels
+build at first use (utils/cuda_build.py).
 """
 
 import contextlib
@@ -78,10 +71,6 @@ LN_ATOL = 1e-5                # E1, E2 against their plain versions
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}
 
 VARIANTS = ("staged", "rowpass", "plain")
-# each kernel's variant on CUDA tensors unless one is forced: the faster
-# on the card at the encoders' shapes (PERF.md)
-DEFAULT_VARIANT = {"embed_layernorm": "rowpass", "add_layernorm": "rowpass",
-                   "masked_softmax": "staged"}
 _forced_variant = None
 _log = logging.getLogger(__name__)
 
@@ -90,15 +79,9 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 # each source's C functions, `<name>_<entry>`, and their arguments
 _ARGTYPES = {
     "embed_layernorm": {
-        "launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _I, _F, _P],
-        "staged_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _I,
-                          _F, _I, _I, _I, _I, _P],
-        "staged_resident": [_I, _I, _I]},
+        "launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _I, _F, _P]},
     "add_layernorm": {
-        "launch": [_P, _P, _P, _P, _P, _LL, _I, _I, _F, _P],
-        "staged_launch": [_P, _P, _P, _P, _P, _LL, _I, _I, _F, _I, _I, _I,
-                          _P],
-        "staged_resident": [_I, _I, _I]},
+        "launch": [_P, _P, _P, _P, _P, _LL, _I, _I, _F, _P]},
     "masked_softmax": {
         "launch": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
         "staged_launch": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P],
@@ -115,9 +98,10 @@ _ON_CARD = ("cuda",)
 @contextlib.contextmanager
 def forced_variant(name: str):
     """Run CUDA tensors through `name` ("staged", "rowpass" or "plain")
-    instead of each kernel's default (DEFAULT_VARIANT), for timings that
-    hold them against each other. Under "staged" the plan still sends the
-    rows it cannot take to "rowpass"."""
+    instead of E3's default ("staged"), for timings that hold them against
+    each other. Under "staged" the plan still sends the rows it cannot take
+    to "rowpass"; E1 and E2 launch their one kernel under either, D1-D3
+    theirs under anything but "plain"."""
     global _forced_variant
     if name not in VARIANTS:
         raise ValueError(f"variant {name!r} not in {VARIANTS}")
@@ -167,8 +151,7 @@ def _launch(name: str, dev, *args, entry: str = "launch") -> None:
 def _route(wrapper, t):
     """The variant a tensor `t` takes: None for the plain version (CPU
     tensors, or CUDA tensors under forced_variant("plain"), counted), else
-    the wrapper's default (DEFAULT_VARIANT) or the forced variant; raises
-    for any other device."""
+    the forced variant or "staged"; raises for any other device."""
     if t.device.type == "cpu":
         return None
     if t.device.type not in _ON_CARD:
@@ -177,7 +160,7 @@ def _route(wrapper, t):
     if _forced_variant == "plain":
         wrapper.launches_by_variant["plain"] += 1
         return None
-    return _forced_variant or DEFAULT_VARIANT[wrapper.__name__]
+    return _forced_variant or "staged"
 
 
 def _count(wrapper, variant: str) -> None:
@@ -197,103 +180,58 @@ def _on_card(wrapper, t) -> bool:
     return _forced_variant != "plain"
 
 
-# ------------------------------------------------------- the launch plan
+# ------------------------------------------------------- E3's launch plan
 
 THREADS = 256                 # a block of the row kernels
 MAX_STAGED_ROWS = 2 ** 30     # "staged" counts rows in 32 bits
-SMEM_LIMIT = 232448           # dynamic shared memory a block may use
 
 
 @dataclasses.dataclass(frozen=True)
 class RowPlan:
-    """A launch of E1, E2 or E3. "staged": `grid` blocks (never more than
-    the card holds at once), block i the `rows_per_step` consecutive rows
-    from i x rows_per_step, in `passes` passes of the block's rows a pass
-    (E1: of the position-major order, row r the token (r % B, r // B); a
-    step touches at most `positions` positions); `smem_bytes` of dynamic
-    shared memory a block. "rowpass": the first kernel, which lays out its
+    """A launch of E3. "staged": `grid` blocks (never more than the card
+    holds at once), block i the `rows_per_step` consecutive rows from i x
+    rows_per_step, in `passes` passes of the block's rows a pass; no
+    dynamic shared memory. "rowpass": the first kernel, which lays out its
     own launch; nothing planned (the numbers 0), for the reason given."""
     variant: str            # "staged" or "rowpass"
     reason: str             # why "rowpass" ("" for "staged")
     lanes: int              # lanes a row
     passes: int
-    rows_per_step: int      # E3: rows of the flattened (B H T, T) logits
+    rows_per_step: int      # rows of the flattened (B H T, T) logits
     grid: int
-    smem_bytes: int
-    positions: int = 0      # E1: position rows a block stages
 
 
-def row_lanes(kernel: str, width: int) -> int:
-    """Lanes a row, as both variants lay it out: E1 and E2 a warp (four
-    above 1,024 values), E3 a lane for 8 of the T keys (4 to 64 lanes)."""
-    if kernel != "masked_softmax":
-        return 32 if width <= 1024 else 128
+def row_lanes(width: int) -> int:
+    """Lanes a row of T = `width` keys, as both of E3's kernels lay it
+    out: a lane for 8 of the keys (4 to 64 lanes)."""
     for lanes in (4, 8, 16, 32):
         if width <= 8 * lanes:
             return lanes
     return 64
 
 
-def pass_rows(kernel: str, width: int) -> int:
-    """Rows a block of THREADS takes in one pass: E1 and E2 a row a warp
-    (or a four-warp group), E3 THREADS / lanes."""
-    lanes = row_lanes(kernel, width)
-    return THREADS // (max(32, lanes) if kernel != "masked_softmax"
-                       else lanes)
+def pass_rows(width: int) -> int:
+    """Rows a block of THREADS takes in one pass: THREADS / lanes."""
+    return THREADS // row_lanes(width)
 
 
-def staged_positions(step: int, batch: int, seq: int) -> int:
-    """E1: the position rows a step of `step` consecutive position-major
-    rows touches at most, as the C launch function recomputes it: whole
-    positions where step is a multiple of the batch, one where it divides
-    the batch, else at most (step - 1) // batch + 2; never more than
-    `seq`."""
-    if step % batch == 0:
-        p = step // batch
-    elif batch % step == 0:
-        p = 1
-    else:
-        p = (step - 1) // batch + 2
-    return min(p, seq)
+def row_plan(rows: int, width: int, aligned: bool, sms: int,
+             resident) -> RowPlan:
+    """E3's "staged" launch for the B H T rows of T = `width` keys on a
+    card of `sms` SMs where `resident()` blocks of the kernel fit an SM
+    (registers and threads; the occupancy query).
 
-
-def staged_bytes(kernel: str, width: int, positions: int = 0) -> int:
-    """Dynamic shared memory of a "staged" block, as the C launch functions
-    recompute it: E1 the type-0, w, b and `positions` position rows in
-    fp32, E2 w and b, E3 none."""
-    if kernel == "embed_layernorm":
-        return 4 * width * (3 + positions)
-    return 8 * width if kernel == "add_layernorm" else 0
-
-
-def row_plan(kernel: str, rows: int, width: int, aligned: bool, sms: int,
-             resident, batch: int | None = None) -> RowPlan:
-    """The "staged" launch of E1 ("embed_layernorm": the `rows` = `batch` x
-    T tokens of `width` values), E2 ("add_layernorm": `rows` rows of
-    `width` values) or E3 ("masked_softmax": the B H T rows of T = `width`
-    keys) on a card of `sms` SMs where `resident(smem_bytes)` blocks of the
-    kernel fit an SM (registers, threads and shared memory; the occupancy
-    query).
-
-    "staged" where the rows take 16-byte loads and the weights a bulk or
-    async copy (width % 8 == 0, `aligned`: every pointer 16-byte aligned,
-    E3's mask 8) and there are fewer than MAX_STAGED_ROWS: the fewest
-    passes that fit the rows into the blocks the card holds at once, and a
-    block for each step of that many passes (E1: where the rows fill less
-    than a pass of every block, a step of fewer rows than a pass, so the
-    rows spread over the SMs; the shared memory its positions take). Else
-    "rowpass", with the reason."""
-    if kernel not in ("embed_layernorm", "add_layernorm", "masked_softmax"):
-        raise ValueError(f"no launch plan for {kernel!r}")
+    "staged" where the rows take 16-byte loads (width % 8 == 0, `aligned`:
+    logits and output 16-byte aligned, the mask 8) and there are fewer than
+    MAX_STAGED_ROWS: the fewest passes that fit the rows into the blocks
+    the card holds at once, and a block for each step of that many passes.
+    Else "rowpass", with the reason."""
     if rows < 0 or width < 1 or sms < 1:
         raise ValueError(f"rows={rows}, width={width}, sms={sms}: nothing "
                          f"to plan")
-    if kernel == "embed_layernorm" and (batch is None or batch < 1
-                                        or rows % batch):
-        raise ValueError(f"embed_layernorm: {rows} rows in batch rows of "
-                         f"{batch}")
 
-    rowpass = _rowpass_plan
+    def rowpass(reason):
+        return RowPlan("rowpass", reason, 0, 0, 0, 0)
     if rows == 0:
         return rowpass("empty")
     if rows >= MAX_STAGED_ROWS:
@@ -302,66 +240,14 @@ def row_plan(kernel: str, rows: int, width: int, aligned: bool, sms: int,
         return rowpass("width")
     if not aligned:
         return rowpass("unaligned")
-    if kernel == "embed_layernorm":
-        pl = _embed_plan(rows, batch, width, sms, resident)
-        if pl.passes == 1 and pl.rows_per_step == pass_rows(kernel, width):
-            # a full pass a block, as "rowpass" lays the tokens out:
-            # nothing prefetched, the staging only adds (PERF.md)
-            return rowpass("one pass")
-        return pl
-    smem = staged_bytes(kernel, width)
-    held = int(resident(smem))
+    held = int(resident())
     if held < 1:
         return rowpass("occupancy")
-    per_pass = pass_rows(kernel, width)
+    per_pass = pass_rows(width)
     passes = -(-rows // (per_pass * sms * held))
     step = passes * per_pass
-    return RowPlan("staged", "", row_lanes(kernel, width), passes, step,
-                   -(-rows // step), smem)
-
-
-def _rowpass_plan(reason: str) -> RowPlan:
-    return RowPlan("rowpass", reason, 0, 0, 0, 0, 0)
-
-
-def _embed_plan(rows, batch, width, sms, resident) -> RowPlan:
-    """row_plan's E1 case: as E2's, but steps of fewer rows than a pass
-    where the rows fill less than a pass of every block the card holds (a
-    token a warp, over as many SMs as there are tokens; such a step a
-    divisor of the batch), and shared memory for the positions a step
-    touches; the card's blocks asked again at that size, the steps grown
-    until the grid fits them. (row_plan sends a plan of one full pass a
-    block, "rowpass"'s own layout, to "rowpass".)"""
-    rowpass = _rowpass_plan
-    per_pass, seq = pass_rows("embed_layernorm", width), rows // batch
-    held = int(resident(staged_bytes("embed_layernorm", width, 1)))
-    if held < 1:
-        return rowpass("occupancy")
-    cap = sms * held
-    while True:
-        if rows <= cap * per_pass:
-            # one pass; the step rounded up to a divisor of the batch
-            # within the pass (fewer blocks), so that it lies within one
-            # position
-            step = -(-rows // cap)
-            step = next((d for d in range(step, min(batch, per_pass) + 1)
-                         if batch % d == 0), step)
-            passes = 1
-        else:
-            passes = -(-rows // (cap * per_pass))
-            step = passes * per_pass
-        grid = -(-rows // step)
-        positions = staged_positions(step, batch, seq)
-        smem = staged_bytes("embed_layernorm", width, positions)
-        if smem > SMEM_LIMIT:
-            return rowpass("smem")
-        held = int(resident(smem))
-        if held < 1:
-            return rowpass("occupancy")
-        if grid <= sms * held:
-            return RowPlan("staged", "", row_lanes("embed_layernorm", width),
-                           passes, step, grid, smem, positions)
-        cap = sms * held          # < grid <= the last cap: steps grow
+    return RowPlan("staged", "", row_lanes(width), passes, step,
+                   -(-rows // step))
 
 
 _sms: dict = {}
@@ -378,18 +264,18 @@ def _sm_count(dev) -> int:
     return n
 
 
-def _resident(kernel, dev, width, code, smem_bytes) -> int:
-    """Blocks of the "staged" kernel an SM holds at `smem_bytes`: the C
-    library's occupancy query, asked once per device, width, dtype and
-    size (so a launch inside a graph capture asks nothing new)."""
-    key = (kernel, dev, width, code, smem_bytes)
+def _resident(dev, width, code) -> int:
+    """Blocks of E3's "staged" kernel an SM holds: the C library's
+    occupancy query, asked once per device, width and dtype (so a launch
+    inside a graph capture asks nothing new)."""
+    key = (dev, width, code)
     n = _resident_cache.get(key)
     if n is None:
         with torch.cuda.device(dev):
-            n = _launcher(kernel, "staged_resident")(width, code, smem_bytes)
+            n = _launcher("masked_softmax", "staged_resident")(width, code, 0)
         if n < 0:
-            raise RuntimeError(f"{kernel} occupancy query failed: CUDA "
-                               f"error {-n}")
+            raise RuntimeError(f"masked_softmax occupancy query failed: "
+                               f"CUDA error {-n}")
         _resident_cache[key] = n
     return n
 
@@ -399,24 +285,24 @@ def _aligned(*tensors, mask=None) -> bool:
         (mask is None or mask.data_ptr() % 8 == 0)
 
 
-def _plan(wrapper, dev, rows, width, dtype, aligned, batch=None) -> RowPlan:
+def _plan(dev, rows, width, dtype, aligned) -> RowPlan:
     """row_plan on this device, once per shape; a shape sent to "rowpass"
-    is kept in `wrapper.rowpass_plans` and logged the first time."""
-    kernel = wrapper.__name__
-    key = (kernel, dev, rows, width, dtype, aligned, batch)
+    is kept in `masked_softmax.rowpass_plans` and logged the first
+    time."""
+    key = (dev, rows, width, dtype, aligned)
     pl = _plans.get(key)
     if pl is None:
         code = _DTYPE_CODE[dtype]
         pl = _plans[key] = row_plan(
-            kernel, rows, width, aligned, _sm_count(dev),
-            lambda b: _resident(kernel, dev, width, code, b), batch)
+            rows, width, aligned, _sm_count(dev),
+            lambda: _resident(dev, width, code))
     if pl.variant == "rowpass":
         shape = (rows, width, str(dtype).removeprefix("torch."), aligned)
-        if shape not in wrapper.rowpass_plans:
-            _log.info("%s: %s rows of %s (%s, aligned %s) take 'rowpass' "
-                      "by the plan: %s", kernel, *shape, pl.reason)
-        wrapper.rowpass_plans[shape] = pl.reason
-    wrapper.last_plan = pl
+        if shape not in masked_softmax.rowpass_plans:
+            _log.info("masked_softmax: %s rows of %s (%s, aligned %s) take "
+                      "'rowpass' by the plan: %s", *shape, pl.reason)
+        masked_softmax.rowpass_plans[shape] = pl.reason
+    masked_softmax.last_plan = pl
     return pl
 
 
@@ -468,10 +354,9 @@ def embed_layernorm(ids, word, position, token_type, weight, bias,
     """`embed_layernorm_plain`'s function: E1 on CUDA tensors (one read of
     each gathered row, the sum bit for bit the plain version's, LayerNorm
     within one ulp of `dtype`; an id outside the table gives a row of NaN,
-    with no host sync to check the ids; "rowpass" by default, or
-    "staged" on its plan), the plain version on CPU tensors."""
-    variant = _route(embed_layernorm, ids)
-    if variant is None:
+    with no host sync to check the ids), the plain version on CPU
+    tensors."""
+    if _route(embed_layernorm, ids) is None:
         return embed_layernorm_plain(ids, word, position, token_type, weight,
                                      bias, eps, dtype)
     if dtype not in _DTYPE_CODE:
@@ -502,22 +387,11 @@ def embed_layernorm(ids, word, position, token_type, weight, bias,
     weight, bias = _f32_row(weight, "weight", h), _f32_row(bias, "bias", h)
     ids = ids.contiguous()
     out = torch.empty((b, seq, h), dtype=dtype, device=ids.device)
-    dev = ids.device
-    args = (ids.data_ptr(), word.data_ptr(), position.data_ptr(),
-            token_type[0].data_ptr(), weight.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), b, seq, h, word.shape[0], _DTYPE_CODE[dtype],
-            float(eps))
-    if variant == "staged":
-        pl = _plan(embed_layernorm, dev, b * seq, h, dtype,
-                   _aligned(word, position, token_type, weight, bias, out),
-                   batch=b)
-        variant = pl.variant
-    if variant == "staged":
-        _launch("embed_layernorm", dev, *args, pl.grid, pl.rows_per_step,
-                pl.passes, pl.smem_bytes, entry="staged_launch")
-    else:
-        _launch("embed_layernorm", dev, *args)
-    _count(embed_layernorm, variant)
+    _launch("embed_layernorm", ids.device, ids.data_ptr(), word.data_ptr(),
+            position.data_ptr(), token_type[0].data_ptr(), weight.data_ptr(),
+            bias.data_ptr(), out.data_ptr(), b, seq, h, word.shape[0],
+            _DTYPE_CODE[dtype], float(eps))
+    _count(embed_layernorm, "rowpass")
     return out
 
 
@@ -534,10 +408,9 @@ def add_layernorm_plain(hidden, x, weight, bias, eps: float):
 def add_layernorm(hidden, x, weight, bias, eps: float):
     """`add_layernorm_plain`'s function over the last dimension: E2 on CUDA
     tensors (the add bit for bit the plain version's, LayerNorm within one
-    ulp of the activation dtype; a warp a row, no atomics; "rowpass" by
-    default, or "staged" on its plan), the plain version on CPU tensors."""
-    variant = _route(add_layernorm, hidden)
-    if variant is None:
+    ulp of the activation dtype; a warp a row, no atomics), the plain
+    version on CPU tensors."""
+    if _route(add_layernorm, hidden) is None:
         return add_layernorm_plain(hidden, x, weight, bias, eps)
     code = _activation(hidden, "hidden")
     if x.dtype != hidden.dtype or x.shape != hidden.shape:
@@ -549,19 +422,10 @@ def add_layernorm(hidden, x, weight, bias, eps: float):
     weight, bias = _f32_row(weight, "weight", h), _f32_row(bias, "bias", h)
     hidden, x = hidden.contiguous(), x.contiguous()
     out = torch.empty_like(hidden)
-    rows, dev = hidden.numel() // h, hidden.device
-    args = (hidden.data_ptr(), x.data_ptr(), weight.data_ptr(),
-            bias.data_ptr(), out.data_ptr(), rows, h, code, float(eps))
-    if variant == "staged":
-        pl = _plan(add_layernorm, dev, rows, h, hidden.dtype,
-                   _aligned(hidden, x, weight, bias, out))
-        variant = pl.variant
-    if variant == "staged":
-        _launch("add_layernorm", dev, *args, pl.grid, pl.passes,
-                pl.smem_bytes, entry="staged_launch")
-    else:
-        _launch("add_layernorm", dev, *args)
-    _count(add_layernorm, variant)
+    _launch("add_layernorm", hidden.device, hidden.data_ptr(), x.data_ptr(),
+            weight.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            hidden.numel() // h, h, code, float(eps))
+    _count(add_layernorm, "rowpass")
     return out
 
 
@@ -613,12 +477,12 @@ def masked_softmax(logits, mask, head_dim: int):
     args = (logits.data_ptr(), mask.data_ptr(), out.data_ptr(), b, heads,
             seq, code, math.sqrt(head_dim))
     if variant == "staged":
-        pl = _plan(masked_softmax, dev, b * heads * seq, seq, logits.dtype,
+        pl = _plan(dev, b * heads * seq, seq, logits.dtype,
                    _aligned(logits, out, mask=mask))
         variant = pl.variant
     if variant == "staged":
-        _launch("masked_softmax", dev, *args, pl.grid, pl.passes,
-                pl.smem_bytes, entry="staged_launch")
+        _launch("masked_softmax", dev, *args, pl.grid, pl.passes, 0,
+                entry="staged_launch")
     else:
         _launch("masked_softmax", dev, *args)
     _count(masked_softmax, variant)
@@ -755,12 +619,12 @@ def swiglu(gu):
 
 
 def reset_launches() -> None:
-    """Set every wrapper's launch counts to 0 and forget the shapes its
+    """Set every wrapper's launch counts to 0 and forget the shapes E3's
     plan sent to "rowpass"."""
     for w in (embed_layernorm, add_layernorm, masked_softmax):
         w.launches_by_variant = {v: 0 for v in VARIANTS}
-        w.rowpass_plans = {}
-        w.last_plan = None
+    masked_softmax.rowpass_plans = {}
+    masked_softmax.last_plan = None
     for w in (embed_layernorm, add_layernorm, masked_softmax, add_rmsnorm,
               rope, swiglu):
         w.launches = 0

@@ -29,24 +29,13 @@ or raises; on CPU tensors it runs the plain PyTorch version beside it,
 which is the engines' op-by-op code as it was before the kernels. Nothing
 is built at import: the kernels build at first use (utils/cuda_build.py).
 
-F3 has two kernels, the same bits (`VARIANTS`; the default in
-`DEFAULT_VARIANT`; `forced_variant(name)` selects one for timings that
-hold them against each other; nothing on the main path forces one):
-  "rowwise" the default, the first kernel: a block a query and 64 of its
+F3's variants (`VARIANTS`; `forced_variant(name)` selects one for timings
+that hold them against each other; nothing on the main path forces one):
+  "rowwise" the kernel, the default: a block a query and 64 of its
             candidates.
-  "grouped" the (query, slot) pairs grouped by candidate id on the card
-            by a counting sort, each distinct base row read once per run
-            of its pairs; faster than "rowwise" only where "rowwise"
-            reads the candidate rows from HBM and the queries stay in L2
-            (PERF.md), so a named variant, not the default. Calls its
-            kernel cannot take (`rerank_plan`: empty, unaligned, dims
-            above 2,048 or not a multiple of 4, counts beyond 32 bits)
-            go to "rowwise" by the plan, counted there, the shapes and
-            reasons kept in `rerank_rows.rowwise_plans` and logged once a
-            shape.
   "plain"   the plain version on CUDA tensors too.
-Counts: `rerank_rows.launches` (either kernel), `.launches_by_variant`,
-`.last_plan`; `split_distance.launches` (the product kernel),
+Counts: `rerank_rows.launches` (the kernel), `.launches_by_variant`;
+`split_distance.launches` (the product kernel),
 `.split_launches` (the split pass), `.last_plan`, `.fp32_plans` (the
 shapes the plan sent to the fp32 path, with the reason).
 """
@@ -81,30 +70,22 @@ _ARGTYPES = {
     "distance_tile": {
         "launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]},
     "rerank_rows": {
-        "launch": [_P, _P, _P, _P, _I, _I, _I, _LL, _I, _I, _P],
-        "grouped_launch": [_P, _P, _P, _P, _I, _I, _I, _LL, _I, _P, _LL,
-                           _P],
-        "group_launch": [_P, _I, _I, _LL, _P, _LL, _P]},
+        "launch": [_P, _P, _P, _P, _I, _I, _I, _LL, _I, _I, _P]},
     "split_distance": {
         "launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                    _P],
         "pieces_launch": [_P, _LL, _I, _I, _P, _P]},
 }
 
-VARIANTS = ("grouped", "rowwise", "plain")
-# F3's variant on CUDA tensors unless one is forced: "grouped" lost on
-# knn(auto)'s calls and won one call of nw's (PERF.md)
-DEFAULT_VARIANT = {"rerank_rows": "rowwise"}
+VARIANTS = ("rowwise", "plain")
 _forced_variant = None
 _log = logging.getLogger(__name__)
 
 
 @contextlib.contextmanager
 def forced_variant(name: str):
-    """Run F3 on CUDA tensors through `name` ("grouped", "rowwise" or
-    "plain") instead of its default, for timings that hold them against
-    each other. Under "grouped" the plan still sends the calls it does not
-    take to "rowwise"."""
+    """Run F3 on CUDA tensors through `name` ("rowwise" or "plain") instead
+    of its default, for timings that hold them against each other."""
     global _forced_variant
     if name not in VARIANTS:
         raise ValueError(f"variant {name!r} not in {VARIANTS}")
@@ -349,166 +330,11 @@ def rerank_plain(query, base, ids, metric: str, block: int | None = None):
     return out
 
 
-def pair_distances(qb, cb, metric: str):
-    """`rerank_plain`'s metrics on query rows qb (..., dim) against
-    candidate rows cb (..., dim) that broadcast against them, each dot and
-    norm the sum of its own row's products (a reduction of each row alone,
-    so the bits do not depend on how the pairs are laid out; within the
-    fp32 tolerance of rerank_plain's batched product)."""
-    dots = (cb * qb).sum(-1)
-    if metric in ("sqeuclidean", "euclidean"):
-        d = torch.clamp_min((qb * qb).sum(-1) + (cb * cb).sum(-1)
-                            - 2.0 * dots, 0.0)
-        return torch.sqrt(d) if metric == "euclidean" else d
-    if metric == "cosine":
-        denom = torch.clamp_min(torch.sqrt((qb * qb).sum(-1))
-                                * torch.sqrt((cb * cb).sum(-1)), 1e-30)
-        return 1.0 - dots / denom
-    return 1.0 - dots                     # dot
-
-
-def group_pairs_plain(ids, n_base: int):
-    """The grouped variant's order of the (query, slot) pairs of (Q, M)
-    ids: each pair p = t M + j keyed by its group, its id (n_base for an
-    id outside [0, n_base)), stably sorted. Returns (groups, pairs), (Q M,)
-    int32 each, in that order."""
-    ident = ids.reshape(-1).long()
-    key = torch.where((ident >= 0) & (ident < n_base), ident, n_base)
-    key, order = torch.sort(key, stable=True)
-    return key.to(torch.int32), order.to(torch.int32)
-
-
-def rerank_group_plain(query, base, ids, metric: str, block: int = 1 << 16):
-    """`rerank_plain`'s function as the grouped variant computes it: the
-    pairs in group_pairs_plain's order, each distance computed there by
-    pair_distances (`block` pairs at a time) and scattered back to its
-    place; an id outside the base gives NaN. Equal bit for bit to
-    pair_distances over the pairs in their own order where the ids are in
-    range; within the fp32 tolerance of rerank_plain."""
-    q_rows, m = ids.shape
-    n_base = base.shape[0]
-    keys, pairs = group_pairs_plain(ids, n_base)
-    out = torch.empty(q_rows * m, device=query.device)
-    for s in range(0, q_rows * m, block):
-        p = pairs[s:s + block].long()
-        ident = keys[s:s + block].long()
-        ok = ident < n_base
-        cb = base[torch.where(ok, ident, 0)] if n_base else \
-            base.new_zeros((len(p), base.shape[1]))
-        d = pair_distances(query[p // m], cb, metric)
-        out[p] = torch.where(ok, d, torch.nan)
-    return out.view(q_rows, m)
-
-
-GROUPED_MAX_DIM = 2048        # a base row in the registers of a warp
-GROUPED_MAX = 2 ** 30         # pairs and base rows, counted in 32 bits
-_SCAN_CHUNK = 4096            # groups a block of the scan
-
-
-@dataclasses.dataclass(frozen=True)
-class RerankPlan:
-    """F3's launch. "grouped": the pairs sorted by id on the card;
-    `workspace_bytes` of scratch (rerank_workspace). "rowwise": nothing
-    planned, for the reason given."""
-    variant: str            # "grouped" or "rowwise"
-    reason: str             # why "rowwise" ("" for "grouped")
-    workspace_bytes: int
-
-
-def _r4(n: int) -> int:
-    return -(-n // 4) * 4
-
-
-def rerank_workspace(q_rows: int, m: int, n_base: int) -> int:
-    """Bytes of the grouped variant's scratch, as the C launch functions
-    recompute it: the groups' counts (n_base + 1), the scan blocks'
-    totals, the sorted groups and pairs, the query norms; 4-byte words,
-    each part a multiple of 4."""
-    groups = n_base + 1
-    return 4 * (_r4(groups) + _r4(-(-groups // _SCAN_CHUNK))
-                + 2 * _r4(q_rows * m) + _r4(q_rows))
-
-
-def rerank_plan(q_rows: int, m: int, dim: int, n_base: int,
-                aligned: bool = True) -> RerankPlan:
-    """The grouped kernel's launch for an F3 call of `q_rows` x `m` pairs
-    over `n_base` rows of `dim` values: "grouped" where the kernel takes
-    the call (a pair at least, dim % 4 == 0 and dim <= GROUPED_MAX_DIM: a
-    row in a warp's registers; query and base 16-byte aligned; the pairs
-    and rows counted in 32 bits), else "rowwise" with the reason."""
-    if min(q_rows, m, dim, n_base) < 0:
-        raise ValueError(f"rerank_plan({q_rows}, {m}, {dim}, {n_base}): "
-                         f"nothing to plan")
-
-    def rowwise(reason):
-        return RerankPlan("rowwise", reason, 0)
-    pairs = q_rows * m
-    if pairs == 0:
-        return rowwise("empty")
-    if dim % 4 or dim > GROUPED_MAX_DIM:
-        return rowwise("dim")
-    if not aligned:
-        return rowwise("unaligned")
-    if pairs >= GROUPED_MAX or n_base >= GROUPED_MAX:
-        return rowwise("size")
-    return RerankPlan("grouped", "", rerank_workspace(q_rows, m, n_base))
-
-
-_rerank_plans: dict = {}
-
-
-def _plan_rerank(dev, q_rows, m, dim, n_base, aligned) -> RerankPlan:
-    """rerank_plan on this device, once per shape; a shape sent to
-    "rowwise" is kept in `rerank_rows.rowwise_plans` and logged the first
-    time."""
-    key = (dev, q_rows, m, dim, n_base, aligned)
-    pl = _rerank_plans.get(key)
-    if pl is None:
-        pl = _rerank_plans[key] = rerank_plan(q_rows, m, dim, n_base,
-                                              aligned)
-    if pl.variant == "rowwise":
-        shape = (q_rows, m, dim, n_base, aligned)
-        if shape not in rerank_rows.rowwise_plans:
-            _log.info("rerank_rows: %s x %s pairs of %s dims over %s rows "
-                      "(aligned %s) take 'rowwise' by the plan: %s", *shape,
-                      pl.reason)
-        rerank_rows.rowwise_plans[shape] = pl.reason
-    rerank_rows.last_plan = pl
-    return pl
-
-
-def _workspace(dev, pl: RerankPlan):
-    return torch.empty(pl.workspace_bytes // 4, dtype=torch.int32,
-                       device=dev)
-
-
-def group_pairs(ids, n_base: int):
-    """The grouped variant's counting sort alone on the card: (groups,
-    pairs) as group_pairs_plain defines them, in the kernel's order (within
-    a group the scatter's atomics order the pairs). For checks; the
-    launch counts are not touched."""
-    ids = ids.to(torch.int64).contiguous()
-    q_rows, m = ids.shape
-    dev = ids.device
-    size = rerank_workspace(q_rows, m, n_base)
-    ws = torch.empty(size // 4, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        err = _launcher("rerank_rows", "group_launch")(
-            ids.data_ptr(), q_rows, m, n_base, ws.data_ptr(), size,
-            _stream(dev))
-    _raise_on(err, "rerank_rows (grouping)")
-    groups = n_base + 1
-    at = _r4(groups) + _r4(-(-groups // _SCAN_CHUNK))
-    p = q_rows * m
-    return ws[at:at + p], ws[at + _r4(p):at + _r4(p) + p]
-
-
 def rerank_rows(query, base, ids, metric: str, block: int | None = None):
     """`rerank_plain`'s function: F3 on CUDA tensors (the candidate rows
     read by id, never gathered; fp32 products and norms with fp32
     accumulation; within the fp32 tolerance of the plain version, whose
-    sums run in another order; an id outside the base gives NaN;
-    "rowwise" by default, or "grouped" on its plan, the same bits), the
+    sums run in another order; an id outside the base gives NaN), the
     plain version on CPU tensors (`block` bounds its gather)."""
     if metric not in METRICS:
         raise ValueError(f"unknown metric {metric!r}; must be one of "
@@ -530,29 +356,15 @@ def rerank_rows(query, base, ids, metric: str, block: int | None = None):
     n_base = base.shape[0]
     out = torch.empty((q_rows, m), device=query.device)
     dev = query.device
-    variant = _forced_variant or DEFAULT_VARIANT["rerank_rows"]
-    if variant == "grouped":
-        pl = _plan_rerank(dev, q_rows, m, dim, n_base,
-                          query.data_ptr() % 16 == 0
-                          and base.data_ptr() % 16 == 0)
-        variant = pl.variant
+    vec = int(dim % 4 == 0 and base.data_ptr() % 16 == 0)
     with torch.cuda.device(dev):
-        if variant == "grouped":
-            ws = _workspace(dev, pl)
-            err = _launcher("rerank_rows", "grouped_launch")(
-                query.data_ptr(), base.data_ptr(), ids.data_ptr(),
-                out.data_ptr(), q_rows, m, dim, n_base,
-                _RERANK_CODE[metric], ws.data_ptr(), pl.workspace_bytes,
-                _stream(dev))
-        else:
-            vec = int(dim % 4 == 0 and base.data_ptr() % 16 == 0)
-            err = _launcher("rerank_rows")(
-                query.data_ptr(), base.data_ptr(), ids.data_ptr(),
-                out.data_ptr(), q_rows, m, dim, n_base,
-                _RERANK_CODE[metric], vec, _stream(dev))
+        err = _launcher("rerank_rows")(
+            query.data_ptr(), base.data_ptr(), ids.data_ptr(),
+            out.data_ptr(), q_rows, m, dim, n_base, _RERANK_CODE[metric],
+            vec, _stream(dev))
     _raise_on(err, "rerank_rows")
     rerank_rows.launches += 1
-    rerank_rows.launches_by_variant[variant] += 1
+    rerank_rows.launches_by_variant["rowwise"] += 1
     return out
 
 
@@ -793,13 +605,11 @@ def split_distance(q, qn, tile, bn, metric: str, lo: int = 0,
 
 def reset_launches() -> None:
     """Set every wrapper's launch counts to 0 (F3's per variant too) and
-    forget the shapes F3's plan sent to "rowwise" and F4's to fp32."""
+    forget the shapes F4's plan sent to fp32."""
     prepare_base.launches = 0
     distance_tile.launches = 0
     rerank_rows.launches = 0
     rerank_rows.launches_by_variant = {v: 0 for v in VARIANTS}
-    rerank_rows.rowwise_plans = {}
-    rerank_rows.last_plan = None
     split_distance.launches = 0
     split_distance.split_launches = 0
     split_distance.fp32_plans = {}

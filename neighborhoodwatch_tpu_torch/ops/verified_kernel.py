@@ -24,16 +24,11 @@ proof are added to a counter per device (a device tensor for the kernel),
 read by `failed_rows()`: the engines never read it, so they add no host
 sync.
 
-The source holds two variants with the same outputs bit for bit:
-"adaptive" (the default: rows held in registers, an adaptive first digit,
+The kernel ("adaptive": rows held in registers, an adaptive first digit,
 a persistent grid that prefetches the next row with bulk copies, clusters
-for wide or few rows; launched on the plan `plan` computes) and "radix"
-(the first version: one block of 512 threads a row, four 8-bit digits).
-`forced_variant` launches the other one for a comparison; launches are
-counted in all and per variant.
+for wide or few rows) is launched on the plan `plan` computes.
 """
 
-import contextlib
 import ctypes
 import functools
 from dataclasses import dataclass
@@ -45,10 +40,7 @@ from neighborhoodwatch_tpu_torch.ops.topk import smallest_k
 # candidates the kernel sorts in shared memory (margin <= this, k <= 6553)
 MAX_MARGIN = 8192
 
-VARIANTS = ("radix", "adaptive")
-_forced_variant = None
-
-# the "adaptive" variant's constants (csrc/verified_select.cu)
+# the kernel's constants (csrc/verified_select.cu)
 THREADS = 256           # a block
 KEYS_PER_THREAD = 32    # held in registers
 TILE = THREADS * KEYS_PER_THREAD   # a block's slice up to this stays resident
@@ -78,7 +70,7 @@ def supports(n: int, k: int) -> bool:
 
 
 def candidate_capacity(margin: int) -> int:
-    """Candidates the "adaptive" kernel gathers at most before it sorts
+    """Candidates the kernel gathers at most before it sorts
     them (through a second buffer of as many): with P the power of two >=
     max(margin, 32), 2P up to P = 256, P + 512 above. The bins below the
     boundary bin and the boundary bin itself then fit without a further
@@ -89,7 +81,7 @@ def candidate_capacity(margin: int) -> int:
 
 @dataclass(frozen=True)
 class Plan:
-    """The launch of the "adaptive" variant for one (Q, N) tile."""
+    """The kernel's launch for one (Q, N) tile."""
     path: str           # "persistent" (a block a row) or "cluster"
     threads: int        # a block
     keys_per_thread: int    # per sweep; kept in registers when resident
@@ -107,7 +99,7 @@ class Plan:
 @functools.lru_cache(maxsize=256)
 def plan(q: int, n: int, k: int, sms: int = 132,
          aligned: bool = True) -> Plan:
-    """The "adaptive" launch for a (q, n) tile at this k on a card of `sms`
+    """The kernel's launch for a (q, n) tile at this k on a card of `sms`
     SMs (`aligned`: the tile's base address is 16-byte aligned).
 
     A row takes one block where the tile has rows enough to give every SM
@@ -167,28 +159,6 @@ def plan(q: int, n: int, k: int, sms: int = 132,
                 buffers=buffers, smem_bytes=smem)
 
 
-def pick_variant(q: int, n: int, k: int) -> str:
-    """The kernel variant for a (q, n) tile at this k: "adaptive" takes
-    every shape the kernel takes (the plan above chooses its path)."""
-    plan(max(q, 1), n, k)
-    return "adaptive"
-
-
-@contextlib.contextmanager
-def forced_variant(name: str):
-    """Launch `name` instead of the variant `pick_variant` would choose, for
-    tests and timings that hold the two against each other."""
-    global _forced_variant
-    if name not in VARIANTS:
-        raise ValueError(f"variant {name!r} not in {VARIANTS}")
-    before = _forced_variant
-    _forced_variant = name
-    try:
-        yield
-    finally:
-        _forced_variant = before
-
-
 def top_margin(d, margin: int):
     """The candidate stage of the plain version: the margin smallest of each
     row by (value, position), from a stable sort."""
@@ -235,9 +205,6 @@ def load_library():
     lib = cuda_build.load("verified_select")
     if not getattr(lib, "_nw_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.verified_select_radix_launch.argtypes = [p, i, i, i, i, i, p, p,
-                                                     p, p, p]
-        lib.verified_select_radix_launch.restype = i
         lib.verified_select_adaptive_launch.argtypes = [
             p, i, i, i, i, i, p, p, p, p, i, i, i, i, i,
             ctypes.POINTER(i), p]
@@ -265,23 +232,19 @@ def _failed_counter(device) -> torch.Tensor:
     return t
 
 
-def _launch(lib, variant: str, args, stream, sms: int, aligned: bool):
-    """Launch `variant` of the kernel with `args` (the tile's pointer, Q,
-    N, k, margin, exclude, the outputs' pointers and the counter's), the
-    "adaptive" one on its plan. A refused launch raises; no other variant
-    is tried."""
-    if variant == "radix":
-        err = lib.verified_select_radix_launch(*args, stream)
-    else:
-        pl = plan(args[1], args[2], args[3], sms, aligned)
-        active = ctypes.c_int(0)
-        err = lib.verified_select_adaptive_launch(
-            *args, pl.cluster, pl.clusters, pl.slice, pl.buffers,
-            pl.smem_bytes, ctypes.byref(active), stream)
-        verified_select.last_plan = (pl, active.value)
+def _launch(lib, args, stream, sms: int, aligned: bool):
+    """Launch the kernel with `args` (the tile's pointer, Q, N, k, margin,
+    exclude, the outputs' pointers and the counter's) on its plan. A
+    refused launch raises; nothing else is tried."""
+    pl = plan(args[1], args[2], args[3], sms, aligned)
+    active = ctypes.c_int(0)
+    err = lib.verified_select_adaptive_launch(
+        *args, pl.cluster, pl.clusters, pl.slice, pl.buffers,
+        pl.smem_bytes, ctypes.byref(active), stream)
+    verified_select.last_plan = (pl, active.value)
     if err != 0:
-        raise RuntimeError(f"verified_select kernel ({variant}) launch "
-                           f"failed: CUDA error {err}")
+        raise RuntimeError(f"verified_select kernel launch failed: CUDA "
+                           f"error {err}")
 
 
 def verified_select(d, k: int, exclude: int = -1):
@@ -310,7 +273,7 @@ def verified_select(d, k: int, exclude: int = -1):
         raise ValueError(f"k={k}: {margin} candidates exceed the kernel's "
                          f"{MAX_MARGIN}")
     dev = d.device
-    variant = _forced_variant or pick_variant(q_count, n, k)
+    plan(max(q_count, 1), n, k)     # refuses a shape even at q = 0
     out_d = torch.empty((q_count, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((q_count, k), dtype=torch.int64, device=dev)
     ok = torch.empty(q_count, dtype=torch.bool, device=dev)
@@ -318,20 +281,18 @@ def verified_select(d, k: int, exclude: int = -1):
         return out_d, out_i, ok
     failed = _failed_counter(dev)
     with torch.cuda.device(dev):
-        _launch(load_library(), variant,
+        _launch(load_library(),
                 (d.data_ptr(), q_count, n, k, margin, exclude,
                  out_d.data_ptr(), out_i.data_ptr(), ok.data_ptr(),
                  failed.data_ptr()),
                 torch.cuda.current_stream(dev).cuda_stream, _sm_count(dev),
                 d.data_ptr() % 16 == 0)
     verified_select.launches += 1
-    verified_select.launches_by_variant[variant] += 1
     return out_d, out_i, ok
 
 
 verified_select.launches = 0
-verified_select.launches_by_variant = {v: 0 for v in VARIANTS}
-# the last "adaptive" launch: (its plan, clusters the card holds at once)
+# the last launch: (its plan, clusters the card holds at once)
 verified_select.last_plan = None
 
 

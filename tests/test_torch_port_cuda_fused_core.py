@@ -16,10 +16,7 @@ Tolerances: F1's bf16 operand and F2's distances are bit for bit; F1's
 norms differ from torch's sums only by the order of addition, at most
 (dim + 16) 2^-24 relative, and its statistics stay upper bounds of the
 float64 truth; F3's distances within 1e-5 (fp32 sums in another order on
-unit rows). F3's two variants ("rowwise", the default, and "grouped", on
-the plan of fused_core.rerank_plan) give the same bits, and the grouped
-variant's grouping (the counting sort alone) equals the stable sort of
-the plain grouping within each id."""
+unit rows), the same bits on every run."""
 
 import numpy as np
 import pytest
@@ -200,32 +197,24 @@ def _unit(rng, n, dim):
     return x / np.linalg.norm(x, axis=1, keepdims=True)
 
 
-def _on_f3_variant(variant, fn):
-    """`fn` under F3's `variant`, twice, equal bit for bit; for "grouped"
-    equal bit for bit to "rowwise" too."""
-    with fc.forced_variant(variant):
-        got, again = fn(), fn()
+def _twice(fn):
+    """`fn` twice, equal bit for bit."""
+    got, again = fn(), fn()
     torch.cuda.synchronize()
     assert torch.equal(_bits(got), _bits(again))
-    if variant == "grouped":
-        with fc.forced_variant("rowwise"):
-            other = fn()
-        assert torch.equal(_bits(got), _bits(other))
     return got
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("variant", ["grouped", "rowwise"])
 @pytest.mark.parametrize("metric", METRICS)
 @pytest.mark.parametrize("q_rows,m,dim,n", [
     (300, 256, 1536, 5000), (64, 37, 128, 999), (50, 100, 8, 300),
     (64, 37, 130, 999), (50, 100, 7, 300), (20, 300, 64, 4096),
     (7, 33, 2048, 50)])
-def test_rerank_rows_matches_plain(cuda, metric, q_rows, m, dim, n,
-                                   variant):
-    """Both variants against the plain version (dims no multiple of 4 go
-    to "rowwise" by the plan, the same launch), NaN rows, duplicates, an
-    id outside the base."""
+def test_rerank_rows_matches_plain(cuda, metric, q_rows, m, dim, n):
+    """The kernel against the plain version (16-byte loads where dim % 4
+    == 0, single values elsewhere), NaN rows, duplicates, an id outside
+    the base."""
     rng = np.random.default_rng(q_rows + m + dim)
     q = torch.from_numpy(_unit(rng, q_rows, dim)).to(cuda)
     b = torch.from_numpy(_unit(rng, n, dim)).to(cuda)
@@ -235,13 +224,8 @@ def test_rerank_rows_matches_plain(cuda, metric, q_rows, m, dim, n,
     ids[:, 1] = ids[:, 2]                    # duplicates
     want = fc.rerank_plain(q, b, ids, metric, block=16)
     launches = fc.rerank_rows.launches
-    got = _on_f3_variant(variant, lambda: fc.rerank_rows(
-        q, b, ids.to(torch.int32), metric))
-    assert fc.rerank_rows.launches == launches + (3 if variant == "grouped"
-                                                  else 2)
-    if variant == "grouped":               # dims no multiple of 4: rowwise
-        assert fc.rerank_rows.last_plan.variant == (
-            "grouped" if dim % 4 == 0 else "rowwise")
+    got = _twice(lambda: fc.rerank_rows(q, b, ids.to(torch.int32), metric))
+    assert fc.rerank_rows.launches == launches + 2
     assert torch.equal(torch.isnan(got), torch.isnan(want))
     assert bool(torch.isnan(got[:, 0]).all())
     fin = ~torch.isnan(want)
@@ -249,72 +233,35 @@ def test_rerank_rows_matches_plain(cuda, metric, q_rows, m, dim, n,
     # an id outside the base gives NaN, and nothing else changes
     ids[0, 5] = n
     ids[-1, -1] = -3
-    got2 = _on_f3_variant(variant, lambda: fc.rerank_rows(q, b, ids, metric))
+    got2 = _twice(lambda: fc.rerank_rows(q, b, ids, metric))
     assert bool(torch.isnan(got2[0, 5])) and bool(torch.isnan(got2[-1, -1]))
     got2[0, 5], got2[-1, -1] = got[0, 5], got[-1, -1]
     assert torch.equal(_bits(got2), _bits(got))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["random", "repeated", "shared",
-                                  "out_of_range", "one_row"])
-def test_grouping_matches_plain(cuda, case):
-    """The grouped variant's counting sort on the card: the groups equal
-    the plain grouping's (ids ascending, bad ids last), and each group
-    holds the same pairs (their order within a group is the scatter's)."""
-    rng = np.random.default_rng(len(case))
-    n = 100_000
-    ids = torch.from_numpy(rng.integers(0, n, (1000, 256))).to(cuda)
-    if case == "repeated":
-        ids[:, 1::3] = ids[:, :1]
-    elif case == "shared":
-        ids[:, 7] = 12_345
-    elif case == "out_of_range":
-        ids[::7, 3] = n
-        ids[::11, 9] = -1
-    elif case == "one_row":
-        ids[:] = 5
-    keys, pairs = fc.group_pairs(ids, n)
-    kp, pp = fc.group_pairs_plain(ids, n)
-    assert torch.equal(keys, kp)
-    p = ids.numel()
-    order = torch.sort(keys.long() * p + pairs.long()).values % p
-    assert torch.equal(order.to(torch.int32), pp)
-
-
-@pytest.mark.cuda
-def test_rerank_plan_on_the_card(cuda):
-    """F3 on this card: "rowwise" by default; under "grouped" nw's re-rank
-    and a call of four queries take the grouped kernel, the same bits, and
-    a dim no multiple of 4 goes to "rowwise" by the plan, the shape kept
-    with its reason; "plain" runs the plain version, counted there; each
-    launch counted on its variant."""
+def test_rerank_forced_variants_on_the_card(cuda):
+    """F3 on this card at nw's re-rank (1,000 x 256 of 1,024 dims over
+    100,000 rows): "rowwise" by default and forced, the same bits, a dim no
+    multiple of 4 too; "plain" runs the plain version, counted there;
+    each launch counted on its variant."""
     rng = np.random.default_rng(5)
     fc.reset_launches()
     q = torch.from_numpy(_unit(rng, 1000, 1024)).to(cuda)
     b = torch.from_numpy(_unit(rng, 100_000, 1024)).to(cuda)
     ids = torch.from_numpy(rng.integers(0, 100_000, (1000, 256))).to(cuda)
     got = fc.rerank_rows(q, b, ids, "sqeuclidean")
-    assert fc.rerank_rows.last_plan is None
-    with fc.forced_variant("grouped"):
-        grouped = fc.rerank_rows(q, b, ids, "sqeuclidean")
-        assert fc.rerank_rows.last_plan.variant == "grouped"
-        small = fc.rerank_rows(q[:4], b, ids[:4], "sqeuclidean")
-        assert fc.rerank_rows.last_plan.variant == "grouped"
+    with fc.forced_variant("rowwise"):
+        forced = fc.rerank_rows(q, b, ids, "sqeuclidean")
         odd = fc.rerank_rows(q[:4, :130], b[:, :130], ids[:4], "dot")
-        assert fc.rerank_rows.last_plan.reason == "dim"
-    assert torch.equal(_bits(grouped), _bits(got))
-    assert torch.equal(_bits(small), _bits(got[:4]))
+    assert torch.equal(_bits(forced), _bits(got))
     want = fc.rerank_plain(q[:4, :130], b[:, :130], ids[:4], "dot")
     assert float((odd - want).abs().max()) <= TOL
     with fc.forced_variant("plain"):
         plain = fc.rerank_rows(q, b, ids, "sqeuclidean", block=64)
     assert float((plain - got).abs().max()) <= TOL
-    assert fc.rerank_rows.launches == 4
-    assert fc.rerank_rows.launches_by_variant == {"grouped": 2,
-                                                  "rowwise": 2, "plain": 1}
-    assert fc.rerank_rows.rowwise_plans == {(4, 256, 130, 100_000, True):
-                                            "dim"}
+    assert fc.rerank_rows.launches == 3
+    assert fc.rerank_rows.launches_by_variant == {"rowwise": 3, "plain": 1}
 
 
 @pytest.mark.cuda

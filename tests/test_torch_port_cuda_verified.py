@@ -63,11 +63,9 @@ def _same(got, want):
     assert torch.equal(got[2].cpu(), want[2])
 
 
-def _plan_of(variant, q, n, k):
-    """The path the launch took: "radix", or the "adaptive" plan's path and
-    where its keys live."""
-    if variant == "radix":
-        return "radix"
+def _plan_of(q, n, k):
+    """The path the launch took: the plan's path and where its keys
+    live."""
     pl, active = vk.verified_select.last_plan
     assert active >= 1
     assert pl == vk.plan(q, n, k, vk._sm_count(torch.device("cuda")))
@@ -75,7 +73,6 @@ def _plan_of(variant, q, n, k):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("variant", vk.VARIANTS)
 @pytest.mark.parametrize("q,n,k,kind", [
     (7, 100, 1, "random"),
     (64, 8192, 100, "random"),
@@ -109,7 +106,7 @@ def _plan_of(variant, q, n, k):
     (3, 300, 300, "nan"),
     # the largest k the kernel sorts in shared memory
     (2, 9000, 6553, "random")])
-def test_verified_select_matches_plain(cuda, variant, q, n, k, kind):
+def test_verified_select_matches_plain(cuda, q, n, k, kind):
     """The kernel returns what the plain version returns, position for
     position and bit for bit (both keep the lowest positions among equal
     values), the proof holds on every row and no row falls back."""
@@ -118,24 +115,22 @@ def test_verified_select_matches_plain(cuda, variant, q, n, k, kind):
     vk.reset_failed_rows()
     want = vk.verified_select_plain(d, k)
     launches = vk.verified_select.launches
-    with vk.forced_variant(variant):
-        got = vk.verified_select(d.to(cuda), k)
+    got = vk.verified_select(d.to(cuda), k)
     torch.cuda.synchronize()
     assert vk.verified_select.launches == launches + 1
-    _plan_of(variant, q, n, k)
+    _plan_of(q, n, k)
     _same(got, want)
     assert bool(want[2].all())
     assert vk.failed_rows() == 0
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("variant", vk.VARIANTS)
 @pytest.mark.parametrize("q,n,k,path", [
     (200, 8192, 100, "persistent/registers"),
     (6, 32768, 1024, "cluster/registers"),
     (3, 262144, 100, "cluster/shared"),
     (6, 70001, 10, "cluster/device")])
-def test_planted_failure_falls_back_in_kernel(cuda, variant, q, n, k, path):
+def test_planted_failure_falls_back_in_kernel(cuda, q, n, k, path):
     """Column 0 holds each row's minimum and is kept out of the candidate
     stage: every row fails the proof, is counted, and is selected again
     exactly inside the kernel, on every path of the plan."""
@@ -143,35 +138,15 @@ def test_planted_failure_falls_back_in_kernel(cuda, variant, q, n, k, path):
     d = torch.from_numpy(_tile(rng, q, n, "random"))
     d[:, 0] = -1.0
     vk.reset_failed_rows()
-    with vk.forced_variant(variant):
-        dist, pos, ok = vk.verified_select(d.to(cuda), k, exclude=0)
+    dist, pos, ok = vk.verified_select(d.to(cuda), k, exclude=0)
     torch.cuda.synchronize()
-    assert _plan_of(variant, q, n, k) in ("radix", path)
+    assert _plan_of(q, n, k) == path
     assert not bool(ok.any())
     assert vk.failed_rows() == q
     want_d, want_i = smallest_k(d, k)
     assert torch.equal(pos.cpu(), want_i)
     assert torch.equal(dist.cpu(), want_d)
     _same((dist, pos, ok), vk.verified_select(d, k, exclude=0))
-
-
-@pytest.mark.cuda
-def test_forced_variant_counts_launches_per_variant(cuda):
-    """The default is "adaptive"; forced_variant launches the other one,
-    and each launch is counted in all and under its variant."""
-    d = torch.rand((50, 3000), device=cuda)
-    before = dict(vk.verified_select.launches_by_variant)
-    launches = vk.verified_select.launches
-    vk.verified_select(d, 10)
-    with vk.forced_variant("radix"):
-        vk.verified_select(d, 10)
-        vk.verified_select(d, 10)
-    with vk.forced_variant("adaptive"):
-        vk.verified_select(d, 10)
-    after = vk.verified_select.launches_by_variant
-    assert after["adaptive"] - before["adaptive"] == 2
-    assert after["radix"] - before["radix"] == 2
-    assert vk.verified_select.launches - launches == 4
 
 
 @pytest.mark.cuda

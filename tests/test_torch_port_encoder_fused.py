@@ -42,12 +42,23 @@ DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 # (hidden, heads): head dim 16; a width not divisible by 8 (head dim 12)
 WIDTHS = [(64, 4), (36, 3)]
+# the encoders' widths (e5-small 384, bert-base and ColBERT 768, e5-large
+# 1,024), a four-warp row (1,032) and the widest row E1 takes (4,096)
+E1_WIDTHS = WIDTHS + [(384, 6), (768, 12), (1024, 16), (1032, 8),
+                      (4096, 32)]
 REAL_LAUNCHER = ef._launcher
+
+
+def _vocab(hidden):
+    """Word rows of a table of at most 2^22 values (16 MB): BERT's 30,522
+    up to 137 values a row, fewer above."""
+    return min(30522, 2 ** 22 // hidden)
 
 
 def _configs(dtype, hidden, heads, layers):
     kw = dict(hidden_size=hidden, num_heads=heads, num_layers=layers,
-              intermediate_size=2 * hidden, dtype=dtype)
+              intermediate_size=2 * hidden, dtype=dtype,
+              vocab_size=_vocab(hidden))
     return bert_flax.BertConfig(**kw), tbert.BertConfig(**kw)
 
 
@@ -65,13 +76,14 @@ def _carried(dtype, hidden, heads, layers, seed):
     return jcfg, params, enc.eval()
 
 
-def _ids(seed, lengths, T):
+def _ids(seed, lengths, T, vocab=30522):
     """(B, T) ids and mask: row i holds lengths[i] valid tokens (0: an
     all-padding row, as pad_rows adds to a ragged tail chunk)."""
     rng = np.random.default_rng(seed)
     mask = (np.arange(T)[None, :] < np.asarray(lengths)[:, None]).astype(
         np.int32)
-    ids = rng.integers(999, 30522, mask.shape).astype(np.int32) * mask
+    ids = rng.integers(min(999, vocab // 2), vocab, mask.shape).astype(
+        np.int32) * mask
     return ids, mask
 
 
@@ -92,13 +104,13 @@ CASES = [((5, 32, 0, 17), 32), ((1, 0), 1)]   # ragged + all-padding; T = 1
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("hidden,heads", WIDTHS)
+@pytest.mark.parametrize("hidden,heads", E1_WIDTHS)
 def test_embeddings_match_flax(dtype, hidden, heads):
     """E1's plain path: the encoder with no layers is the embeddings, their
     LayerNorm and the cast, against bert_flax.BertEncoder(num_layers=0)."""
     jcfg, params, enc = _carried(dtype, hidden, heads, 0, seed=hidden)
     for lengths, T in CASES:
-        ids, mask = _ids(T, lengths, T)
+        ids, mask = _ids(T, lengths, T, _vocab(hidden))
         want = bert_flax.BertEncoder(jcfg).apply(
             params, jnp.asarray(ids), jnp.asarray(mask))
         with torch.no_grad():
@@ -342,17 +354,24 @@ def card(monkeypatch):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
                                    torch.float32])
-@pytest.mark.parametrize("name", WRAPPERS)
-def test_card_tensors_launch_and_count(card, name, dtype):
+@pytest.mark.parametrize("name,hidden", [
+    pytest.param(name, 64, id=name) for name in WRAPPERS] + [
+    # E1 and E2 over the encoders' widths (e5-small 384, bert-base and
+    # ColBERT 768, e5-large 1,024), the widest row, four-warp rows
+    # (1,032); E2 also over widths of single values (36, 200) or a few
+    # lanes (8)
+    ("embed_layernorm", h) for h, _ in E1_WIDTHS[2:]] + [
+    ("add_layernorm", h) for h in (384, 768, 1024, 4096, 1032, 200, 8,
+                                   36)])
+def test_card_tensors_launch_and_count(card, name, hidden, dtype):
     """A card tensor launches a kernel once, on the current stream, with
     the shapes, dtype code and scale the C interface takes; counted. E1
-    and E2 take "rowpass" by default, with no launch plan asked for; E3
-    "staged", its plan's grid, passes and bytes after the arguments the
-    "rowpass" launch takes."""
-    out = _calls("meta", dtype)[name]()
+    and E2 launch their one kernel, with no launch plan or occupancy query
+    asked for; E3 "staged", its plan's grid and passes (and 0 bytes of
+    shared memory) after the arguments the "rowpass" launch takes."""
+    out = _calls("meta", dtype, hidden=hidden)[name]()
     assert out.device.type == "meta" and out.dtype == dtype
-    variant = ef.DEFAULT_VARIANT[name]
-    assert variant == ("staged" if name == "masked_softmax" else "rowpass")
+    variant = "staged" if name == "masked_softmax" else "rowpass"
     entry = "staged_launch" if variant == "staged" else "launch"
     assert [c[:2] for c in card.calls] == [(name, entry)]
     assert (card.queries == []) == (variant == "rowpass")
@@ -364,12 +383,12 @@ def test_card_tensors_launch_and_count(card, name, dtype):
         assert args[3:8] == (2, 4, 16, code, math.sqrt(16))
         pl = w.last_plan
         assert pl.variant == "staged"
-        assert args[8:-1] == (pl.grid, pl.passes, pl.smem_bytes)
+        assert args[8:-1] == (pl.grid, pl.passes, 0)
     elif name == "add_layernorm":
-        assert args[5:8] == (2 * 16, 64, code)
-        assert w.last_plan is None
+        assert args[5:8] == (2 * 16, hidden, code)
+        assert ef.masked_softmax.last_plan is None
     else:
-        assert args[7:12] == (2, 16, 64, 50, code)
+        assert args[7:12] == (2, 16, hidden, 50, code)
     assert w.launches == 1 and w.launches_by_variant == {
         "staged": 0, "rowpass": 0, "plain": 0, variant: 1}
 
@@ -474,16 +493,7 @@ def test_a_failed_build_raises(card, monkeypatch, tmp_path, name):
     assert list(tmp_path.iterdir()) == []
 
 
-STAGED = ("embed_layernorm", "add_layernorm", "masked_softmax")
-
-
-def _staged_tail(name, pl):
-    """The plan's numbers a "staged" launch takes after the "rowpass"
-    arguments: (grid, passes, bytes); E1 (grid, rows a step, passes,
-    bytes)."""
-    if name == "embed_layernorm":
-        return (pl.grid, pl.rows_per_step, pl.passes, pl.smem_bytes)
-    return (pl.grid, pl.passes, pl.smem_bytes)
+STAGED = ("masked_softmax",)
 
 
 @pytest.mark.parametrize("name", STAGED)
@@ -502,7 +512,7 @@ def test_staged_plan_is_asked_once_a_shape(card, name):
     assert [c[1] for c in card.calls] == ["staged_launch"] * 2
     pl = getattr(ef, name).last_plan
     assert pl.variant == "staged"
-    tail = _staged_tail(name, pl)
+    tail = (pl.grid, pl.passes, 0)
     assert all(len(c[2]) == len(ef._ARGTYPES[name]["staged_launch"]) and
                c[2][-1 - len(tail):-1] == tail for c in card.calls)
     w = getattr(ef, name)
@@ -514,12 +524,11 @@ def test_staged_plan_is_asked_once_a_shape(card, name):
 def test_rows_bulk_copies_cannot_take_go_to_rowpass_by_plan(card,
                                                             monkeypatch,
                                                             name):
-    """Under forced_variant("staged"), a width no multiple of 8 (hidden
-    36 for E1 and E2, T 12 for E3) or an unaligned pointer: the plan sends
+    """Under forced_variant("staged"), a width no multiple of 8 (T 12) or
+    an unaligned pointer: the plan sends
     the launch to "rowpass" (the first kernel's entry), counted there, the
     shape and reason kept in `rowpass_plans`."""
-    odd = (_calls("meta", seq=12) if name == "masked_softmax"
-           else _calls("meta", hidden=36, heads=3))
+    odd = _calls("meta", seq=12)
     w = getattr(ef, name)
     with ef.forced_variant("staged"):
         odd[name]()
@@ -534,20 +543,21 @@ def test_rows_bulk_copies_cannot_take_go_to_rowpass_by_plan(card,
         "staged": 0, "rowpass": 2, "plain": 0}
 
 
-@pytest.mark.parametrize("name", STAGED)
+@pytest.mark.parametrize("name", WRAPPERS)
 def test_forced_variants_on_card_tensors(card, monkeypatch, name):
-    """"rowpass" launches the first kernel without a plan, "staged" on its
-    plan, the default (E1 and E2 "rowpass", E3 "staged") as if forced;
-    "plain" runs the plain version, counted there only."""
+    """E3: "rowpass" launches the first kernel without a plan, "staged" on
+    its plan, the default as "staged"; E1 and E2 launch their one kernel
+    under either and by default. "plain" runs the plain version, counted
+    there only."""
     with ef.forced_variant("rowpass"):
         _calls("meta")[name]()
     with ef.forced_variant("staged"):
         _calls("meta")[name]()
     _calls("meta")[name]()
-    staged_default = ef.DEFAULT_VARIANT[name] == "staged"
-    default = "staged_launch" if staged_default else "launch"
-    assert [c[1] for c in card.calls] == ["launch", "staged_launch",
-                                          default]
+    staged = name == "masked_softmax"
+    on_plan = "staged_launch" if staged else "launch"
+    assert [c[1] for c in card.calls] == ["launch", on_plan, on_plan]
+    assert (card.queries == []) == (not staged)
     ran = []
     monkeypatch.setattr(ef, f"{name}_plain",
                         lambda *a, **kw: ran.append(name) or a[0])
@@ -555,10 +565,10 @@ def test_forced_variants_on_card_tensors(card, monkeypatch, name):
         _calls("meta")[name]()
     w = getattr(ef, name)
     assert ran == [name] and len(card.calls) == 3
-    staged = 2 if staged_default else 1
+    n_staged = 2 if staged else 0
     assert w.launches == 3 and w.launches_by_variant == {
-        "staged": staged, "rowpass": 3 - staged, "plain": 1}
-    assert w.rowpass_plans == {}
+        "staged": n_staged, "rowpass": 3 - n_staged, "plain": 1}
+    assert ef.masked_softmax.rowpass_plans == {}
 
 
 @pytest.mark.parametrize("name", STAGED)

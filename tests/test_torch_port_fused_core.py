@@ -3,11 +3,9 @@ and the engines around them, on the CPU, against the JAX package's jitted
 functions they stand for: F1 `prepare_plain` against `_prepare_arrays`, F2
 (`distance_tile_plain` inside `_knn_scan` / `_knn_full`) against JAX's
 `_knn_scan` / `_knn_full`, F3 (`_exact_pair_dists` on (query rows, base,
-ids)) against JAX's `_exact_pair_dists` on gathered rows, F3's grouped
-order (`group_pairs_plain`, `rerank_group_plain`: the pairs sorted by id,
-distances computed there and scattered back, bit for bit
-`pair_distances`' over the pairs in their own order) and its launch plan
-(`rerank_plan`), and
+ids)) against JAX's `_exact_pair_dists` on gathered rows, over random,
+repeated and shared ids and none, F3's routing on meta tensors standing
+for CUDA tensors (a fake library: one `rerank_rows_launch` a call), and
 `screened_knn_traced` end to end at 1, 2 and 3 passes with planted class-A
 and class-B repairs (the JAX screen kernel in interpret mode).
 
@@ -16,6 +14,8 @@ whose payloads the two frameworks' conversions write differently); norms
 within (dim + 16) 2^-24 relative; statistics at or above the float64
 truth; distances within 1e-5 (fp32 sums in another order); ids equal but
 for ties (tests/torch_port_util.py)."""
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -152,15 +152,37 @@ def test_distance_tile_plain_matches_jax_epilogue(metric):
     np.testing.assert_allclose(got[fin], want[fin], rtol=TOL, atol=TOL)
 
 
-@pytest.mark.parametrize("metric", METRICS)
-@pytest.mark.parametrize("dim", [7, 64, 130])
-def test_exact_pair_dists_matches_jax(metric, dim):
-    rng = np.random.default_rng(dim)
-    q = rng.standard_normal((33, dim)).astype(np.float32)
-    b = rng.standard_normal((500, dim)).astype(np.float32)
+def _rerank_case(case, seed=0, q_rows=33, m=40, n=500, dim=130):
+    """(q, b, ids) of an F3 call: a NaN base row (6); random ids, the
+    first of each row the NaN row, or ids repeated within a row, one id
+    shared by every query, ids outside the base, no ids at all."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((q_rows, dim)).astype(np.float32)
+    b = rng.standard_normal((n, dim)).astype(np.float32)
     b[6] = np.nan
-    ids = rng.integers(0, 500, (33, 40))
-    ids[:, 0] = 6
+    ids = rng.integers(0, n, (q_rows, m))
+    if case == "random":
+        ids[:, 0] = 6
+    elif case == "repeated":                 # ids repeated within a row
+        ids[:, 1::3] = ids[:, 0:1]
+        ids[:, 2] = 6
+    elif case == "shared":                   # one id shared by every query
+        ids[:, 5] = 17
+        ids[:, 7] = 17
+    elif case == "out_of_range":
+        ids[0, 3], ids[4, 0], ids[-1, -1] = n, -1, n + 100
+    elif case == "empty":
+        ids = ids[:, :0]
+    return q, b, ids
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("dim,case", [
+    pytest.param(7, "random", id="7"), pytest.param(64, "random", id="64"),
+    pytest.param(130, "random", id="130"), (130, "repeated"),
+    (130, "shared"), (130, "empty")])
+def test_exact_pair_dists_matches_jax(metric, dim, case):
+    q, b, ids = _rerank_case(case, seed=dim, dim=dim)
     want = np.asarray(jknn._exact_pair_dists(jnp.asarray(q),
                                              jnp.asarray(b[ids]), metric))
     for block in (None, 8):
@@ -211,139 +233,64 @@ def test_screened_traced_repairs_match_jax(precision, case):
                                atol=1e-4)
 
 
-# ------------------------------------------------- F3's grouped variant
+# ------------------------------------------------- F3 on the card's path
 
 
-def _group_case(case, seed=0, q_rows=33, m=40, n=500, dim=130):
-    rng = np.random.default_rng(seed)
-    q = rng.standard_normal((q_rows, dim)).astype(np.float32)
-    b = rng.standard_normal((n, dim)).astype(np.float32)
-    b[6] = np.nan                            # a NaN row
-    ids = rng.integers(0, n, (q_rows, m))
-    if case == "repeated":                   # ids repeated within a row
-        ids[:, 1::3] = ids[:, 0:1]
-        ids[:, 2] = 6
-    elif case == "shared":                   # one id shared by every query
-        ids[:, 5] = 17
-        ids[:, 7] = 17
-    elif case == "out_of_range":
-        ids[0, 3], ids[4, 0], ids[-1, -1] = n, -1, n + 100
-    elif case == "empty":
-        ids = ids[:, :0]
-    return q, b, ids
+class _FakeRerankLibrary:
+    """Stands for the built rerank_rows library: each launch returns `err`
+    and is recorded with its arguments."""
+
+    def __init__(self, err=0):
+        self.err, self.calls = err, []
+
+    def launcher(self, name, entry="launch"):
+        def launch(*args):
+            self.calls.append((name, entry, args))
+            return self.err
+        return launch
 
 
-@pytest.mark.parametrize("metric", METRICS)
+@pytest.fixture()
+def card(monkeypatch):
+    """Meta tensors take F3's kernel path (the CUDA checks widened to
+    them), on a fake library; the plain version raises if called."""
+    lib = _FakeRerankLibrary()
+    monkeypatch.setattr(fc, "_launcher", lib.launcher)
+    monkeypatch.setattr(fc, "_stream", lambda dev: 7)
+    monkeypatch.setattr(fc, "_cuda_f32", lambda t, name: t.contiguous())
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+
+    def plain(*a, **kw):
+        raise AssertionError("rerank_rows ran its plain version on the card")
+    monkeypatch.setattr(fc, "rerank_plain", plain)
+    fc.reset_launches()
+    return lib
+
+
 @pytest.mark.parametrize("case", ["repeated", "shared", "out_of_range",
                                   "empty"])
-def test_grouped_order_equals_pair_distances(metric, case):
-    """Distances computed in the grouped order (by id) and scattered back
-    equal pair_distances over the pairs in their own order bit for bit (a
-    row's product sum does not depend on where the pair lies); an id
-    outside the base gives NaN there and nothing else changes; they agree
-    with rerank_plain (torch.bmm's sums) and with JAX's _exact_pair_dists
-    on the gathered rows within 1e-5 (fp32 sums in another order)."""
-    q, b, ids = _group_case(case, seed=len(case) + len(metric))
-    bad = (ids < 0) | (ids >= len(b))
-    safe = np.where(bad, 0, ids)
-    tq, tb = torch.from_numpy(q), torch.from_numpy(b)
-    got = fc.rerank_group_plain(tq, tb, torch.from_numpy(ids), metric,
-                                block=97)
-    own = fc.pair_distances(tq[:, None, :], tb[torch.from_numpy(safe)],
-                            metric)
-    assert got.shape == ids.shape == own.shape
-    assert bool(torch.isnan(got[torch.from_numpy(bad)]).all())
-    keep = torch.from_numpy(~bad)
-    assert torch.equal(got[keep].view(torch.int32),
-                       own[keep].view(torch.int32))
-    if ids.size:
-        g = got.numpy()
-        plain = fc.rerank_plain(tq, tb, torch.from_numpy(safe), metric,
-                                block=8).numpy()
-        ref = np.asarray(jknn._exact_pair_dists(jnp.asarray(q),
-                                                jnp.asarray(b[safe]),
-                                                metric))
-        for want in (plain, ref):
-            np.testing.assert_array_equal(np.isnan(g)[~bad],
-                                          np.isnan(want)[~bad])
-            fin = ~bad & ~np.isnan(want)
-            np.testing.assert_allclose(g[fin], want[fin], rtol=TOL,
-                                       atol=TOL * q.shape[1])
-
-
-@pytest.mark.parametrize("case", ["repeated", "shared", "out_of_range"])
-def test_group_pairs_plain(case):
-    """Every pair once, groups ascending, each group the pair's id (B for
-    an id outside the base), pairs in their order within a group."""
-    _, b, ids = _group_case(case, seed=3)
-    n = len(b)
-    keys, pairs = fc.group_pairs_plain(torch.from_numpy(ids), n)
-    keys, pairs = keys.numpy().astype(np.int64), pairs.numpy()
-    assert sorted(pairs) == list(range(ids.size))
-    assert (np.diff(keys) >= 0).all()
-    ident = ids.reshape(-1)[pairs]
-    np.testing.assert_array_equal(
-        keys, np.where((ident >= 0) & (ident < n), ident, n))
-    same = np.diff(keys) == 0
-    assert (np.diff(pairs)[same] > 0).all()
-    if case == "shared":                     # one group holds them all
-        assert (keys == 17).sum() == (ids == 17).sum() >= 2 * ids.shape[0]
-
-
-def test_rerank_plan_at_the_main_paths_shapes():
-    """"rowwise" is F3's default; the grouped kernel, where forced, takes
-    every call of the engines' shapes (its plan has rules of shape only):
-    nw's 1,000 x 256 / 320 x 1024 over 100,000 rows, knn(auto)'s 10,000 x
-    256 x 1536 over 1M, its class-A repair's 768 x 1,792 and a few
-    queries, each with the workspace its C launch function recomputes."""
-    assert fc.DEFAULT_VARIANT == {"rerank_rows": "rowwise"}
-    for shape in ((1000, 256, 1024, 100_000), (1000, 320, 1024, 100_000),
-                  (10_000, 256, 1536, 1_000_000),
-                  (768, 1792, 1536, 1_000_000), (8, 512, 1536, 1_000_000),
-                  (300, 256, 1536, 5000)):
-        pl = fc.rerank_plan(*shape)
-        assert (pl.variant, pl.reason) == ("grouped", "")
-        assert pl.workspace_bytes == fc.rerank_workspace(*shape[:2],
-                                                         shape[3])
-
-
-def test_rerank_plan_refusals_and_workspace():
-    plan = fc.rerank_plan
-    assert plan(0, 256, 64, 10).reason == "empty"
-    assert plan(1000, 0, 64, 10).reason == "empty"
-    assert plan(1000, 256, 130, 10).reason == "dim"
-    assert plan(1000, 256, 2052, 10).reason == "dim"
-    assert plan(1000, 256, 2048, 100_000).variant == "grouped"
-    assert plan(1000, 256, 4, 0).variant == "grouped"
-    assert plan(1000, 256, 64, 10, aligned=False).reason == "unaligned"
-    assert plan(2 ** 15, 2 ** 15, 64, 10).reason == "size"
-    assert plan(1000, 256, 64, 2 ** 30).reason == "size"
-    for bad in ((-1, 1, 4, 1), (1, 1, 4, -1)):
-        with pytest.raises(ValueError):
-            plan(*bad)
-    # the layout's words: counts, scan totals, groups, pairs, query norms
-    assert fc.rerank_workspace(3, 5, 9) == 4 * (12 + 4 + 16 + 16 + 4)
-
-
-def test_rerank_plan_is_asked_once_a_shape(monkeypatch):
-    """The wrapper's plan on a device, once a shape; the shapes it sends
-    to "rowwise" kept with their reasons."""
-    monkeypatch.setattr(fc, "_rerank_plans", {})
-    fc.reset_launches()
-    big = fc._plan_rerank("dev", 1000, 256, 1024, 100_000, True)
-    assert big.variant == "grouped" and fc.rerank_rows.last_plan is big
-    assert fc._plan_rerank("dev", 1000, 256, 1024, 100_000, True) is big
-    odd = fc._plan_rerank("dev", 4, 64, 130, 100_000, True)
-    assert odd.variant == "rowwise"
-    loose = fc._plan_rerank("dev", 4, 64, 1024, 100_000, False)
-    assert loose.variant == "rowwise"
-    assert fc.rerank_rows.rowwise_plans == {
-        (4, 64, 130, 100_000, True): "dim",
-        (4, 64, 1024, 100_000, False): "unaligned"}
-    fc.reset_launches()
-    assert fc.rerank_rows.launches_by_variant == {"grouped": 0,
-                                                  "rowwise": 0, "plain": 0}
-    assert fc.rerank_rows.rowwise_plans == {}
+def test_card_tensors_launch_rerank_rows_once(card, case):
+    """Each call launches rerank_rows_launch once, counted under
+    "rowwise", with the shapes and metric code the C interface takes and
+    16-byte loads (`vec`) exactly where dim % 4 == 0 and the base is
+    aligned; the ids go to the kernel as they are, in int64."""
+    _, b, ids = _rerank_case(case)
+    q_rows, m = ids.shape
+    for dim, offset, vec in ((128, 0, 1), (130, 0, 0), (128, 1, 0)):
+        q = torch.empty((q_rows, dim), device="meta")
+        base = torch.empty(len(b) * dim + offset, device="meta")[offset:]
+        t_ids = torch.empty(ids.shape, dtype=torch.int32, device="meta")
+        out = fc.rerank_rows(q, base.view(len(b), dim), t_ids, "cosine")
+        assert out.shape == ids.shape and out.dtype == torch.float32
+        name, entry, args = card.calls[-1]
+        assert (name, entry) == ("rerank_rows", "launch")
+        assert len(args) == len(fc._ARGTYPES["rerank_rows"]["launch"])
+        assert args[1] == base.data_ptr() and args[3] == out.data_ptr()
+        assert args[4:] == (q_rows, m, dim, len(b), 2, vec, 7)
+    assert len(card.calls) == 3
+    assert fc.rerank_rows.launches == 3
+    assert fc.rerank_rows.launches_by_variant == {"rowwise": 3, "plain": 0}
 
 
 def test_rerank_forced_variant_checks_and_restores():
@@ -356,7 +303,7 @@ def test_rerank_forced_variant_checks_and_restores():
         assert fc._forced_variant == "rowwise"
     assert fc._forced_variant is None
     # CPU tensors take the plain version under any variant, uncounted
-    q, b, ids = _group_case("repeated")
+    q, b, ids = _rerank_case("repeated")
     fc.reset_launches()
     want = fc.rerank_plain(torch.from_numpy(q), torch.from_numpy(b),
                            torch.from_numpy(ids), "dot")

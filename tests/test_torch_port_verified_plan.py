@@ -1,12 +1,11 @@
-"""The "adaptive" variant of the verified select (csrc/verified_select.cu)
-on the CPU: its launch plan, the wrapper's refusals, and a PyTorch model of
+"""The verified select's kernel (csrc/verified_select.cu) on the CPU: its launch plan, the wrapper's refusals, and a PyTorch model of
 its candidate stage held against the plain version and the JAX package.
 
 The kernel runs only on the card (tests/test_torch_port_cuda_verified.py
 holds it against the plain version there). What can be checked here is the
 plan the wrapper launches it with (ops/verified_kernel.py:plan, plain
-Python), that a refused launch raises and never falls back to another
-variant, and the algorithm of its candidate stage: `adaptive_candidates`
+Python), that a refused launch raises and is never retried, and the
+algorithm of its candidate stage: `adaptive_candidates`
 below bins each row's ordered keys over the row's finite range, refines the
 boundary bin alone, and gathers all entries up to it or, when one key
 crowds the boundary, the lowest columns equal to it, as the kernel does.
@@ -109,51 +108,46 @@ def test_plan_refuses_what_the_kernel_cannot_take():
         vk.plan(0, 100, 10)
     # an unaligned tile is loaded by the threads, never by bulk copies
     assert vk.plan(1000, 8192, 100, aligned=False).buffers == 0
-    assert vk.pick_variant(1000, 8192, 100) == "adaptive"
 
 
 # ------------------------------------------------- the wrapper's refusals
 
 
 class _FakeLibrary:
-    """Stands for the built library: every launch returns `err`."""
+    """Stands for the built library: every launch returns `err` and is
+    recorded with the plan's arguments it was given."""
 
     def __init__(self, err):
         self.err, self.calls = err, []
 
-    def verified_select_radix_launch(self, *args):
-        self.calls.append("radix")
-        return self.err
-
     def verified_select_adaptive_launch(self, *args):
-        self.calls.append("adaptive")
+        self.calls.append(args[10:15])
         return self.err
 
 
-@pytest.mark.parametrize("variant", vk.VARIANTS)
-def test_a_refused_launch_raises_and_never_falls_back(variant):
+@pytest.mark.parametrize("q,n,aligned,path", [
+    (1000, 8192, True, "persistent/registers"),
+    (6, 32768, True, "cluster/registers"),
+    (128, 32768, True, "cluster/shared"),
+    (2, 1000448, True, "cluster/device"),
+    (4, 4099, True, "cluster/registers"),
+    (1000, 8192, False, "persistent/registers")])
+def test_a_refused_launch_raises_and_never_falls_back(q, n, aligned, path):
     """A launch the library refuses (here: cudaErrorInvalidConfiguration)
-    raises, and the other variant is never tried."""
+    raises and is tried once, on every path of the plan; an accepted one
+    runs once on the plan's cluster, clusters, slice, buffers and bytes."""
+    pl = vk.plan(q, n, 100, 132, aligned)
+    assert f"{pl.path}/{pl.keys_in}" == path
+    want = (pl.cluster, pl.clusters, pl.slice, pl.buffers, pl.smem_bytes)
+    args = (0, q, n, 100, vk.margin_for(n, 100), -1, 0, 0, 0, 0)
     lib = _FakeLibrary(9)
-    args = (0, 1000, 8192, 100, 128, -1, 0, 0, 0, 0)
-    with pytest.raises(RuntimeError, match=variant):
-        vk._launch(lib, variant, args, 0, 132, True)
-    assert lib.calls == [variant]
+    with pytest.raises(RuntimeError, match="CUDA error 9"):
+        vk._launch(lib, args, 0, 132, aligned)
+    assert lib.calls == [want]
     lib = _FakeLibrary(0)
-    vk._launch(lib, variant, args, 0, 132, True)
-    assert lib.calls == [variant]
-
-
-def test_forced_variant_checks_and_restores():
-    with pytest.raises(ValueError):
-        with vk.forced_variant("bitonic"):
-            pass
-    assert vk._forced_variant is None
-    with vk.forced_variant("radix"):
-        with vk.forced_variant("adaptive"):
-            assert vk._forced_variant == "adaptive"
-        assert vk._forced_variant == "radix"
-    assert vk._forced_variant is None
+    vk._launch(lib, args, 0, 132, aligned)
+    assert lib.calls == [want]
+    assert vk.verified_select.last_plan == (pl, 0)
 
 
 # ------------------------------------- a model of the candidate stage
